@@ -1,0 +1,114 @@
+"""Build and load the hand-written CUDA kernels of llavamod_tpu_torch/csrc.
+
+The kernels are compiled with `nvcc` for `sm_90a` into one shared library
+with a plain C interface and loaded through ctypes.  The build happens at
+first use, from the package's own sources, into `build/llavamod_tpu_torch/`
+at the repository root; the library name carries a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one is reused.
+
+Nothing here runs at import time: CPU-only installs import every module of
+the package without nvcc or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "llavamod_tpu_torch"
+SOURCES = ("flash_fwd.cu", "flash_decode.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# what the last build (or reuse) did: library path, seconds, compiler log
+build_info: Dict[str, object] = {}
+
+_p = ctypes.c_void_p
+_i = ctypes.c_int
+_f = ctypes.c_float
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the llavamod_tpu_torch CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(out: Path) -> str:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(CSRC_DIR / s) for s in SOURCES]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)  # atomic: concurrent builders never see a partial .so
+    out.with_suffix(".log").write_text(log)
+    return log
+
+
+def load_library() -> ctypes.CDLL:
+    """Build the kernels if needed and return the loaded library."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        out = BUILD_DIR / f"libllavamod_kernels_{_digest()}.so"
+        built = not out.exists()
+        log = _compile(out) if built else ""
+        lib = ctypes.CDLL(str(out))
+        lib.llavamod_flash_fwd.argtypes = [
+            _p, _p, _p, _p, _p, _p, _p,          # q k v q_seg kv_seg o lse
+            _i, _i, _i, _i, _i, _i,              # B H KH T S D
+            ctypes.POINTER(ctypes.c_longlong),   # 12 element strides
+            _f, _f, _i, _p]                      # scale softcap causal stream
+        lib.llavamod_flash_fwd.restype = _i
+        lib.llavamod_flash_decode.argtypes = [
+            _p, _p, _p, _p, _p, _p, _p,          # q k v k_scale v_scale seg out
+            _i, _i, _i, _i, _i, _i, _i,          # B H KH S D q_dtype cache_dtype
+            _f, _f, _p]                          # scale softcap stream
+        lib.llavamod_flash_decode.restype = _i
+        lib.llavamod_error_string.argtypes = [_i]
+        lib.llavamod_error_string.restype = ctypes.c_char_p
+        build_info.update(path=str(out), built=built,
+                          seconds=time.perf_counter() - t0, log=log)
+        _lib = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().llavamod_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,86 @@
+"""The port's config dataclasses against the JAX package's: same fields,
+same defaults, same presets, same derived properties."""
+
+import dataclasses
+
+import pytest
+
+from llavamod_tpu.models import llava as jllava
+from llavamod_tpu.models.llm import config as jconfig
+from llavamod_tpu.models.vision import vit as jvit
+from llavamod_tpu_torch.models import llava as tllava
+from llavamod_tpu_torch.models.llm import config as tconfig
+from llavamod_tpu_torch.models.vision import vit as tvit
+
+
+def _fields(cls):
+    return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+
+@pytest.mark.parametrize("jcls,tcls", [
+    (jconfig.DecoderConfig, tconfig.DecoderConfig),
+    (jvit.VisionConfig, tvit.VisionConfig),
+    (jllava.LlavaConfig, tllava.LlavaConfig),
+], ids=["decoder", "vision", "llava"])
+def test_dataclass_fields_and_defaults(jcls, tcls):
+    assert _fields(tcls) == _fields(jcls)
+
+
+@pytest.mark.parametrize("name", ["QWEN1_5_1_8B", "QWEN2_0_5B"])
+def test_llm_presets(name):
+    j, t = getattr(jconfig, name), getattr(tconfig, name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert (t.head_dim, t.rotary_dim, t.is_moe) == (j.head_dim, j.rotary_dim,
+                                                    j.is_moe)
+    assert tconfig.llm_configs.get(t.name) is t
+    assert tconfig.llm_configs.get(name.lower()) is t  # the alias
+
+
+def test_vision_presets_and_tiny_configs():
+    assert dataclasses.asdict(tvit.CLIP_VIT_L_336) == dataclasses.asdict(
+        jvit.CLIP_VIT_L_336)
+    tv, jv = tvit.tiny_vision_config(), jvit.tiny_vision_config()
+    assert dataclasses.asdict(tv) == dataclasses.asdict(jv)
+    for prop in ("grid", "num_patches", "seq_len", "head_dim"):
+        assert getattr(tvit.CLIP_VIT_L_336, prop) == getattr(
+            jvit.CLIP_VIT_L_336, prop)
+    kw = dict(moe_num_experts=4, moe_layers=(0,), head_dim=32,
+              partial_rotary_factor=0.5)
+    assert dataclasses.asdict(tconfig.tiny_config(**kw)) == dataclasses.asdict(
+        jconfig.tiny_config(**kw))
+
+
+def test_llava_derived_properties_and_moe_layers():
+    from llavamod_tpu.models.llm.upcycle import moe_layer_indices
+
+    for mode in ("sparse", "dense", "first_half", "second_half"):
+        assert tconfig.moe_layer_indices(mode, 24) == moe_layer_indices(mode, 24)
+    llm = tconfig.QWEN1_5_1_8B.replace(
+        moe_num_experts=4, moe_layers=tconfig.moe_layer_indices("sparse", 24))
+    t = tllava.LlavaConfig(llm=llm, vision=tvit.CLIP_VIT_L_336)
+    j = jllava.LlavaConfig(llm=jconfig.QWEN1_5_1_8B.replace(
+        moe_num_experts=4, moe_layers=tuple(range(24))[::2]),
+        vision=jvit.CLIP_VIT_L_336)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.num_image_tokens == j.num_image_tokens == 576
+    assert t.vision_feature_dim == j.vision_feature_dim
+    assert t.llm.is_moe and t.llm.moe_layers == (0, 2, 4, 6, 8, 10, 12, 14,
+                                                 16, 18, 20, 22)
+
+
+def test_builder_config_roundtrip_reads_the_jax_file(tmp_path):
+    """The port reads the llavamod_config.json the JAX builder writes."""
+    import json
+
+    from llavamod_tpu.models.builder import config_to_dict as jto_dict
+    from llavamod_tpu_torch.models.builder import (
+        config_from_dict,
+        config_to_dict,
+    )
+
+    j = jllava.LlavaConfig(llm=jconfig.tiny_config(moe_num_experts=4,
+                                                   moe_layers=(0,)),
+                           vision=jvit.tiny_vision_config())
+    d = json.loads(json.dumps(jto_dict(j)))
+    t = config_from_dict(d)
+    assert config_to_dict(t) == jto_dict(j)
