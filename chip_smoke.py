@@ -4,18 +4,28 @@
 
 Needs a CUDA card and nvcc; exits non-zero without them.  It
 
-  1. builds the hand-written kernels (llavamod_tpu_torch/csrc) from source;
+  1. builds the hand-written kernels (llavamod_tpu_torch/csrc) from source,
+     one nvcc per source, all at once;
   2. holds each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes the serving path gives it, and times both;
-  3. builds the LLaVA-MoD-2B student at full width (Qwen1.5-1.8B with 4
-     experts top-2 on the even layers, CLIP-ViT-L/336, mlp2x_gelu) from
-     seeded random weights directly on the card, serves 8 concurrent image
-     requests plus one streamed request through the port's HTTP server, and
-     checks that every served prefill went through kernel K1 and every
-     decode step through kernel K2;
-  4. checks the prefill's last-position logits of the kernel path against
-     the same forward with the plain attention, and times prefill and
-     decode.
+     bf16, at the shapes the serving and training paths give it, and times
+     the kernel, the plain version and one PyTorch library call computing
+     the same function (scaled_dot_product_attention and its backward),
+     beside the least time the card could take (bound);
+  3. serving path: builds the LLaVA-MoD-2B student at full width
+     (Qwen1.5-1.8B with 4 experts top-2 on the even layers, CLIP-ViT-L/336,
+     mlp2x_gelu) from seeded random weights directly on the card, serves 8
+     concurrent image requests plus one streamed request through the port's
+     HTTP server, and checks that every served prefill went through kernel
+     K1 and every decode step through kernel K2; checks the prefill's
+     last-position logits against the plain attention, and times prefill
+     and decode;
+  4. training path: upcycles a fresh dense student to the same MoE, builds
+     the Qwen1.5-7B teacher (sharing the student's frozen tower), and runs
+     the stage-2 distillation step (`make_align_step`, kd_lm, record train
+     set, AdamW) at B=1, T=2048: one step through plain attention from a
+     fresh state as the reference, then a warm-up and timed steps on the
+     kernel path, each of which must launch K1 once per student and teacher
+     layer and K3 and K4 once per student layer; one more step is profiled.
 
 Prints the kernels' JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -23,6 +33,7 @@ Prints the kernels' JSON line before the last and, as the last line,
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -35,6 +46,7 @@ import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # tolerances, stated before the run:
 #  * kernels vs plain versions in bf16: both accumulate in f32, but the
@@ -46,11 +58,26 @@ KERNEL_TOL = 2e-2
 #    random weights amplify the kernels' rounding differences; the check is
 #    on the max abs difference relative to the logits' max magnitude.
 LOGITS_REL_TOL = 5e-2
+#  * first training step, kernel path vs plain attention (same weights,
+#    batch and fresh state): the loss is a mean over 1,471 tokens and moves
+#    little with rounding; the gradient norm sums the rounding of 2 B
+#    gradient entries through 24 bf16 layers and top-2 routing, whose
+#    choices can flip on near ties.
+LOSS_REL_TOL = 2e-2
+GRAD_NORM_REL_TOL = 5e-2
+
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and HBM3
+# bandwidth, for the bound each kernel is set against
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 MAX_BATCH = 8
 PROMPT_LEN = 1024
 NEW_TOKENS = 32
 SEED = 0
+TRAIN_T = 2048
+TRAIN_TIMED_STEPS = 3
+RECORD_TRAIN_SET = ("/gate", "/up", "/down", "router")
 
 
 def log(msg: str) -> None:
@@ -88,6 +115,32 @@ def left_pad_segments(lengths, total: int, dev) -> torch.Tensor:
     return seg
 
 
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def bound(flops: float, moved: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor peak and the bytes over the HBM peak."""
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = moved / PEAK_HBM_BYTES * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def pair_mask(seg) -> torch.Tensor:
+    """[B, T, T] bool: the (query, key) pairs that attend under causal
+    self-attention with segment ids `seg`."""
+    from llavamod_tpu_torch.ops.flash_attention import live_pairs
+
+    t = seg.shape[1]
+    return live_pairs(seg, seg, t, t, True, seg.device)
+
+
+def n_pairs(seg) -> int:
+    return int(pair_mask(seg).sum().item())
+
+
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
@@ -99,6 +152,7 @@ def check_flash_fwd(gen, dev):
     )
 
     cases = [  # name, B, T, H, KH, D, softcap, valid lengths
+        ("train step", 1, TRAIN_T, 16, 16, 128, None, [TRAIN_T]),
         ("serving prefill", 8, PROMPT_LEN, 16, 16, 128, None,
          [1024, 900, 777, 640, 513, 300, 129, 1]),
         ("gqa", 2, 512, 14, 2, 64, None, [512, 200]),
@@ -130,8 +184,21 @@ def check_flash_fwd(gen, dev):
             raise AssertionError(f"flash_fwd {name} disagrees with its plain "
                                  f"version: err {err} lse_err {lse_err} "
                                  f"pad_zero {pad_zero}")
-        if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        if cap is None and h == kh:
+            # the library call: SDPA with the same causal + segment mask
+            # (the causal flag alone where no row is padded)
+            mask = None if real.all() else pair_mask(seg)[:, None]
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None))
+            timing = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms,
+                          **bound(4 * d * h * n_pairs(seg),
+                                  nbytes(q, k, v, o, lse, seg, seg)))
+            log(f"[kernel] flash_fwd {name}: library "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                f"{timing['bound_ms']:.4f} ms ({timing['bound_by']})")
+            main = main or timing
     return main
 
 
@@ -183,7 +250,102 @@ def check_flash_decode(gen, dev):
             raise AssertionError(f"flash_decode {name} disagrees with its "
                                  f"plain version: err {err}")
         if main is None:
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            live = int((seg != 0).sum().item())     # cache slots read
+            qt = q[:, :, None]
+            mask = (seg != 0)[:, None, None, :]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, k, v, attn_mask=mask, enable_gqa=h != kh))
+            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms,
+                        **bound(4 * d * h * live,
+                                nbytes(q, out, seg)
+                                + 2 * live * kh * d * k.element_size()))
+            log(f"[kernel] flash_decode {name}: library "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                f"{main['bound_ms']:.4f} ms ({main['bound_by']})")
+    return main
+
+
+def check_flash_bwd(gen, dev):
+    """K3 (dq) and K4 (dk, dv) against `flash_bwd_reference`; the plain
+    time of each is that of its own plain version."""
+    from llavamod_tpu_torch.ops.flash_attention import (
+        flash_bwd_reference,
+        flash_dkv,
+        flash_dkv_reference,
+        flash_dq,
+        flash_dq_reference,
+        flash_fwd,
+    )
+
+    cases = [  # name, B, T, H, KH, D, softcap, valid lengths
+        ("train step", 1, TRAIN_T, 16, 16, 128, None, [TRAIN_T]),
+        ("gqa", 2, 512, 14, 2, 64, None, [512, 200]),
+        ("softcap", 2, 256, 16, 16, 128, 50.0, [256, 77]),
+        ("left pad", 2, 1024, 16, 16, 128, None, [1024, 333]),
+    ]
+    main = None
+    for name, b, t, h, kh, d, cap, lengths in cases:
+        q, do = (torch.randn((b, t, h, d), generator=gen, device=dev).bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn((b, t, kh, d), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        seg = left_pad_segments(lengths, t, dev)
+        kw = dict(causal=True, softcap=cap)
+        o, lse = flash_fwd(q, k, v, seg, seg, **kw)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
+        args = (q, k, v, do, lse, delta, seg, seg)
+        dq = flash_dq(*args, **kw)
+        dk, dv = flash_dkv(*args, **kw)
+        dq_ref, dk_ref, dv_ref = flash_bwd_reference(q, k, v, o, lse, do, seg,
+                                                     seg, **kw)
+        torch.cuda.synchronize()
+        dq_err = (dq.float() - dq_ref.float()).abs().max().item()
+        dkv_err = max((dk.float() - dk_ref.float()).abs().max().item(),
+                      (dv.float() - dv_ref.float()).abs().max().item())
+        pad = ~seg.bool()
+        pad_zero = bool((dq[pad] == 0).all() and (dk[pad] == 0).all()
+                        and (dv[pad] == 0).all())
+        ms_dq = time_ms(lambda: flash_dq(*args, **kw))
+        ms_dkv = time_ms(lambda: flash_dkv(*args, **kw))
+        plain_dq = time_ms(lambda: flash_dq_reference(*args, **kw), iters=5)
+        plain_dkv = time_ms(lambda: flash_dkv_reference(*args, **kw), iters=5)
+        log(f"[kernel] flash_dq / flash_dkv {name}: B={b} T={t} H={h} KH={kh} "
+            f"D={d} softcap={cap} max_abs_err dq {dq_err:.3e} dk,dv "
+            f"{dkv_err:.3e} (tol {KERNEL_TOL}) pad_rows_zero={pad_zero} "
+            f"kernel {ms_dq:.4f} / {ms_dkv:.4f} ms plain {plain_dq:.4f} / "
+            f"{plain_dkv:.4f} ms")
+        if not (dq_err <= KERNEL_TOL and dkv_err <= KERNEL_TOL and pad_zero):
+            raise AssertionError(f"flash backward {name} disagrees with its "
+                                 f"plain version: dq {dq_err} dk/dv "
+                                 f"{dkv_err} pad_zero {pad_zero}")
+        if main is None:
+            # the library call: the backward of SDPA (dq, dk and dv in one
+            # call) on the same inputs; all segments are 1 here, so the
+            # causal flag alone is the same mask
+            assert not pad.any()
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=h != kh)
+            dot = do.transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True))
+            pairs = n_pairs(seg)
+            main = (
+                dict(max_abs_err=dq_err, ms=ms_dq, plain_ms=plain_dq,
+                     library_ms=lib_ms,
+                     **bound(6 * d * h * pairs,
+                             nbytes(q, k, v, do, lse, delta, seg, seg, dq))),
+                dict(max_abs_err=dkv_err, ms=ms_dkv, plain_ms=plain_dkv,
+                     library_ms=lib_ms,
+                     **bound(8 * d * h * pairs,
+                             nbytes(q, k, v, do, lse, delta, seg, seg, dk,
+                                    dv))))
+            log(f"[kernel] flash backward {name}: K3+K4 {ms_dq + ms_dkv:.4f} "
+                f"ms, library SDPA backward (dq, dk, dv) {lib_ms:.4f} ms, "
+                f"bound dq {main[0]['bound_ms']:.4f} ms dk,dv "
+                f"{main[1]['bound_ms']:.4f} ms (operations)")
     return main
 
 
@@ -420,6 +582,217 @@ def logits_and_timing(cfg, model, runner, card: str):
     return dict(prefill_ms=prefill_ms, decode_tok_s=tok_s, logits_rel=diff / scale)
 
 
+# ---------------------------------------------------------------------------
+# training path
+# ---------------------------------------------------------------------------
+
+def build_train_models(dev):
+    """The LLaVA-MoD-2B student, upcycled from a seeded dense Qwen1.5-1.8B
+    LLaVA, and the Qwen1.5-7B teacher without a tower of its own, in bf16
+    on the card."""
+    from llavamod_tpu_torch.models import llava
+    from llavamod_tpu_torch.models.llava import LlavaConfig
+    from llavamod_tpu_torch.models.llm.config import QWEN1_5_1_8B, QWEN1_5_7B
+    from llavamod_tpu_torch.models.llm.upcycle import upcycle
+    from llavamod_tpu_torch.models.vision.vit import CLIP_VIT_L_336
+
+    def llava_cfg(llm):
+        return LlavaConfig(llm=llm, vision=CLIP_VIT_L_336,
+                           projector_type="mlp2x_gelu", max_images=1)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    with torch.no_grad():
+        dense_cfg = llava_cfg(QWEN1_5_1_8B)
+        student = llava.init(dense_cfg, gen, device=dev, dtype=torch.bfloat16)
+        moe_cfg, student.llm = upcycle(
+            dense_cfg.llm, student.llm, moe_mode="sparse", num_experts=4,
+            top_k=2, capacity_factor=1.5, eval_capacity_factor=2.0)
+        student.cfg = cfg = dense_cfg.replace(llm=moe_cfg)
+        for i in moe_cfg.moe_layers:   # zero routers tie every argmax
+            r = student.llm.layers[i].mlp.router
+            r.copy_(torch.randn(r.shape, generator=gen, device=dev)
+                    * moe_cfg.hidden_size ** -0.5)
+        teacher_cfg = llava_cfg(QWEN1_5_7B)
+        teacher = llava.init(teacher_cfg, gen, device=dev,
+                             dtype=torch.bfloat16, vision=False)
+    return cfg, student, teacher_cfg, teacher
+
+
+def train_batch(cfg, dev):
+    """B=1, T=2048: one image (576 slots) after the first token, seeded text
+    ids; labels masked on the image slots and the first T/4 tokens."""
+    from llavamod_tpu_torch.train.steps import batch_from_arrays
+
+    rng = np.random.RandomState(SEED)
+    t, n_img, s = TRAIN_T, cfg.num_image_tokens, cfg.vision.image_size
+    ids = rng.randint(10, 1000, size=(1, t)).astype(np.int32)
+    image_mask = np.zeros((1, t), bool)
+    image_mask[:, 1:1 + n_img] = True
+    image_pos = np.zeros((1, t), np.int32)
+    image_pos[0, 1:1 + n_img] = np.arange(n_img)
+    labels = np.where(image_mask, -100, ids)
+    labels[:, :t // 4] = -100
+    return batch_from_arrays({
+        "input_ids": ids, "segment_ids": np.ones((1, t), np.int32),
+        "image_mask": image_mask, "image_pos": image_pos,
+        "pixels": rng.randn(1, 1, 3, s, s).astype(np.float32),
+        "pixel_valid": np.ones((1, 1), bool), "labels": labels}, device=dev)
+
+
+def _launch_counts():
+    from llavamod_tpu_torch.ops.flash_attention import (
+        flash_dkv,
+        flash_dq,
+        flash_fwd,
+    )
+    return {"flash_fwd": flash_fwd.launches, "flash_dq": flash_dq.launches,
+            "flash_dkv": flash_dkv.launches}
+
+
+def _reset_launch_counts():
+    from llavamod_tpu_torch.ops.flash_attention import (
+        flash_dkv,
+        flash_dq,
+        flash_fwd,
+    )
+    flash_fwd.launches = flash_dq.launches = flash_dkv.launches = 0
+
+
+def profile_step(step, state, teacher, batch, step_ms: float):
+    """One step under torch.profiler: device busy time, its share of the
+    profiled window and of an unprofiled step (`step_ms`; the profiler's
+    own host work slows the window), and the top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, teacher, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0:
+        log("[train] profiler window: no device time recorded: device busy "
+            "share not measured")
+        return state, None
+    rows.sort(key=lambda r: -r[1])
+    top = [dict(name=n[:80], ms=ms, share=ms / busy_ms, count=c)
+           for n, ms, c in rows[:8]]
+    n_kernels = sum(r[2] for r in rows)
+    log(f"[train] profiled step: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms "
+        f"device busy (sum of kernel times), idle share "
+        f"{1 - busy_ms / wall_ms:.3f} of the window and "
+        f"{1 - busy_ms / step_ms:.3f} of the median unprofiled step "
+        f"({step_ms:.1f} ms), {n_kernels} kernels")
+    for r in top:
+        log(f"[train]   {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5d} "
+            f"{r['name']}")
+    return state, dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels,
+                       idle_share=1 - busy_ms / wall_ms,
+                       idle_share_unprofiled=1 - busy_ms / step_ms, top=top)
+
+
+def train_phase(card: str, dev):
+    from llavamod_tpu_torch.train.config import TrainConfig
+    from llavamod_tpu_torch.train.optim import TrainState
+    from llavamod_tpu_torch.train.steps import make_align_step
+
+    t0 = time.perf_counter()
+    cfg, student, teacher_cfg, teacher = build_train_models(dev)
+    torch.cuda.synchronize()
+    n_s = sum(p.numel() for p in student.parameters())
+    n_t = sum(p.numel() for p in teacher.parameters())
+    log(f"[train] student {n_s / 1e9:.3f} B params (upcycled: experts on "
+        f"layers {cfg.llm.moe_layers[0]}..{cfg.llm.moe_layers[-1]} step 2), "
+        f"teacher {n_t / 1e9:.3f} B params without a tower, bf16, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(stage="align", align_loss_type="kd_lm",
+                       compute_dtype="bfloat16", param_dtype="bfloat16",
+                       remat=False, kd_vocab_limit=151936, vocab_chunk=2048,
+                       attn_impl="auto", optimizer="adamw",
+                       train_modules=RECORD_TRAIN_SET, total_steps=10_000,
+                       max_grad_norm=1.0)
+    batch = train_batch(cfg, dev)
+    n_tok = batch.input_ids.numel()
+
+    # the reference: the first step through plain attention, from the same
+    # weights with a fresh state; the weights are put back afterwards
+    plain_cfg = tcfg.replace(attn_impl="xla")
+    plain_state = TrainState.create(student, plain_cfg)
+    saved = {n: p.detach().clone() for n, p in plain_state.opt.params.items()}
+    _, pm = make_align_step(cfg, teacher_cfg, plain_cfg)(plain_state, teacher,
+                                                         batch)
+    plain = {k: v.item() for k, v in pm.items()}
+    with torch.no_grad():
+        for n, p in plain_state.opt.params.items():
+            p.copy_(saved[n])
+    del plain_state, saved, pm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = TrainState.create(student, tcfg)
+    n_train = sum(p.numel() for p in state.opt.params.values())
+    step = make_align_step(cfg, teacher_cfg, tcfg)
+    per_step = {"flash_fwd": cfg.llm.num_layers + teacher_cfg.llm.num_layers,
+                "flash_dq": cfg.llm.num_layers,
+                "flash_dkv": cfg.llm.num_layers}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    times, first = [], None
+    for i in range(1 + TRAIN_TIMED_STEPS):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, teacher, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        vals = {k: v.item() for k, v in m.items()}
+        got = {k: n - before[k] for k, n in _launch_counts().items()}
+        log(f"[train] step {i}: {dt * 1e3:.1f} ms loss {vals['loss']:.5f} "
+            f"(align {vals['loss/align']:.5f} lm {vals['loss/lm']:.5f} "
+            f"moe {vals['loss/moe_balance']:.5f}) grad_norm "
+            f"{vals['grad_norm']:.5f} launches {got}")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {vals}")
+        if got != per_step:
+            raise AssertionError(f"step {i} launched {got}, expected "
+                                 f"{per_step} per step")
+        if i == 0:
+            first = vals
+        else:
+            times.append(dt)
+    launches = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    rel = {k: abs(first[k] - plain[k]) / abs(plain[k])
+           for k in ("loss", "grad_norm")}
+    log(f"[train] first step, kernel path vs plain attention: loss "
+        f"{first['loss']:.6f} vs {plain['loss']:.6f} (rel {rel['loss']:.3e}, "
+        f"tol {LOSS_REL_TOL}), grad_norm {first['grad_norm']:.6f} vs "
+        f"{plain['grad_norm']:.6f} (rel {rel['grad_norm']:.3e}, tol "
+        f"{GRAD_NORM_REL_TOL})")
+    if not (rel["loss"] <= LOSS_REL_TOL
+            and rel["grad_norm"] <= GRAD_NORM_REL_TOL):
+        raise AssertionError("the kernel-path training step disagrees with "
+                             "the plain-attention step")
+
+    ms = sorted(t * 1e3 for t in times)
+    med = statistics.median(ms)
+    log(f"[train] make_align_step, B=1 T={TRAIN_T}, {n_train / 1e9:.3f} B "
+        f"trainable: step ms {ms[0]:.1f} / {med:.1f} / {ms[-1]:.1f} (min / "
+        f"median / max of {len(ms)} after 1 warm-up), {n_tok / med * 1e3:.1f} "
+        f"tokens/s, peak device memory {peak_gib:.2f} GiB; on {card}")
+    state, prof = profile_step(step, state, teacher, batch, med)
+    return dict(step_ms=ms, tokens_per_s=n_tok / med * 1e3,
+                peak_gib=peak_gib, trainable=n_train, launches=launches,
+                first_step=first, plain_first_step=plain, rel=rel,
+                profile=prof)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check needs a GPU",
@@ -446,9 +819,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    with torch.inference_mode():
-        k1 = check_flash_fwd(gen, dev)
-        k2 = check_flash_decode(gen, dev)
+    k1 = check_flash_fwd(gen, dev)
+    k2 = check_flash_decode(gen, dev)
+    k3, k4 = check_flash_bwd(gen, dev)
 
     t0 = time.perf_counter()
     cfg, model, n_params = build_model(dev)
@@ -457,22 +830,42 @@ def main() -> int:
         f"seeded random weights) built on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     served = serve_phase(cfg, model, card)
-    slice_stats = logits_and_timing(cfg, model, served["runner"], card)
+    slice_stats = logits_and_timing(cfg, model, served.pop("runner"), card)
     log(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    trained = train_phase(card, dev)
+
+    train_n = trained["launches"]
+    serve_n = served["launches"]
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_fwd.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:75",
-             launches=served["launches"]["flash_fwd"], **k1),
+             launches=train_n["flash_fwd"],
+             launches_by_path={"serve": serve_n["flash_fwd"],
+                               "train": train_n["flash_fwd"]}, **k1),
         dict(name="flash_decode", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_decode.cu",
              replaces="llavamod_tpu/ops/decode_attention.py:57",
-             launches=served["launches"]["flash_decode"], **k2),
+             launches=serve_n["flash_decode"],
+             launches_by_path={"serve": serve_n["flash_decode"]}, **k2),
+        dict(name="flash_dq", route="cuda",
+             source="llavamod_tpu_torch/csrc/flash_bwd.cu",
+             replaces="llavamod_tpu/ops/flash_attention.py:228",
+             launches=train_n["flash_dq"],
+             launches_by_path={"train": train_n["flash_dq"]}, **k3),
+        dict(name="flash_dkv", route="cuda",
+             source="llavamod_tpu_torch/csrc/flash_bwd.cu",
+             replaces="llavamod_tpu/ops/flash_attention.py:265",
+             launches=train_n["flash_dkv"],
+             launches_by_path={"train": train_n["flash_dkv"]}, **k4),
     ]
-    log(json.dumps({"slice": slice_stats,
-                    "requests_per_s": served["requests_per_s"],
-                    "card": card}))
+    log(json.dumps({"serve": dict(slice_stats,
+                                  requests_per_s=served["requests_per_s"]),
+                    "train": trained, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,8 @@ llavamod_tpu/eval/generate.py that the serving path uses).
 
 `VQARunner` renders the conversation template, tokenizes around the
 '<image>' placeholders, expands them into image-feature slots (left padded),
-and builds the batch as tensors on the model's device.  It reuses the
-jax-free host modules of the JAX package (conversation, mm_utils,
-data.splice).
+and builds the batch as tensors on the model's device.  The host modules
+it uses (conversation, mm_utils, data.splice) are the port's own copies.
 """
 
 from __future__ import annotations
@@ -16,10 +15,10 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
-from llavamod_tpu import conversation as conv_lib
-from llavamod_tpu.constants import DEFAULT_IMAGE_TOKEN
-from llavamod_tpu.data.splice import expand_image_tokens
-from llavamod_tpu.mm_utils import ImagePreprocessor, tokenize_with_images
+from llavamod_tpu_torch import conversation as conv_lib
+from llavamod_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
+from llavamod_tpu_torch.data.splice import expand_image_tokens
+from llavamod_tpu_torch.mm_utils import ImagePreprocessor, tokenize_with_images
 from llavamod_tpu_torch.models.llava import Llava, LlavaConfig, MultimodalBatch
 
 

@@ -3,7 +3,8 @@
 The port's modules keep the JAX param-tree paths (joined by '.') as
 state_dict keys and the JAX layouts as tensor shapes, so the conversion is
 leaf for leaf.  This module imports no jax: it takes the tree after
-`jax.device_get`, i.e. nested dicts/lists of numpy arrays.
+`jax.device_get`, i.e. nested dicts/lists of numpy arrays, and gives back
+flat numpy state (`numpy_from_state_dict`) for leaf-for-leaf comparisons.
 """
 
 from __future__ import annotations
@@ -42,3 +43,11 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     casting to each parameter's device and dtype."""
     module.load_state_dict(state_dict_from_numpy(tree), strict=True)
     return module
+
+
+def numpy_from_state_dict(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The way back: {state_dict key: f32 ndarray on the host} (bf16 leaves
+    are widened exactly), keyed as `state_dict_from_numpy` keys a JAX tree.  The
+    arrays are copies: later in-place updates of the module leave them."""
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in module.state_dict().items()}

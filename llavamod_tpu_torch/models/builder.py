@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from llavamod_tpu.mm_utils import (
+from llavamod_tpu_torch.mm_utils import (
     CLIP_IMAGE_MEAN,
     CLIP_IMAGE_STD,
     SIGLIP_IMAGE_MEAN,
@@ -54,10 +54,11 @@ def save_model(output_dir: str, model: Llava) -> str:
     return output_dir
 
 
-def load_model(model_dir: str, device=None,
+def load_model(model_dir: str, device="cuda",
                dtype=None) -> Tuple[LlavaConfig, Llava]:
-    """Returns (cfg, model) with the weights on `device`, in `dtype` if
-    given (else in the stored dtype)."""
+    """Returns (cfg, model) with the weights on `device` (the card unless
+    the caller asks for another), in `dtype` if given (else in the stored
+    dtype)."""
     with open(os.path.join(model_dir, CONFIG_NAME)) as f:
         cfg = config_from_dict(json.load(f))
     state = torch.load(os.path.join(model_dir, WEIGHTS_NAME),
@@ -79,7 +80,7 @@ def make_image_preprocessor(cfg: LlavaConfig) -> ImagePreprocessor:
         image_aspect_ratio=cfg.image_aspect_ratio)
 
 
-def load_pretrained_model(model_path: str, device=None, dtype=None,
+def load_pretrained_model(model_path: str, device="cuda", dtype=None,
                           tokenizer_path=None, context_len: int = 2048):
     """Reference-shaped loader: returns (tokenizer, model, cfg,
     image_preprocessor, context_len) for a native checkpoint directory that

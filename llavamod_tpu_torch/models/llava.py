@@ -9,7 +9,9 @@ scatters image features into them with one static gather and select:
 
 `Llava` holds {'vision', 'projector', 'llm'} so its state_dict keys are the
 JAX paths ('vision.layers.0.attn.q.kernel', 'projector.layers.1.bias',
-'llm.layers.3.attn.wq', ...).
+'llm.layers.3.attn.wq', ...).  A distillation teacher may be built without
+its own tower (`vision=False`): it takes the student's frozen tower features
+through `tower_feats`, as the JAX teacher tree drops its 'vision' copy.
 """
 
 from __future__ import annotations
@@ -75,13 +77,14 @@ class MultimodalBatch(NamedTuple):
 
 class Llava(nn.Module):
     def __init__(self, cfg: LlavaConfig, *, generator: torch.Generator,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, vision: bool = True):
         super().__init__()
         if cfg.s2_scales or cfg.video_projector_type is not None:
             raise NotImplementedError("S2 and the video projector are not "
                                       "ported yet")
         self.cfg = cfg
-        self.vision = vit.init(cfg.vision, generator, device, dtype)
+        if vision:
+            self.vision = vit.init(cfg.vision, generator, device, dtype)
         self.projector = cfg.build_projector().init(generator, device, dtype)
         self.llm = decoder.init(cfg.llm, generator, device, dtype)
 
@@ -90,8 +93,9 @@ class Llava(nn.Module):
 
 
 def init(cfg: LlavaConfig, generator: torch.Generator, device=None,
-         dtype=torch.float32) -> Llava:
-    return Llava(cfg, generator=generator, device=device, dtype=dtype)
+         dtype=torch.float32, vision: bool = True) -> Llava:
+    return Llava(cfg, generator=generator, device=device, dtype=dtype,
+                 vision=vision)
 
 
 def encode_tower(model: Llava, cfg: LlavaConfig,
@@ -134,17 +138,21 @@ class LlavaOutput(NamedTuple):
 
 def forward(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch, *,
             cache: Optional[decoder.KVCache] = None, train: bool = False,
-            attn_impl: str = "auto",
+            attn_impl: str = "auto", remat: bool = False,
             tower_feats: Optional[torch.Tensor] = None,
             prefix_mask: Optional[torch.Tensor] = None) -> LlavaOutput:
     emb = multimodal_embed(model, cfg, batch, tower_feats)
     out = decoder.forward(
         model.llm, cfg.llm, inputs_embeds=emb, positions=batch.positions,
         segment_ids=batch.segment_ids, cache=cache, train=train,
-        attn_impl=attn_impl, prefix_mask=prefix_mask)
+        attn_impl=attn_impl, remat=remat, prefix_mask=prefix_mask)
     return LlavaOutput(out.hidden, out.aux_loss, out.moe_losses,
                        out.router_probs, out.cache)
 
 
 def logits(model: Llava, cfg: LlavaConfig, hidden: torch.Tensor) -> torch.Tensor:
     return decoder.logits_from_hidden(model.llm, cfg.llm, hidden)
+
+
+def lm_head_weight(model: Llava, cfg: LlavaConfig) -> torch.Tensor:
+    return decoder.lm_head_weight(model.llm, cfg.llm)

@@ -1,11 +1,11 @@
 """Decoder configuration (port of llavamod_tpu/models/llm/config.py).
 
-Re-declared here rather than imported because the JAX module's package
-(`llavamod_tpu.models`) imports jax.  Fields, defaults and derived
-properties are identical; tests/test_torch_config.py holds them to the JAX
-dataclass field by field.  The parallelism and compile-strategy fields are
-kept for config-file compatibility (llavamod_config.json) and are ignored
-by the eager PyTorch forward.
+Re-declared here rather than imported: the port imports nothing of the JAX
+package.  Fields, defaults and derived properties are identical;
+tests/test_torch_config.py holds them to the JAX dataclass field by field.
+The parallelism and compile-strategy fields are kept for config-file
+compatibility (llavamod_config.json) and are ignored by the eager PyTorch
+forward.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-from llavamod_tpu.utils.registry import Registry
+from llavamod_tpu_torch.utils.registry import Registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +111,11 @@ QWEN1_5_1_8B = _reg(DecoderConfig(
     name="qwen1.5-1.8b", vocab_size=151936, hidden_size=2048,
     intermediate_size=5504, num_layers=24, num_heads=16, num_kv_heads=16,
     rope_theta=1e6, rms_norm_eps=1e-6, qkv_bias=True), "qwen1_5_1_8b")
+
+QWEN1_5_7B = _reg(DecoderConfig(
+    name="qwen1.5-7b", vocab_size=151936, hidden_size=4096,
+    intermediate_size=11008, num_layers=32, num_heads=32, num_kv_heads=32,
+    rope_theta=1e6, rms_norm_eps=1e-6, qkv_bias=True), "qwen1_5_7b")
 
 
 def tiny_config(**kw) -> DecoderConfig:

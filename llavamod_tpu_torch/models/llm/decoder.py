@@ -1,4 +1,5 @@
-"""The decoder LLM (port of llavamod_tpu/models/llm/decoder.py, serving path).
+"""The decoder LLM (port of llavamod_tpu/models/llm/decoder.py: the serving
+path and the training forward).
 
 `Decoder` is an nn.Module whose state_dict keys are the JAX param-tree paths
 ('embed.embedding', 'layers.3.attn.wq', 'layers.2.mlp.experts.up', ...) in
@@ -11,7 +12,13 @@ keep the JAX names and take the parameter group as `p`:
     (kernel K2 on the card), plus the plain branches the JAX package keeps
     for prefix-LM, sliding-window and ALiBi attention;
   * `mlp_forward`, `moe_block_forward` (gather dispatch, no gating groups),
-    `layer_forward`, and `forward` as a Python loop over layers.
+    `layer_forward`, and `forward` as a Python loop over layers; with
+    `remat=True` each layer is recomputed in the backward
+    (`torch.utils.checkpoint`, the JAX per-layer `jax.checkpoint`).
+
+Parameters are built trainable; which of them train is the caller's
+choice (llavamod_tpu_torch/train/optim.py `apply_trainable_mask`), and
+serving runs under `torch.inference_mode()`.
 
 The KV cache is updated IN PLACE (the JAX cache is a new value each step);
 `forward` returns the same tensors with the advanced `length`.  The dense
@@ -25,11 +32,13 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
 from llavamod_tpu_torch.models.params import Initializer, ParamGroup
 from llavamod_tpu_torch.ops.attention import dot_product_attention
 from llavamod_tpu_torch.ops.decode_attention import flash_decode
+from llavamod_tpu_torch.ops.matmul import matmul_f32_out
 from llavamod_tpu_torch.ops.moe import (
     GatingConfig,
     moe_ffn_gather,
@@ -461,7 +470,6 @@ class Decoder(nn.Module):
             if cfg.lm_head_bias:
                 head["bias"] = ini.zeros(cfg.vocab_size)
             self.lm_head = ParamGroup(**head)
-        self.requires_grad_(False)  # served weights; training turns them on
 
     def forward(self, **kw) -> DecoderOutput:
         return forward(self, self.cfg, **kw)
@@ -483,12 +491,15 @@ def forward(
     cache: Optional[KVCache] = None,
     train: bool = False,
     attn_impl: str = "auto",
+    remat: bool = False,
     prefix_mask: Optional[torch.Tensor] = None,
 ) -> DecoderOutput:
     """Run the decoder stack.  Provide input_ids OR inputs_embeds.
 
     positions: [B, T] absolute positions (defaults to arange, or
     cache.length offset during decode).  segment_ids: [B, T] (0 = padding).
+    remat: recompute each layer in the backward, keeping only the layer
+    boundaries (no-cache path only, as in the JAX package).
     """
     if inputs_embeds is None:
         inputs_embeds = embed(model, cfg, input_ids)
@@ -512,9 +523,15 @@ def forward(
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     moe_losses: List[torch.Tensor] = []
     router_probs: List[torch.Tensor] = []
+    rematted = remat and cache is None and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers):
-        x, aux, probs = layer_forward(cfg, layer, x, positions, segment_ids, i,
-                                      cache, train, attn_impl, prefix_mask)
+        args = (cfg, layer, x, positions, segment_ids, i, cache, train,
+                attn_impl, prefix_mask)
+        if rematted:
+            x, aux, probs = checkpoint(layer_forward, *args,
+                                       use_reentrant=False)
+        else:
+            x, aux, probs = layer_forward(*args)
         aux_total = aux_total + aux
         if probs is not None:
             moe_losses.append(aux)
@@ -542,13 +559,14 @@ def lm_head_weight(model: Decoder, cfg: Optional[DecoderConfig] = None):
 
 def logits_from_hidden(model: Decoder, cfg: DecoderConfig,
                        hidden: torch.Tensor) -> torch.Tensor:
-    """[B, T, D] -> f32 logits [B, T, V].  The head matmul accumulates in
-    f32 but returns the weight dtype, so bf16 models see logits rounded to
-    bf16 before the cast (the JAX einsum keeps the f32 result)."""
+    """[B, T, D] -> f32 logits [B, T, V]: the head matmul accumulates in
+    f32 and keeps the f32 result, as the JAX einsum with
+    preferred_element_type=f32."""
     w = lm_head_weight(model, cfg)
     if cfg.logit_scale is not None:
         hidden = hidden * cfg.logit_scale
-    logits = (hidden @ w.t()).float()
+    b, t, d = hidden.shape
+    logits = matmul_f32_out(hidden.reshape(b * t, d), w).reshape(b, t, -1)
     if hasattr(model, "lm_head") and hasattr(model.lm_head, "bias"):
         logits = logits + model.lm_head.bias.float()
     if cfg.final_logit_softcap is not None:

@@ -5,7 +5,9 @@ attribute names are the dict keys, so nesting modules reproduces the JAX
 paths as state_dict keys.  `Initializer` draws seeded weights on one device
 and dtype; a torch.Generator stands in for the JAX key (the two give
 different numbers from one seed, so parity tests load JAX weights instead).
-The port's models are built with requires_grad False: this slice serves.
+Parameters are built trainable, the frozen vision tower excepted; a
+training step freezes the rest of what its train set leaves out
+(llavamod_tpu_torch/train/optim.py `apply_trainable_mask`).
 """
 
 from __future__ import annotations

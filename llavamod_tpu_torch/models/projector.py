@@ -42,7 +42,7 @@ def _mlp_init(din: int, dout: int, depth: int):
         m.layers = nn.ModuleList(
             [_dense(ini, din, dout)]
             + [_dense(ini, dout, dout) for _ in range(1, depth)])
-        return m.requires_grad_(False)
+        return m
     return init
 
 
@@ -64,7 +64,7 @@ def build_projector(spec: str, vision_dim: int, llm_dim: int) -> Projector:
             spec,
             lambda generator, device=None, dtype=torch.float32: _dense(
                 Initializer(generator, device, dtype), vision_dim,
-                llm_dim).requires_grad_(False),
+                llm_dim),
             _apply_dense, lambda n: n)
     m = re.match(r"^mlp(\d+)x_gelu$", spec)
     if m:

@@ -14,7 +14,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from llavamod_tpu.utils.registry import Registry
+from llavamod_tpu_torch.utils.registry import Registry
 from llavamod_tpu_torch.models.params import Initializer, ParamGroup
 from llavamod_tpu_torch.ops.attention import dot_product_attention
 from llavamod_tpu_torch.ops.norms import layer_norm

@@ -5,7 +5,9 @@
   * 'xla'   — `xla_attention`, the plain PyTorch version: einsum + f32
               softmax, GQA by logical head grouping (reshape, never a K/V
               repeat).  The name is kept from the JAX package.
-  * 'flash' — the hand-written Hopper kernel K1 (ops/flash_attention.py).
+  * 'flash' — the hand-written Hopper kernels (ops/flash_attention.py):
+              K1 forward, and when a gradient is asked for, the autograd
+              Function whose backward is K3 + K4.
 
 'auto' sends a CUDA tensor with no dense mask or bias to the kernel and a
 CPU tensor to the plain version.

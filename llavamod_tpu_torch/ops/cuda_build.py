@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of llavamod_tpu_torch/csrc.
 
-The kernels are compiled with `nvcc` for `sm_90a` into one shared library
-with a plain C interface and loaded through ctypes.  The build happens at
-first use, from the package's own sources, into `build/llavamod_tpu_torch/`
-at the repository root; the library name carries a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is reused.
+The kernels are compiled with `nvcc` for `sm_90a`, one `nvcc -c` per
+source, all started together, and linked into one shared library with a
+plain C interface that is loaded through ctypes.  The build happens at first
+use, from the package's own sources, into `build/llavamod_tpu_torch/` at the
+repository root; the library name carries a hash of the sources and flags,
+so an edited source rebuilds and an unchanged one is reused.
 
 Nothing here runs at import time: CPU-only installs import every module of
 the package without nvcc or a card.
@@ -25,9 +26,10 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "llavamod_tpu_torch"
-SOURCES = ("flash_fwd.cu", "flash_decode.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -62,17 +64,36 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; return their logs, raise on a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for c, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(c)}\n{log}")
+    return logs
+
+
 def _compile(out: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC_DIR / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    try:
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                          str(CSRC_DIR / s)]
+                         for s, o in zip(SOURCES, objs)])
+        logs += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial .so
+    log = "".join(logs)
     out.with_suffix(".log").write_text(log)
     return log
 
@@ -99,6 +120,14 @@ def load_library() -> ctypes.CDLL:
             _i, _i, _i, _i, _i, _i, _i,          # B H KH S D q_dtype cache_dtype
             _f, _f, _p]                          # scale softcap stream
         lib.llavamod_flash_decode.restype = _i
+        bwd_head = [_p, _p, _p, _p, _p, _p, _p, _p]  # q k v dO lse delta segs
+        dims = [_i, _i, _i, _i, _i, _i]              # B H KH T S D
+        tail = [ctypes.POINTER(ctypes.c_longlong),   # 21 element strides
+                _f, _f, _i, _p]                      # scale softcap causal stream
+        lib.llavamod_flash_dq.argtypes = bwd_head + [_p] + dims + tail
+        lib.llavamod_flash_dq.restype = _i
+        lib.llavamod_flash_dkv.argtypes = bwd_head + [_p, _p] + dims + tail
+        lib.llavamod_flash_dkv.restype = _i
         lib.llavamod_error_string.argtypes = [_i]
         lib.llavamod_error_string.restype = ctypes.c_char_p
         build_info.update(path=str(out), built=built,

@@ -1,5 +1,5 @@
-"""Sparse Mixture-of-Experts: top-k gating and gather dispatch (port of the
-eval path of llavamod_tpu/ops/moe.py).
+"""Sparse Mixture-of-Experts: top-k gating and gather dispatch (port of
+llavamod_tpu/ops/moe.py, gather dispatch, for training and serving).
 
 DeepSpeed top1/top2 gating semantics, as in the JAX package:
   * router softmax in f32; argmax takes the first of tied values; each later
@@ -9,7 +9,15 @@ DeepSpeed top1/top2 gating semantics, as in the JAX package:
   * within an expert, choice-2 tokens are placed after all choice-1 tokens
     (exclusive cumsum offset by the earlier choices' counts);
   * combine weights renormalised over the kept choices (k >= 2).
-Padding tokens (token_valid False) claim no capacity.
+Padding tokens (token_valid False) claim no capacity.  `train` picks the
+capacity factor (1.5 in training, 2.0 in eval by default).
+
+Gradients follow the JAX package: the choices, slots and drops are integer
+bookkeeping and carry none; the combine weights carry it through the gate
+probabilities of the kept choices and their renormalising sum; the aux loss
+mean(me * ce) * E^2 carries it through me (the mean gate) only, ce being a
+count of top-1 choices; the gather and scatter of `moe_ffn_gather` are
+differentiable in the tokens and in the expert weights.
 """
 
 from __future__ import annotations

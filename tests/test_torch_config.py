@@ -26,7 +26,7 @@ def test_dataclass_fields_and_defaults(jcls, tcls):
     assert _fields(tcls) == _fields(jcls)
 
 
-@pytest.mark.parametrize("name", ["QWEN1_5_1_8B", "QWEN2_0_5B"])
+@pytest.mark.parametrize("name", ["QWEN1_5_1_8B", "QWEN2_0_5B", "QWEN1_5_7B"])
 def test_llm_presets(name):
     j, t = getattr(jconfig, name), getattr(tconfig, name)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -34,6 +34,17 @@ def test_llm_presets(name):
                                                     j.is_moe)
     assert tconfig.llm_configs.get(t.name) is t
     assert tconfig.llm_configs.get(name.lower()) is t  # the alias
+
+
+def test_train_config_fields_and_defaults():
+    from llavamod_tpu.train.config import TrainConfig as JTrainConfig
+    from llavamod_tpu_torch.train.config import TrainConfig
+
+    assert _fields(TrainConfig) == _fields(JTrainConfig)
+    kw = dict(stage="align", align_loss_type="kd_lm", kd_vocab_limit=151936,
+              train_modules=("/gate", "/up", "/down", "router"))
+    assert dataclasses.asdict(TrainConfig(**kw).replace(remat=False)) == \
+        dataclasses.asdict(JTrainConfig(**kw).replace(remat=False))
 
 
 def test_vision_presets_and_tiny_configs():

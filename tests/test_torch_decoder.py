@@ -78,5 +78,31 @@ def test_decoder_prefill_then_cached_decode(moe, monkeypatch):
         jc, tc = jo.cache, to.cache
     assert (tc.segment.numpy() == np.asarray(jc.segment)).all()
     jl = jdecoder.logits_from_hidden(params, jcfg, jo.hidden)
-    tl = tdecoder.logits_from_hidden(model, cfg, to.hidden)
+    with torch.inference_mode():
+        tl = tdecoder.logits_from_hidden(model, cfg, to.hidden)
     np.testing.assert_allclose(np32(tl), np32(jl), rtol=TOL, atol=TOL)
+
+
+def test_bf16_logits_keep_the_f32_accumulator():
+    """bf16 hidden states and head: the logits are the f32 accumulator, as
+    the JAX head's preferred_element_type=f32 einsum, not a bf16-rounded
+    product (which misses by up to half a bf16 ulp, ~0.06 here)."""
+    cfg = tiny_config(vocab_size=300)
+    rng = np.random.RandomState(4)
+    w = jnp.asarray(rng.randn(cfg.vocab_size, cfg.hidden_size) * 0.5,
+                    jnp.bfloat16)
+    h = jnp.asarray(rng.randn(2, 5, cfg.hidden_size) * 4.0, jnp.bfloat16)
+    want = np.asarray(jdecoder.logits_from_hidden(
+        {"embed": {"embedding": w}, "lm_head": {"weight": w}},
+        to_jax_llm(cfg), h), np.float32)
+    model = tdecoder.init(cfg, torch.Generator().manual_seed(0),
+                          dtype=torch.bfloat16)
+    with torch.no_grad():
+        model.lm_head.weight.copy_(torch.tensor(np.asarray(w, np.float32)))
+    th = torch.tensor(np.asarray(h, np.float32)).bfloat16()
+    with torch.inference_mode():
+        got = tdecoder.logits_from_hidden(model, cfg, th)
+        rounded = (th @ model.lm_head.weight.t()).float().numpy()
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
+    assert np.abs(rounded - want).max() > 1e-2   # the old rounding fails

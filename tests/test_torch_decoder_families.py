@@ -98,9 +98,10 @@ def test_family_prefill_and_cached_decode(family, monkeypatch):
         jc, tc = jo.cache, to.cache
         np.testing.assert_allclose(np32(to.hidden), np32(jo.hidden),
                                    rtol=TOL, atol=TOL)
+    with torch.inference_mode():
+        tl = tdecoder.logits_from_hidden(model, cfg, to.hidden)
     np.testing.assert_allclose(
-        np32(tdecoder.logits_from_hidden(model, cfg, to.hidden)),
-        np32(jdecoder.logits_from_hidden(params, jcfg, jo.hidden)),
+        np32(tl), np32(jdecoder.logits_from_hidden(params, jcfg, jo.hidden)),
         rtol=TOL, atol=TOL)
 
 

@@ -81,8 +81,44 @@ def test_flash_decode_kernel_matches_plain(dev, dtype, h, kh, d):
     assert (out.float() - ref.float()).abs().max().item() <= TOL
 
 
+@pytest.mark.parametrize("h,kh,d,softcap,t,causal", [
+    (4, 4, 128, None, 200, True), (6, 2, 64, None, 130, True),
+    (4, 2, 128, 30.0, 64, False), (14, 2, 64, 50.0, 300, True)])
+def test_flash_bwd_kernels_match_plain(dev, h, kh, d, softcap, t, causal):
+    from llavamod_tpu_torch.ops.flash_attention import (
+        flash_bwd,
+        flash_bwd_reference,
+        flash_dkv,
+        flash_dq,
+        flash_fwd,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, do = (torch.randn((2, t, h, d), generator=g, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((2, t, kh, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    seg = _seg([t, t // 3], t, dev)
+    o, lse = flash_fwd(q, k, v, seg, seg, causal=causal, softcap=softcap)
+    n0 = (flash_dq.launches, flash_dkv.launches)
+    got = flash_bwd(q, k, v, o, lse, do, seg, seg, causal=causal,
+                    softcap=softcap)
+    assert (flash_dq.launches, flash_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    want = flash_bwd_reference(q, k, v, o, lse, do, seg, seg, causal=causal,
+                               softcap=softcap)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= TOL
+    real = seg.bool()
+    assert (got[0][~real] == 0).all()                   # pad rows: dq 0
+    assert (got[1][~real] == 0).all() and (got[2][~real] == 0).all()
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
-    from llavamod_tpu_torch.ops.flash_attention import flash_attention
+    from llavamod_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_dkv,
+        flash_dq,
+    )
 
     x = torch.zeros((1, 8, 2, 32), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -90,7 +126,13 @@ def test_kernels_refuse_what_they_do_not_take(dev):
     y = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention(y, y, y, causal=True)           # fp16
-    z = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16,
+    # a gradient through flash attention on the card runs K3 and K4
+    z = torch.randn((1, 8, 2, 64), device=dev).bfloat16().requires_grad_()
+    n0 = (flash_dq.launches, flash_dkv.launches)
+    flash_attention(z, z, z, causal=True).float().sum().backward()
+    assert (flash_dq.launches, flash_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    assert torch.isfinite(z.grad.float()).all()
+    w = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float32,
                     requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention(z, z, z, causal=True)           # backward not ported
+    with pytest.raises(TypeError):
+        flash_attention(w, w, w, causal=True)           # f32

@@ -99,5 +99,6 @@ def test_llava_forward_matches_jax():
     np.testing.assert_allclose(np32(to.router_probs[0]),
                                np32(jo.router_probs[0]), rtol=TOL, atol=TOL)
     jl = jllava.logits(params, jcfg, jo.hidden[:, -1:])
-    tl = tllava.logits(model, cfg, to.hidden[:, -1:])
+    with torch.inference_mode():
+        tl = tllava.logits(model, cfg, to.hidden[:, -1:])
     np.testing.assert_allclose(np32(tl), np32(jl), rtol=TOL, atol=TOL)

@@ -1,6 +1,8 @@
-"""The port imports torch and never jax: no file of llavamod_tpu_torch (nor
-chip_smoke.py) imports jax, and importing every module of the port in a
-fresh interpreter adds no jax module to sys.modules."""
+"""The port imports torch, never jax, and nothing of the JAX package: no
+file of llavamod_tpu_torch (nor chip_smoke.py) imports jax or llavamod_tpu
+(the port keeps its own copies of the host modules it needs), and importing
+every module of the port in a fresh interpreter adds no jax module to
+sys.modules."""
 
 import os
 import re
@@ -11,6 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "llavamod_tpu_torch")
 _IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
                      r"from\s+jaxlib\b)", re.M)
+_JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+llavamod_tpu(\.|\s|$)", re.M)
 
 
 def _port_files():
@@ -37,6 +40,17 @@ def _source(path):
 def test_no_port_file_imports_jax():
     offenders = [p for p in _port_files() if _IMPORT.search(_source(p))]
     assert not offenders, offenders
+
+
+def test_no_port_file_imports_the_jax_package():
+    offenders = [p for p in _port_files() if _JAX_PACKAGE.search(_source(p))]
+    assert not offenders, offenders
+    # the pattern catches every import form and spares the port's own name
+    for line in ("import llavamod_tpu", "from llavamod_tpu import x",
+                 "    from llavamod_tpu.mm_utils import y",
+                 "import llavamod_tpu.constants as c"):
+        assert _JAX_PACKAGE.search(line), line
+    assert not _JAX_PACKAGE.search("from llavamod_tpu_torch import x")
 
 
 def test_importing_the_port_loads_no_jax():

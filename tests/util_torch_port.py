@@ -17,7 +17,10 @@ from llavamod_tpu.models import llava as jllava
 from llavamod_tpu.models.llava import LlavaConfig as JLlavaConfig
 from llavamod_tpu.models.llm.config import DecoderConfig as JDecoderConfig
 from llavamod_tpu.models.vision.vit import VisionConfig as JVisionConfig
-from llavamod_tpu_torch.interop.from_jax import load_jax_params
+from llavamod_tpu_torch.interop.from_jax import (
+    load_jax_params,
+    state_dict_from_numpy,
+)
 from llavamod_tpu_torch.models import llava as tllava
 from llavamod_tpu_torch.models.llava import LlavaConfig
 from llavamod_tpu_torch.models.llm.config import tiny_config
@@ -112,3 +115,9 @@ def np32(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+def flatten_numpy(tree) -> dict:
+    """A JAX tree (after jax.device_get) -> flat {'a.b.0.c': f32 ndarray},
+    keyed as the port's state_dict."""
+    return {k: v.float().numpy() for k, v in state_dict_from_numpy(tree).items()}
