@@ -1,45 +1,36 @@
-// K3 and K4: flash-attention backward for Hopper (sm_90a), bf16 in / bf16
-// out, f32 accumulation.
+// K3: flash-attention backward dq for Hopper (sm_90a), bf16 in / bf16
+// out, f32 accumulation.  (K4, dk and dv, is csrc/flash_dkv.cu.)
 //
-// Replaces llavamod_tpu/ops/flash_attention.py::_dq_kernel (K3, launched by
-// _bwd) and ::_dkv_kernel (K4): both recompute the probability tile
-// p = exp(softcap(s) - lse) from q, k and the forward's saved logsumexp, so
-// the [T, S] score matrix never reaches device memory, and use
-// delta = rowsum(dO * O) (computed by the wrapper, as _bwd does in XLA):
+// Replaces llavamod_tpu/ops/flash_attention.py::_dq_kernel (launched by
+// _bwd): it recomputes the probability tile p = exp(softcap(s) - lse) from
+// q, k and the forward's saved logsumexp, so the [T, S] score matrix never
+// reaches device memory, and uses delta = rowsum(dO * O) (computed by the
+// wrapper, as _bwd does in XLA):
 //
 //   dp = dO V^T (f32),  ds = p * (dp - delta) * softcap'(s) * scale
-//   K3: dq  = sum_j ds_j K_j                  (ds cast to bf16 first)
-//   K4: dv  = sum_{i, g} p^T dO               (p cast to bf16 first)
-//       dk  = sum_{i, g} ds^T Q               (ds cast to bf16 first)
+//   dq = sum_j ds_j K_j         (ds cast to bf16 first)
 //
 // with softcap'(s) = 1 - tanh^2(s_raw / c) on the RAW scaled score.
 //
 // What bounds it on an H100: at the training shape (B=1, T=S=2048,
-// H=KH=16, D=128, causal) K3 does 25.8 GFLOP (3 products per live pair)
-// and K4 34.4 GFLOP (4 products) against ~21 and ~25 MB of q/k/v/dO/lse/
-// delta in and dq or dk/dv out: far above the ~295 FLOP/byte ridge, so
-// bound by tensor-core throughput and, in this first version, by
-// shared-memory traffic around WMMA.
+// H=KH=16, D=128, causal) it does 25.8 GFLOP (3 products per live pair)
+// against ~21 MB of q/k/v/dO/lse/delta in and dq out: far above the ~295
+// FLOP/byte ridge, so bound by tensor-core throughput and, in this first
+// version, by shared-memory traffic around WMMA.
 //
-// Design (simple and correct first; wgmma/TMA/pipelining come later):
-//   * no atomics, deterministic, as the TPU kernels: K3 has one block of 4
-//     warps per (q tile of 64 rows, head, batch) and loops over kv tiles;
-//     K4 has one block per (kv tile of 64 rows, kv head, batch) and loops
-//     over the GQA group's q heads and the q tiles.  Both skip the tiles
-//     that causality masks out whole;
-//   * each warp owns 16 rows of its block's tile (q rows in K3, kv rows in
-//     K4); products run through WMMA 16x16x16 bf16 fragments with f32
-//     accumulation; the f32 score and dp tiles go through shared memory so
-//     the elementwise ds step is plain indexed arithmetic;
-//   * K3 keeps its dq accumulator in fragments (16 x D per warp); K4 keeps
-//     dk and dv (16 x D each per warp) in shared memory, reloaded around
-//     each product, which keeps registers low; K4 needs ~187 KB of shared
-//     memory at D = 128, granted with cudaFuncSetAttribute;
+// Design (simple and correct first; the wgmma/TMA redesign of K1 and K4 in
+// hopper.cuh is the model for its next version):
+//   * no atomics, deterministic, as the TPU kernel: one block of 4 warps per
+//     (q tile of 64 rows, head, batch) loops over the kv tiles, skipping
+//     those that causality masks out whole;
+//   * each warp owns 16 q rows; products run through WMMA 16x16x16 bf16
+//     fragments with f32 accumulation; the f32 score and dp tiles go through
+//     shared memory so the elementwise ds step is plain indexed arithmetic;
+//     the dq accumulator stays in fragments (16 x D per warp);
 //   * masking is one rule: a row or column past the sequence gets segment
 //     0, and (q, k) is live iff qseg == kseg != 0 and (!causal || k <= q).
 //     p is never formed on a dead pair, so a fully masked row (lse =
-//     NEG_INF) gives p = 0, not inf * 0: padded query rows get dq = 0, keys
-//     that no row sees get dk = dv = 0;
+//     NEG_INF) gives p = 0, not inf * 0: padded query rows get dq = 0;
 //   * tensors are read and written through strides from the [B, T, H, D]
 //     API layout, as in K1; GQA maps query head h to kv head h / (H / KH).
 
@@ -121,29 +112,6 @@ __device__ __forceinline__ void mm_abt(float* out, const __nv_bfloat16* a,
       wmma::mma_sync(acc, fa, fb, acc);
     }
     wmma::store_matrix_sync(out + n * 16, acc, P::LDS, wmma::mem_row_major);
-  }
-}
-
-// acc[16 x D] (f32 in shared memory, pitch LDO) += A[16 x 64] B where A is
-// bf16 with pitch LDP and B is 64 x D bf16 row-major with pitch LDQ.
-template <int D>
-__device__ __forceinline__ void mm_acc_smem(float* acc,
-                                            const __nv_bfloat16* a,
-                                            const __nv_bfloat16* b) {
-  using P = Pitch<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    FragC c;
-    wmma::load_matrix_sync(c, acc + n * 16, P::LDO, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, P::LDP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * P::LDQ + n * 16, P::LDQ);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(acc + n * 16, c, P::LDO, wmma::mem_row_major);
   }
 }
 
@@ -315,133 +283,6 @@ flash_dq_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows<D>(dq + b * st.dq_sb + h * st.dq_sh, st.dq_st, stage, q0, T);
 }
 
-// ---------------------------------------------------------------------------
-// K4: dk, dv
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct DkvLayout {
-  using P = Pitch<D>;
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + size_t(BK) * P::LDQ * 2;
-  static constexpr size_t q_off = v_off + size_t(BK) * P::LDQ * 2;
-  static constexpr size_t do_off = q_off + size_t(BQ) * P::LDQ * 2;
-  static constexpr size_t st_off = do_off + size_t(BQ) * P::LDQ * 2;
-  static constexpr size_t dpt_off = st_off + size_t(BK) * P::LDS * 4;
-  static constexpr size_t pt_off = dpt_off + size_t(BK) * P::LDS * 4;
-  static constexpr size_t dst_off = pt_off + size_t(BK) * P::LDP * 2;
-  static constexpr size_t dk_off = dst_off + size_t(BK) * P::LDP * 2;
-  static constexpr size_t dv_off = dk_off + size_t(BK) * P::LDO * 4;
-  static constexpr size_t lse_off = dv_off + size_t(BK) * P::LDO * 4;
-  static constexpr size_t delta_off = lse_off + size_t(BQ) * 4;
-  static constexpr size_t qseg_off = delta_off + size_t(BQ) * 4;
-  static constexpr size_t kseg_off = qseg_off + size_t(BQ) * 4;
-  static constexpr size_t bytes = kseg_off + size_t(BK) * 4;
-};
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                 int H, int KH, int T, int S, Strides st, float scale,
-                 float softcap, int causal) {
-  using P = Pitch<D>;
-  using L = DkvLayout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* sDO = reinterpret_cast<__nv_bfloat16*>(smem + L::do_off);
-  float* sST = reinterpret_cast<float*>(smem + L::st_off);    // K Q^T
-  float* sDPT = reinterpret_cast<float*>(smem + L::dpt_off);  // V dO^T
-  __nv_bfloat16* sPT = reinterpret_cast<__nv_bfloat16*>(smem + L::pt_off);
-  __nv_bfloat16* sDST = reinterpret_cast<__nv_bfloat16*>(smem + L::dst_off);
-  float* sDK = reinterpret_cast<float*>(smem + L::dk_off);
-  float* sDV = reinterpret_cast<float*>(smem + L::dv_off);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse_off);
-  float* sDelta = reinterpret_cast<float*>(smem + L::delta_off);
-  int* sQSeg = reinterpret_cast<int*>(smem + L::qseg_off);
-  int* sKSeg = reinterpret_cast<int*>(smem + L::kseg_off);
-
-  const int k0 = blockIdx.x * BK;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = H / KH;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-
-  load_tile<D>(sK, k + b * st.k_sb + kvh * st.k_sh, st.k_ss, k0, S);
-  load_tile<D>(sV, v + b * st.v_sb + kvh * st.v_sh, st.v_ss, k0, S);
-  if (tid < BK) sKSeg[tid] = seg_at(kv_seg, b, S, k0 + tid);
-  for (int i = tid; i < BK * P::LDO; i += NTHREADS) {
-    sDK[i] = 0.f;
-    sDV[i] = 0.f;
-  }
-
-  const int nq = (T + BQ - 1) / BQ;
-  const int i_start = causal ? k0 / BQ : 0;  // first q tile with a row >= k0
-  // lane pair (2r, 2r+1) owns kv row r of the warp's 16 rows
-  const int prow = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int s_row = k0 + prow;
-
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = kvh * g + gi;
-    for (int i = i_start; i < nq; ++i) {
-      const int q0 = i * BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<D>(sQ, q + b * st.q_sb + h * st.q_sh, st.q_st, q0, T);
-      load_tile<D>(sDO, dout + b * st.o_sb + h * st.o_sh, st.o_st, q0, T);
-      if (tid < BQ) {
-        const int t = q0 + tid;
-        const long long row = ((long long)b * H + h) * T + t;
-        sLse[tid] = t < T ? lse[row] : 0.f;
-        sDelta[tid] = t < T ? delta[row] : 0.f;
-        sQSeg[tid] = seg_at(q_seg, b, T, t);
-      }
-      __syncthreads();
-
-      mm_abt<D>(sST + warp * 16 * P::LDS, sK + warp * 16 * P::LDQ, sQ);
-      mm_abt<D>(sDPT + warp * 16 * P::LDS, sV + warp * 16 * P::LDQ, sDO);
-      __syncwarp();
-
-      {
-        const int ks = sKSeg[prow];
-        const float* srow = sST + prow * P::LDS;
-        const float* dprow = sDPT + prow * P::LDS;
-        __nv_bfloat16* prow_out = sPT + prow * P::LDP;
-        __nv_bfloat16* dsrow = sDST + prow * P::LDP;
-#pragma unroll 8
-        for (int c = half * 32; c < half * 32 + 32; ++c) {
-          const bool ok = sQSeg[c] == ks && ks != 0 &&
-                          (!causal || s_row <= q0 + c);
-          float p = 0.f, ds = 0.f;
-          if (ok)
-            ds = grad_score(srow[c], dprow[c], sLse[c], sDelta[c], scale,
-                            softcap, &p);
-          prow_out[c] = __float2bfloat16(p);
-          dsrow[c] = __float2bfloat16(ds);
-        }
-      }
-      __syncwarp();
-
-      // dv += p^T dO,  dk += ds^T Q  (this warp's 16 kv rows)
-      mm_acc_smem<D>(sDV + warp * 16 * P::LDO, sPT + warp * 16 * P::LDP, sDO);
-      mm_acc_smem<D>(sDK + warp * 16 * P::LDO, sDST + warp * 16 * P::LDP, sQ);
-    }
-  }
-
-  __syncthreads();
-  store_rows<D>(dk + b * st.dk_sb + kvh * st.dk_sh, st.dk_ss, sDK, k0, S);
-  store_rows<D>(dv + b * st.dv_sb + kvh * st.dv_sh, st.dv_ss, sDV, k0, S);
-}
-
 Strides unpack(const long long* s) {
   return Strides{s[0],  s[1],  s[2],  s[3],  s[4],  s[5],  s[6],
                  s[7],  s[8],  s[9],  s[10], s[11], s[12], s[13],
@@ -468,32 +309,12 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, const int* q_seg,
-               const int* kv_seg, void* dk, void* dv, int B, int H, int KH,
-               int T, int S, const Strides& st, float scale, float softcap,
-               int causal, cudaStream_t stream) {
-  const size_t smem = DkvLayout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BK - 1) / BK, KH, B);
-  flash_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, q_seg, kv_seg,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, KH,
-      T, S, st, scale, softcap, causal);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// strides: 21 element strides, (batch, seq, head) for q, k, v, dO, dq, dk
-// and dv.  lse and delta are contiguous [B, H, T] f32.  softcap <= 0 means
-// none.  Each returns a cudaError_t (0 = launched).
+// strides: 21 element strides, (batch, seq, head) for q, k, v, dO, dq and
+// two unused triples (the layout llavamod_flash_dkv takes).  lse and delta
+// are contiguous [B, H, T] f32.  softcap <= 0 means none.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int llavamod_flash_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, const int* q_seg,
@@ -509,23 +330,5 @@ extern "C" int llavamod_flash_dq(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, q_seg, kv_seg, dq, B, H,
                           KH, T, S, st, scale, softcap, causal, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int llavamod_flash_dkv(const void* q, const void* k, const void* v,
-                                  const void* dout, const float* lse,
-                                  const float* delta, const int* q_seg,
-                                  const int* kv_seg, void* dk, void* dv, int B,
-                                  int H, int KH, int T, int S, int D,
-                                  const long long* strides, float scale,
-                                  float softcap, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Strides st = unpack(strides);
-  if (D == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, q_seg, kv_seg, dk, dv, B,
-                          H, KH, T, S, st, scale, softcap, causal, s);
-  if (D == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, q_seg, kv_seg, dk, dv,
-                           B, H, KH, T, S, st, scale, softcap, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -76,7 +76,10 @@ __device__ __forceinline__ void load8(const int8_t* p, float* out) {
 }
 
 template <typename QT, typename CT, int D>
-__global__ void __launch_bounds__(NTHREADS)
+// (NTHREADS, 1): one block per (kv head, batch) is 128 blocks at the
+// serving shape, one an SM, so ptxas need not squeeze registers for
+// occupancy (without the bound it spilled at 48 registers)
+__global__ void __launch_bounds__(NTHREADS, 1)
 flash_decode_kernel(const QT* __restrict__ q,          // [B, H, D]
                     const CT* __restrict__ k,          // [B, KH, S, D]
                     const CT* __restrict__ v,

@@ -4,8 +4,10 @@ The kernels are compiled with `nvcc` for `sm_90a`, one `nvcc -c` per
 source, all started together, and linked into one shared library with a
 plain C interface that is loaded through ctypes.  The build happens at first
 use, from the package's own sources, into `build/llavamod_tpu_torch/` at the
-repository root; the library name carries a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one is reused.
+repository root; the library name carries a hash of every file under
+`csrc/` (the `.cu` sources and the `.cuh` headers they include) and of the
+flags, so an edited source or header rebuilds and an unchanged tree is
+reused.
 
 Nothing here runs at import time: CPU-only installs import every module of
 the package without nvcc or a card.
@@ -26,7 +28,8 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "llavamod_tpu_torch"
-SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu")
+# the translation units (K1, K2, K3, K4); K1 and K4 include `hopper.cuh`
+SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu", "flash_dkv.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -56,11 +59,13 @@ def _nvcc() -> str:
                        "the llavamod_tpu_torch CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def digest(csrc: Path = CSRC_DIR) -> str:
+    """Hash of the flags and of every `.cu` and `.cuh` file under `csrc`."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC_DIR / name).read_bytes())
+    for path in sorted(csrc.rglob("*.cu*")):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(str(path.relative_to(csrc)).encode() + b"\0")
+            h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -105,7 +110,7 @@ def load_library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         t0 = time.perf_counter()
-        out = BUILD_DIR / f"libllavamod_kernels_{_digest()}.so"
+        out = BUILD_DIR / f"libllavamod_kernels_{digest()}.so"
         built = not out.exists()
         log = _compile(out) if built else ""
         lib = ctypes.CDLL(str(out))

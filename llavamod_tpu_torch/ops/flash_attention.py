@@ -1,5 +1,6 @@
 """Flash attention: forward kernel K1 (csrc/flash_fwd.cu), backward kernels
-K3 and K4 (csrc/flash_bwd.cu), and their plain PyTorch versions.
+K3 (csrc/flash_bwd.cu) and K4 (csrc/flash_dkv.cu), and their plain PyTorch
+versions.
 
 Port of llavamod_tpu/ops/flash_attention.py.  The layout at the API is
 [B, T, H, D] for q and [B, S, KH, D] for k/v, as in the JAX package; the

@@ -76,18 +76,38 @@ class BatchingEngine:
         self._gcfg_cls = GenerationConfig
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
+        # written by every submitting thread and the batcher: only under
+        # _stats_lock; readers take `stats_snapshot()`
+        self._stats_lock = threading.Lock()
         self.stats = {"requests": 0, "batches": 0, "batched_rows": 0,
                       "max_batch_seen": 0, "bucket_hist": {}}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="batching-engine")
         self._thread.start()
 
+    def stats_snapshot(self) -> Dict[str, Any]:
+        """A copy of the counters, taken under the lock."""
+        with self._stats_lock:
+            return {**self.stats, "bucket_hist": dict(self.stats["bucket_hist"])}
+
+    def _count_request(self) -> None:
+        with self._stats_lock:
+            self.stats["requests"] += 1
+
+    def _count_batch(self, n: int, bucket: int) -> None:
+        with self._stats_lock:
+            self.stats["batches"] += 1
+            self.stats["batched_rows"] += n
+            self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], n)
+            h = self.stats["bucket_hist"]
+            h[str(bucket)] = h.get(str(bucket), 0) + 1
+
     # -- client side ------------------------------------------------------
     def submit(self, prompt: str, image, max_new_tokens: Optional[int],
                timeout: float = 300.0) -> Dict[str, Any]:
         req = _Request(prompt, image,
                        max_new_tokens or self.default_max_new)
-        self.stats["requests"] += 1
+        self._count_request()
         self._q.put(req)
         if not req.event.wait(timeout):
             raise TimeoutError("generation timed out")
@@ -103,7 +123,7 @@ class BatchingEngine:
         req.error)."""
         req = _Request(prompt, image,
                        max_new_tokens or self.default_max_new, stream=True)
-        self.stats["requests"] += 1
+        self._count_request()
         self._q.put(req)
         return req
 
@@ -149,11 +169,7 @@ class BatchingEngine:
 
         n = len(reqs)
         bucket = _bucket(n, self.max_batch)
-        self.stats["batches"] += 1
-        self.stats["batched_rows"] += n
-        self.stats["max_batch_seen"] = max(self.stats["max_batch_seen"], n)
-        h = self.stats["bucket_hist"]
-        h[str(bucket)] = h.get(str(bucket), 0) + 1
+        self._count_batch(n, bucket)
 
         prompts = [r.prompt for r in reqs]
         images = [r.image for r in reqs]
@@ -264,7 +280,7 @@ def make_handler(engine: BatchingEngine, model_name: str):
             if self.path == "/health":
                 return self._json(200, {"ok": True, "model": model_name})
             if self.path == "/stats":
-                return self._json(200, engine.stats)
+                return self._json(200, engine.stats_snapshot())
             return self._json(404, {"error": "not found"})
 
         def _stream(self, full_prompt, img, max_new):

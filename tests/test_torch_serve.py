@@ -24,7 +24,7 @@ from llavamod_tpu_torch.models.builder import make_image_preprocessor
 from llavamod_tpu_torch.models.llava import LlavaConfig
 from llavamod_tpu_torch.models.llm.config import tiny_config
 from llavamod_tpu_torch.models.vision.vit import tiny_vision_config
-from llavamod_tpu_torch.serve.server import BatchingEngine, make_handler
+from llavamod_tpu_torch.serve.server import BatchingEngine, _bucket, make_handler
 
 torch.set_num_threads(2)
 
@@ -142,6 +142,46 @@ def test_image_request_and_stream(served):
     final = [e for e in events if e.get("done")]
     assert len(final) == 1 and final[0]["text"] == out["text"]
     assert "".join(deltas).strip() == out["text"] and len(deltas) >= 2
+
+
+class _EchoEngine(BatchingEngine):
+    """The batcher without a model: counts the batch as `_run_batch` does
+    and answers each request with its prompt."""
+
+    def _run_batch(self, reqs):
+        self._count_batch(len(reqs), _bucket(len(reqs), self.max_batch))
+        for r in reqs:
+            r.result = {"id": r.rid, "text": r.prompt}
+            r.event.set()
+
+
+def test_stats_are_exact_under_concurrent_submitters():
+    engine = _EchoEngine(None, max_batch=4, batch_window=0.001)
+    n_threads, per_thread = 8, 25
+    answers = []
+
+    def submitter(i):
+        for j in range(per_thread):
+            answers.append(engine.submit(f"{i}/{j}", None, 1)["text"])
+
+    try:
+        threads = [threading.Thread(target=submitter, args=(i,))
+                   for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+        snap = engine.stats_snapshot()
+    finally:
+        engine.shutdown()
+    n = n_threads * per_thread
+    assert sorted(answers) == sorted(f"{i}/{j}" for i in range(n_threads)
+                                     for j in range(per_thread))
+    assert snap["requests"] == snap["batched_rows"] == n
+    assert sum(snap["bucket_hist"].values()) == snap["batches"] >= n // 4
+    assert 1 <= snap["max_batch_seen"] <= 4
+    snap["bucket_hist"]["99"] = 1                   # a copy, not the live dict
+    assert "99" not in engine.stats_snapshot()["bucket_hist"]
 
 
 def test_build_engine_from_a_native_checkpoint(tmp_path):
