@@ -6,23 +6,28 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
 
   1. builds the hand-written kernels (llavamod_tpu_torch/csrc) from source,
      one nvcc per source, all at once;
-  2. fails if ptxas reports a register spill in any kernel; holds each
-     kernel against its plain PyTorch version on the card, in bf16, at the
-     shapes the serving and training paths give it (K1 at the student's and
-     the teacher's training shapes and the serving prefill), under the
-     elementwise tolerance of llavamod_tpu_torch/ops/tolerance.py; checks
-     that K4 gives the same bits over two launches; and times the kernel,
-     the plain version and one PyTorch library call computing the same
-     function (scaled_dot_product_attention and its backward), beside the
-     least time the card could take (bound);
+  2. fails if ptxas reports a register spill or a serialised wgmma in any
+     kernel; holds each kernel against its plain PyTorch version on the
+     card, in bf16, at the shapes the serving and training paths give it
+     (K1 at the student's and the teacher's training shapes and the serving
+     prefill; K2 at the serving batch and the streamed request's B=1),
+     under the elementwise tolerance of llavamod_tpu_torch/ops/tolerance.py;
+     checks that K2, K3 and K4 give the same bits over two launches; and
+     times the kernel, the plain version and one PyTorch library call
+     computing the same function (scaled_dot_product_attention and its
+     backward), beside the least time the card could take (bound).  A time
+     (`ms`) is the device time of one call, every kernel it launches, from
+     torch.profiler; `event_ms` is the CUDA-event window around one call
+     from an idle card (host enqueue included, the measure of earlier runs)
+     and `host_ms` the wrapper's host time;
   3. serving path: builds the LLaVA-MoD-2B student at full width
      (Qwen1.5-1.8B with 4 experts top-2 on the even layers, CLIP-ViT-L/336,
      mlp2x_gelu) from seeded random weights directly on the card, serves 8
      concurrent image requests plus one streamed request through the port's
      HTTP server, and checks that every served prefill went through kernel
      K1 and every decode step through kernel K2; checks the prefill's
-     last-position logits against the plain attention, and times prefill
-     and decode;
+     last-position logits against the plain attention, times prefill and
+     decode, and profiles one decode step (device time of K2 by name);
   4. training path: upcycles a fresh dense student to the same MoE, builds
      the Qwen1.5-7B teacher (sharing the student's frozen tower), and runs
      the stage-2 distillation step (`make_align_step`, kd_lm, record train
@@ -85,7 +90,7 @@ SEED = 0
 TRAIN_T = 2048
 TRAIN_TIMED_STEPS = 3
 RECORD_TRAIN_SET = ("/gate", "/up", "/down", "router")
-ATTENTION_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+ATTENTION_KERNELS = ("flash_fwd", "flash_decode", "flash_dq", "flash_dkv")
 
 
 def log(msg: str) -> None:
@@ -100,7 +105,8 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of CUDA-event timings of fn() (ms)."""
+    """Median of CUDA-event timings of one fn() each (ms), every call from
+    an idle card: the window holds the host's enqueue as well."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -114,6 +120,94 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profile_window(fn):
+    """Run fn() once under torch.profiler; returns (wall ms, [(CUDA kernel
+    name, device ms, count)])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return wall_ms, rows
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Mean device time of one fn() (ms): every CUDA kernel it launches,
+    summed, from torch.profiler over `calls` calls after a warm-up; CUDA
+    events over the same run of calls where three profiler windows in a
+    row see no device time."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        _, rows = profile_window(lambda: [fn() for _ in range(calls)])
+        busy = sum(r[1] for r in rows)
+        if busy > 0:
+            return busy / calls
+    log("[kernel] the profiler recorded no device time: CUDA events over "
+        f"{calls} calls instead")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def host_ms(fn, calls: int = 20) -> float:
+    """Host time of one fn() (ms): what the caller's thread spends to
+    enqueue it, over `calls` calls that do not wait for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    per_call = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return per_call
+
+
+def timings(fn, calls: int = 20) -> dict:
+    """The kernel's device time per call (`ms`), the single-call event
+    window of earlier runs (`event_ms`: host enqueue plus device) and the
+    wrapper's host time (`host_ms`)."""
+    return dict(ms=device_ms(fn, calls), event_ms=time_ms(fn),
+                host_ms=host_ms(fn, calls))
+
+
+def kernel_family(name: str):
+    """The wrapper whose kernel a CUDA kernel name belongs to, or None."""
+    for k, wrapper in (("flash_fwd_kernel", "flash_fwd"),
+                       ("flash_decode_split_kernel", "flash_decode"),
+                       ("flash_decode_combine_kernel", "flash_decode"),
+                       ("flash_dq_kernel", "flash_dq"),
+                       ("flash_dkv_kernel", "flash_dkv")):
+        if k in name:
+            return wrapper
+    return None
+
+
+def registers_by_kernel(build_log: str) -> dict:
+    """Most registers a thread of any instantiation of each wrapper's
+    kernels uses (ptxas -v in the build log)."""
+    regs, current = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = kernel_family(line)
+        elif "Used" in line and "registers" in line and current:
+            n = int(line.split("Used")[1].split("registers")[0])
+            regs[current] = max(regs.get(current, 0), n)
+    return regs
 
 
 def left_pad_segments(lengths, total: int, dev) -> torch.Tensor:
@@ -189,14 +283,16 @@ def check_flash_fwd(gen, dev):
         ratio = max(tol_ratio(o[real], o_ref[real]),
                     tol_ratio(lse_real, lse_ref_real))
         pad_zero = bool((o[~real] == 0).all().item()) if (~real).any() else True
-        ms = time_ms(lambda: flash_fwd(q, k, v, seg, seg, causal=True,
+        tk = timings(lambda: flash_fwd(q, k, v, seg, seg, causal=True,
                                        softcap=cap))
-        plain_ms = time_ms(lambda: flash_fwd_reference(
-            q, k, v, seg, seg, causal=True, softcap=cap), iters=5)
+        plain_ms = device_ms(lambda: flash_fwd_reference(
+            q, k, v, seg, seg, causal=True, softcap=cap), calls=5)
         log(f"[kernel] flash_fwd {name}: B={b} T={t} H={h} KH={kh} D={d} "
             f"softcap={cap} max_abs_err={err:.3e} lse_err={lse_err:.3e} "
             f"worst err/tol {ratio:.3f} ({TOL_TEXT}) pad_rows_zero={pad_zero} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"kernel {tk['ms']:.4f} ms (one-call event window "
+            f"{tk['event_ms']:.4f}, host {tk['host_ms']:.4f}) plain "
+            f"{plain_ms:.4f} ms")
         if not (ratio <= 1.0 and pad_zero):
             raise AssertionError(f"flash_fwd {name} disagrees with its plain "
                                  f"version: err {err} lse_err {lse_err} "
@@ -206,17 +302,19 @@ def check_flash_fwd(gen, dev):
             # (the causal flag alone where no row is padded)
             mask = None if real.all() else pair_mask(seg)[:, None]
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            lib = timings(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None))
-            timed[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               library_ms=lib_ms,
+            timed[name] = dict(max_abs_err=err, **tk, plain_ms=plain_ms,
+                               library_ms=lib["ms"],
+                               library_event_ms=lib["event_ms"],
                                **bound(4 * d * h * n_pairs(seg),
                                        nbytes(q, k, v, o, lse, seg, seg)))
             log(f"[kernel] flash_fwd {name}: library "
-                f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+                f"scaled_dot_product_attention {lib['ms']:.4f} ms (event "
+                f"window {lib['event_ms']:.4f}), bound "
                 f"{timed[name]['bound_ms']:.4f} ms "
                 f"({timed[name]['bound_by']}), kernel / library "
-                f"{ms / lib_ms:.2f}x")
+                f"{tk['ms'] / lib['ms']:.2f}x")
     return dict(timed["train step"], by_shape=timed)
 
 
@@ -228,20 +326,26 @@ def _quant(x):
 
 
 def check_flash_decode(gen, dev):
+    """K2 against its plain version; the serving case (B=8) and the
+    streamed request's (B=1) carry their SDPA time and bound.  Returns the
+    B=8 case with both timed cases under `by_shape`."""
     from llavamod_tpu_torch.ops.decode_attention import (
+        decode_splits,
         flash_decode,
         flash_decode_reference,
     )
     from llavamod_tpu_torch.ops.tolerance import max_abs_err, tol_ratio
 
     s_len = PROMPT_LEN + NEW_TOKENS
-    cases = [  # name, B, H, KH, D, int8
-        ("serving decode bf16", 8, 16, 16, 128, False),
-        ("serving decode int8", 8, 16, 16, 128, True),
-        ("gqa", 4, 14, 2, 64, False),
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [  # name, B, H, KH, D, int8, timed against SDPA
+        ("serving decode bf16", 8, 16, 16, 128, False, True),
+        ("streamed decode bf16", 1, 16, 16, 128, False, True),
+        ("serving decode int8", 8, 16, 16, 128, True, False),
+        ("gqa", 4, 14, 2, 64, False, False),
     ]
-    main = None
-    for name, b, h, kh, d, quant in cases:
+    timed = {}
+    for name, b, h, kh, d, quant, vs_library in cases:
         q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, kh, s_len, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, kh, s_len, d), generator=gen, device=dev).bfloat16()
@@ -260,30 +364,43 @@ def check_flash_decode(gen, dev):
         torch.cuda.synchronize()
         err = max_abs_err(out, ref)
         ratio = tol_ratio(out, ref)
-        ms = time_ms(lambda: flash_decode(q, k, v, kv_seg=seg, **kw))
-        plain_ms = time_ms(lambda: flash_decode_reference(q, k, v, kv_seg=seg,
-                                                          **kw))
+        # the splits' partials merge in a fixed order, without atomics
+        same_bits = bool(torch.equal(out, flash_decode(q, k, v, kv_seg=seg,
+                                                       **kw)))
+        splits = decode_splits(b, kh, s_len, sms)
+        tk = timings(lambda: flash_decode(q, k, v, kv_seg=seg, **kw))
+        plain_ms = device_ms(lambda: flash_decode_reference(
+            q, k, v, kv_seg=seg, **kw))
         log(f"[kernel] flash_decode {name}: B={b} H={h} KH={kh} D={d} "
-            f"S={s_len} max_abs_err={err:.3e} worst err/tol {ratio:.3f} "
-            f"({TOL_TEXT}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if not ratio <= 1.0:
+            f"S={s_len} splits={splits} max_abs_err={err:.3e} worst err/tol "
+            f"{ratio:.3f} ({TOL_TEXT}) bitwise equal over two launches="
+            f"{same_bits} kernel {tk['ms']:.4f} ms (one-call event window "
+            f"{tk['event_ms']:.4f}, host {tk['host_ms']:.4f}) plain "
+            f"{plain_ms:.4f} ms")
+        if not (ratio <= 1.0 and same_bits):
             raise AssertionError(f"flash_decode {name} disagrees with its "
-                                 f"plain version: err {err}")
-        if main is None:
+                                 f"plain version or itself: err {err} "
+                                 f"deterministic {same_bits}")
+        if vs_library:
             live = int((seg != 0).sum().item())     # cache slots read
             qt = q[:, :, None]
             mask = (seg != 0)[:, None, None, :]
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            lib = timings(lambda: F.scaled_dot_product_attention(
                 qt, k, v, attn_mask=mask, enable_gqa=h != kh))
-            main = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        library_ms=lib_ms,
-                        **bound(4 * d * h * live,
-                                nbytes(q, out, seg)
-                                + 2 * live * kh * d * k.element_size()))
+            timed[name] = dict(max_abs_err=err, **tk, plain_ms=plain_ms,
+                               library_ms=lib["ms"],
+                               library_event_ms=lib["event_ms"],
+                               splits=splits, deterministic=same_bits,
+                               **bound(4 * d * h * live,
+                                       nbytes(q, out, seg)
+                                       + 2 * live * kh * d * k.element_size()))
             log(f"[kernel] flash_decode {name}: library "
-                f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-                f"{main['bound_ms']:.4f} ms ({main['bound_by']})")
-    return main
+                f"scaled_dot_product_attention {lib['ms']:.4f} ms (event "
+                f"window {lib['event_ms']:.4f}), bound "
+                f"{timed[name]['bound_ms']:.4f} ms "
+                f"({timed[name]['bound_by']}, {live} live slots of "
+                f"{b * s_len}), kernel / library {tk['ms'] / lib['ms']:.2f}x")
+    return dict(timed["serving decode bf16"], by_shape=timed)
 
 
 def check_flash_bwd(gen, dev):
@@ -325,28 +442,34 @@ def check_flash_bwd(gen, dev):
         dkv_err = max(max_abs_err(dk, dk_ref), max_abs_err(dv, dv_ref))
         ratio = max(tol_ratio(dq, dq_ref), tol_ratio(dk, dk_ref),
                     tol_ratio(dv, dv_ref))
-        # K4 sums in a fixed order without atomics: a second launch on the
-        # same inputs gives the same bits
+        # K3 and K4 sum in a fixed order without atomics: a second launch
+        # on the same inputs gives the same bits
+        same_dq = bool(torch.equal(dq, flash_dq(*args, **kw)))
         dk2, dv2 = flash_dkv(*args, **kw)
-        same_bits = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        same_dkv = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
         pad = ~seg.bool()
         pad_zero = bool((dq[pad] == 0).all() and (dk[pad] == 0).all()
                         and (dv[pad] == 0).all())
-        ms_dq = time_ms(lambda: flash_dq(*args, **kw))
-        ms_dkv = time_ms(lambda: flash_dkv(*args, **kw))
-        plain_dq = time_ms(lambda: flash_dq_reference(*args, **kw), iters=5)
-        plain_dkv = time_ms(lambda: flash_dkv_reference(*args, **kw), iters=5)
+        t_dq = timings(lambda: flash_dq(*args, **kw))
+        t_dkv = timings(lambda: flash_dkv(*args, **kw))
+        plain_dq = device_ms(lambda: flash_dq_reference(*args, **kw), calls=5)
+        plain_dkv = device_ms(lambda: flash_dkv_reference(*args, **kw),
+                              calls=5)
         log(f"[kernel] flash_dq / flash_dkv {name}: B={b} T={t} H={h} KH={kh} "
             f"D={d} softcap={cap} max_abs_err dq {dq_err:.3e} dk,dv "
             f"{dkv_err:.3e} worst err/tol {ratio:.3f} ({TOL_TEXT}) "
-            f"pad_rows_zero={pad_zero} dk,dv bitwise equal over two launches="
-            f"{same_bits} kernel {ms_dq:.4f} / {ms_dkv:.4f} ms plain "
+            f"pad_rows_zero={pad_zero} bitwise equal over two launches: dq "
+            f"{same_dq} dk,dv {same_dkv}; kernel {t_dq['ms']:.4f} / "
+            f"{t_dkv['ms']:.4f} ms (one-call event windows "
+            f"{t_dq['event_ms']:.4f} / {t_dkv['event_ms']:.4f}, host "
+            f"{t_dq['host_ms']:.4f} / {t_dkv['host_ms']:.4f}) plain "
             f"{plain_dq:.4f} / {plain_dkv:.4f} ms")
-        if not (ratio <= 1.0 and pad_zero and same_bits):
+        if not (ratio <= 1.0 and pad_zero and same_dq and same_dkv):
             raise AssertionError(f"flash backward {name} disagrees with its "
                                  f"plain version or itself: dq {dq_err} "
                                  f"dk/dv {dkv_err} err/tol {ratio} pad_zero "
-                                 f"{pad_zero} deterministic {same_bits}")
+                                 f"{pad_zero} deterministic dq {same_dq} "
+                                 f"dk,dv {same_dkv}")
         if main is None:
             # the library call: the backward of SDPA (dq, dk and dv in one
             # call) on the same inputs; all segments are 1 here, so the
@@ -357,23 +480,26 @@ def check_flash_bwd(gen, dev):
             out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=h != kh)
             dot = do.transpose(1, 2)
-            lib_ms = time_ms(lambda: torch.autograd.grad(
+            lib = timings(lambda: torch.autograd.grad(
                 out, (qt, kt, vt), dot, retain_graph=True))
+            lib_keys = dict(library_ms=lib["ms"],
+                            library_event_ms=lib["event_ms"])
             pairs = n_pairs(seg)
             main = (
-                dict(max_abs_err=dq_err, ms=ms_dq, plain_ms=plain_dq,
-                     library_ms=lib_ms,
+                dict(max_abs_err=dq_err, **t_dq, plain_ms=plain_dq,
+                     deterministic=same_dq, **lib_keys,
                      **bound(6 * d * h * pairs,
                              nbytes(q, k, v, do, lse, delta, seg, seg, dq))),
-                dict(max_abs_err=dkv_err, ms=ms_dkv, plain_ms=plain_dkv,
-                     library_ms=lib_ms, deterministic=same_bits,
+                dict(max_abs_err=dkv_err, **t_dkv, plain_ms=plain_dkv,
+                     deterministic=same_dkv, **lib_keys,
                      **bound(8 * d * h * pairs,
                              nbytes(q, k, v, do, lse, delta, seg, seg, dk,
                                     dv))))
-            log(f"[kernel] flash backward {name}: K3+K4 {ms_dq + ms_dkv:.4f} "
-                f"ms, library SDPA backward (dq, dk, dv) {lib_ms:.4f} ms, "
-                f"bound dq {main[0]['bound_ms']:.4f} ms dk,dv "
-                f"{main[1]['bound_ms']:.4f} ms (operations)")
+            log(f"[kernel] flash backward {name}: K3+K4 "
+                f"{t_dq['ms'] + t_dkv['ms']:.4f} ms, library SDPA backward "
+                f"(dq, dk, dv) {lib['ms']:.4f} ms (event window "
+                f"{lib['event_ms']:.4f}), bound dq {main[0]['bound_ms']:.4f} "
+                f"ms dk,dv {main[1]['bound_ms']:.4f} ms (operations)")
     return main
 
 
@@ -599,6 +725,11 @@ def logits_and_timing(cfg, model, runner, card: str):
             generation._decode_steps(model, gcfg, state, NEW_TOKENS - 1, None)
             torch.cuda.synchronize()
             decode_s.append(time.perf_counter() - t0)
+        # one decode step under the profiler, after 4 unprofiled ones
+        state = prefill()
+        generation._decode_steps(model, gcfg, state, 4, None)
+        wall_ms, rows = profile_window(
+            lambda: generation._decode_steps(model, gcfg, state, 1, None))
     t_dec = statistics.median(decode_s)
     tok_s = MAX_BATCH * (NEW_TOKENS - 1) / t_dec
     step_ms = sorted(t * 1e3 / (NEW_TOKENS - 1) for t in decode_s)
@@ -607,7 +738,11 @@ def logits_and_timing(cfg, model, runner, card: str):
         f"steps at B={MAX_BATCH}, median of 3: {t_dec * 1e3:.3f} ms, "
         f"{tok_s:.1f} tokens/s, ms/step {step_ms[0]:.3f} / {step_ms[1]:.3f} "
         f"/ {step_ms[2]:.3f} (min / median / max); on {card}")
-    return dict(prefill_ms=prefill_ms, decode_tok_s=tok_s, logits_rel=diff / scale)
+    decode_profile = summarize_profile("[slice] profiled decode step", wall_ms,
+                                       rows, step_ms[1])
+    return dict(prefill_ms=prefill_ms, decode_tok_s=tok_s,
+                decode_ms_per_step=step_ms, logits_rel=diff / scale,
+                decode_profile=decode_profile)
 
 
 # ---------------------------------------------------------------------------
@@ -686,54 +821,53 @@ def _reset_launch_counts():
     flash_fwd.launches = flash_dq.launches = flash_dkv.launches = 0
 
 
-def profile_step(step, state, teacher, batch, step_ms: float):
-    """One step under torch.profiler: device busy time, its share of the
-    profiled window and of an unprofiled step (`step_ms`; the profiler's
-    own host work slows the window), and the top device operations."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, _ = step(state, teacher, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+def summarize_profile(tag: str, wall_ms: float, rows, step_ms: float,
+                      attention=ATTENTION_KERNELS):
+    """Device busy time of a profiled window, its share of the window and
+    of an unprofiled step (`step_ms`; the profiler's own host work slows
+    the window), the top device operations, and the device time of the
+    `attention` wrappers' kernels by name, wherever they rank."""
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:
-        log("[train] profiler window: no device time recorded: device busy "
-            "share not measured")
-        return state, None
-    rows.sort(key=lambda r: -r[1])
+        log(f"{tag}: no device time recorded: device busy share not measured")
+        return None
+    rows = sorted(rows, key=lambda r: -r[1])
     top = [dict(name=n[:80], ms=ms, share=ms / busy_ms, count=c)
            for n, ms, c in rows[:8]]
-    # the attention kernels by name, wherever they rank
-    attn = {k: dict(ms=0.0, share=0.0, count=0) for k in ATTENTION_KERNELS}
+    attn = {k: dict(ms=0.0, share=0.0, count=0) for k in attention}
     for n, ms, c in rows:
-        for k in ATTENTION_KERNELS:
-            if f"{k}_kernel" in n:
-                attn[k]["ms"] += ms
-                attn[k]["share"] += ms / busy_ms
-                attn[k]["count"] += c
+        k = kernel_family(n)
+        if k in attn:
+            attn[k]["ms"] += ms
+            attn[k]["share"] += ms / busy_ms
+            attn[k]["count"] += c
     n_kernels = sum(r[2] for r in rows)
-    log(f"[train] profiled step: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms "
-        f"device busy (sum of kernel times), idle share "
-        f"{1 - busy_ms / wall_ms:.3f} of the window and "
-        f"{1 - busy_ms / step_ms:.3f} of the median unprofiled step "
+    log(f"{tag}: {wall_ms:.1f} ms wall, {busy_ms:.1f} ms device busy (sum of "
+        f"kernel times), idle share {1 - busy_ms / wall_ms:.3f} of the window "
+        f"and {1 - busy_ms / step_ms:.3f} of the median unprofiled step "
         f"({step_ms:.1f} ms), {n_kernels} kernels")
     for r in top:
-        log(f"[train]   {r['ms']:9.2f} ms {r['share']:6.1%} x{r['count']:<5d} "
+        log(f"{tag}   {r['ms']:9.3f} ms {r['share']:6.1%} x{r['count']:<5d} "
             f"{r['name']}")
     for k, r in attn.items():
-        log(f"[train]   attention kernel {k}: {r['ms']:.3f} ms "
-            f"({r['share']:.1%} of busy) x{r['count']} in the profiled step")
-    return state, dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels,
-                       idle_share=1 - busy_ms / wall_ms,
-                       idle_share_unprofiled=1 - busy_ms / step_ms, top=top,
-                       attention_kernels=attn)
+        log(f"{tag}   attention kernel {k}: {r['ms']:.3f} ms "
+            f"({r['share']:.1%} of busy) x{r['count']}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels,
+                idle_share=1 - busy_ms / wall_ms,
+                idle_share_unprofiled=1 - busy_ms / step_ms, top=top,
+                attention_kernels=attn)
+
+
+def profile_step(step, state, teacher, batch, step_ms: float):
+    """One training step under torch.profiler (`summarize_profile`)."""
+    out = {}
+
+    def run():
+        out["state"], _ = step(state, teacher, batch)
+
+    wall_ms, rows = profile_window(run)
+    return out["state"], summarize_profile("[train] profiled step", wall_ms,
+                                           rows, step_ms)
 
 
 def train_phase(card: str, dev):
@@ -887,28 +1021,33 @@ def main() -> int:
 
     train_n = trained["launches"]
     serve_n = served["launches"]
+    regs = registers_by_kernel(str(cuda_build.build_info["log"]))
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_fwd.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:75",
              launches=train_n["flash_fwd"],
              launches_by_path={"serve": serve_n["flash_fwd"],
-                               "train": train_n["flash_fwd"]}, **k1),
+                               "train": train_n["flash_fwd"]},
+             registers=regs["flash_fwd"], splits=None, **k1),
         dict(name="flash_decode", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_decode.cu",
              replaces="llavamod_tpu/ops/decode_attention.py:57",
              launches=serve_n["flash_decode"],
-             launches_by_path={"serve": serve_n["flash_decode"]}, **k2),
+             launches_by_path={"serve": serve_n["flash_decode"]},
+             registers=regs["flash_decode"], **k2),
         dict(name="flash_dq", route="cuda",
-             source="llavamod_tpu_torch/csrc/flash_bwd.cu",
+             source="llavamod_tpu_torch/csrc/flash_dq.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:228",
              launches=train_n["flash_dq"],
-             launches_by_path={"train": train_n["flash_dq"]}, **k3),
+             launches_by_path={"train": train_n["flash_dq"]},
+             registers=regs["flash_dq"], splits=None, **k3),
         dict(name="flash_dkv", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_dkv.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:265",
              launches=train_n["flash_dkv"],
-             launches_by_path={"train": train_n["flash_dkv"]}, **k4),
+             launches_by_path={"train": train_n["flash_dkv"]},
+             registers=regs["flash_dkv"], splits=None, **k4),
     ]
     log(json.dumps({"serve": dict(slice_stats,
                                   requests_per_s=served["requests_per_s"]),

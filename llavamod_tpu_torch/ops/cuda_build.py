@@ -28,8 +28,8 @@ from typing import Dict, Optional
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "llavamod_tpu_torch"
-# the translation units (K1, K2, K3, K4); K1 and K4 include `hopper.cuh`
-SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_bwd.cu", "flash_dkv.cu")
+# the translation units (K1, K2, K3, K4); each includes `hopper.cuh`
+SOURCES = ("flash_fwd.cu", "flash_decode.cu", "flash_dq.cu", "flash_dkv.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -112,7 +112,11 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         out = BUILD_DIR / f"libllavamod_kernels_{digest()}.so"
         built = not out.exists()
-        log = _compile(out) if built else ""
+        saved = out.with_suffix(".log")
+        # a reused library keeps the compiler log of its build (registers,
+        # spills) beside it
+        log = (_compile(out) if built
+               else saved.read_text() if saved.exists() else "")
         lib = ctypes.CDLL(str(out))
         lib.llavamod_flash_fwd.argtypes = [
             _p, _p, _p, _p, _p, _p, _p,          # q k v q_seg kv_seg o lse
@@ -122,7 +126,9 @@ def load_library() -> ctypes.CDLL:
         lib.llavamod_flash_fwd.restype = _i
         lib.llavamod_flash_decode.argtypes = [
             _p, _p, _p, _p, _p, _p, _p,          # q k v k_scale v_scale seg out
-            _i, _i, _i, _i, _i, _i, _i,          # B H KH S D q_dtype cache_dtype
+            _p, _p, _p,                          # split partials: acc m l
+            _i, _i, _i, _i, _i, _i,              # B H KH S D splits
+            _i, _i,                              # q_dtype cache_dtype
             _f, _f, _p]                          # scale softcap stream
         lib.llavamod_flash_decode.restype = _i
         bwd_head = [_p, _p, _p, _p, _p, _p, _p, _p]  # q k v dO lse delta segs

@@ -10,22 +10,54 @@ segment row (0 = empty/pad).
 
   * `flash_decode` — the kernel's wrapper.  A CUDA tensor launches K2 or
     raises; a CPU tensor goes to `flash_decode_reference`.
-    `flash_decode.launches` counts kernel launches.
+    `flash_decode.launches` counts kernel launches (one per call: the split
+    kernel and its combine pass).
   * `flash_decode_reference` — the plain version, the same arithmetic over
     the whole cache row at once.
+  * `decode_splits` / `split_bounds` — how K2 cuts the cache length across
+    blocks (flash-decoding), in plain Python so the choice is testable
+    without a card.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 MAX_GROUP = 8  # query heads per kv head the kernel takes
+SPLIT_SLOTS = 128  # a split owns a whole number of these cache slots
+H100_SMS = 132
+# blocks per SM the split count aims for: at the serving shape targets of
+# 1 to 6 timed within the noise of each other on an H100, 2 among the best
+BLOCKS_PER_SM = 2
 
 _Q_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _CACHE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+
+
+def decode_splits(b: int, kh: int, s: int, sms: int = H100_SMS) -> int:
+    """How many splits K2 cuts a cache of `s` slots into: enough blocks
+    (splits x KH x B) for BLOCKS_PER_SM per SM of `sms`, and at least one
+    SPLIT_SLOTS span per split, so within [1, ceil(s / SPLIT_SLOTS)]."""
+    spans = -(-s // SPLIT_SLOTS)
+    want = -(-(BLOCKS_PER_SM * sms) // (b * kh))
+    return max(1, min(spans, want))
+
+
+def split_bounds(s: int, splits: int, i: int) -> Tuple[int, int]:
+    """Slots [begin, end) of split i: a balanced share of the cache's
+    SPLIT_SLOTS spans, as the kernel's split_range computes them."""
+    spans = -(-s // SPLIT_SLOTS)
+    return (i * spans // splits * SPLIT_SLOTS,
+            min(s, (i + 1) * spans // splits * SPLIT_SLOTS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,17 +158,26 @@ def flash_decode(
             if x.shape != (b, kh, s) or x.dtype != torch.float32:
                 raise ValueError(f"scales must be f32 {(b, kh, s)}, got "
                                  f"{x.dtype} {tuple(x.shape)}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode kernel needs 16-byte aligned caches")
     seg = kv_seg.to(torch.int32)
     scale = d ** -0.5 if scale is None else scale
+    splits = decode_splits(b, kh, s, _sm_count(q.device.index or 0))
 
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    # the splits' f32 partials in one allocation: acc [B, H, splits, D],
+    # then m and l [B, H, splits]
+    n = b * h * splits
+    part = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    acc_ptr = part.data_ptr()
     lib = cuda_build.load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.llavamod_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        seg.data_ptr(), out.data_ptr(), b, h, kh, s, d,
+        seg.data_ptr(), out.data_ptr(), acc_ptr, acc_ptr + 4 * n * d,
+        acc_ptr + 4 * n * (d + 1), b, h, kh, s, d, splits,
         _Q_CODES[q.dtype], _CACHE_CODES[k.dtype], float(scale),
         float(softcap or 0.0), stream)
     cuda_build.check(err, "flash_decode launch")

@@ -1,5 +1,5 @@
 """Flash attention: forward kernel K1 (csrc/flash_fwd.cu), backward kernels
-K3 (csrc/flash_bwd.cu) and K4 (csrc/flash_dkv.cu), and their plain PyTorch
+K3 (csrc/flash_dq.cu) and K4 (csrc/flash_dkv.cu), and their plain PyTorch
 versions.
 
 Port of llavamod_tpu/ops/flash_attention.py.  The layout at the API is

@@ -123,16 +123,122 @@ def test_kernels_take_strided_views_of_a_fused_qkv(dev, case):
     _check_bwd(q, k, v, o, lse, do, seg, real, kw)
 
 
-def test_flash_dkv_is_deterministic(dev):
-    from llavamod_tpu_torch.ops.flash_attention import flash_dkv, flash_fwd
+def _bwd_args(case, dev, seed):
+    from llavamod_tpu_torch.ops.flash_attention import flash_fwd
 
-    q, k, v, do, seg, _, kw = _inputs("t2048", dev, 4)
+    q, k, v, do, seg, _, kw = _inputs(case, dev, seed)
     o, lse = flash_fwd(q, k, v, seg, seg, **kw)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).contiguous()
-    args = (q, k, v, do, lse, delta, seg, seg)
+    return (q, k, v, do, lse, delta, seg, seg), kw
+
+
+def test_flash_dkv_is_deterministic(dev):
+    from llavamod_tpu_torch.ops.flash_attention import flash_dkv
+
+    args, kw = _bwd_args("t2048", dev, 4)
     dk1, dv1 = flash_dkv(*args, **kw)
     dk2, dv2 = flash_dkv(*args, **kw)
     assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.parametrize("case", ["t2048", "t200_gqa_softcap"])
+def test_flash_dq_is_deterministic(dev, case):
+    from llavamod_tpu_torch.ops.flash_attention import flash_dq
+
+    args, kw = _bwd_args(case, dev, 5)
+    assert torch.equal(flash_dq(*args, **kw), flash_dq(*args, **kw))
+
+
+# the split decode's edges: name: (B, H, KH, D, S)
+DECODE_CASES = {
+    "serve_b8": (8, 16, 16, 128, 1056),
+    "serve_b1": (1, 16, 16, 128, 1056),
+    "s1": (1, 16, 16, 128, 1),
+    "s127": (2, 4, 4, 64, 127),
+    "s128": (1, 16, 16, 128, 128),
+    "s129": (4, 8, 8, 128, 129),
+    "s4200_g8": (4, 16, 2, 128, 4200),
+    "s300_g7": (3, 7, 1, 64, 300),
+}
+ROW_KINDS = ("pad", "one_split", "single", "none")
+
+
+def _decode_seg(b, kh, s, dev, first):
+    """Row i takes the kind ROW_KINDS[(k0 + i) % 4] (k0 = the index of
+    `first`): left padding with the last slot not yet written, live slots
+    inside the last split only, one live slot, or none."""
+    from llavamod_tpu_torch.ops.decode_attention import (
+        decode_splits,
+        split_bounds,
+    )
+
+    splits = decode_splits(
+        b, kh, s, torch.cuda.get_device_properties(dev).multi_processor_count)
+    lo, hi = split_bounds(s, splits, splits - 1)
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    k0 = ROW_KINDS.index(first)
+    for i in range(b):
+        kind = ROW_KINDS[(k0 + i) % 4]
+        if kind == "pad":
+            seg[i, s // 3:max(s - 1, 1)] = 1
+        elif kind == "one_split":
+            seg[i, lo + (hi - lo) // 4:hi] = 1
+        elif kind == "single":
+            seg[i, (7 * s) // 11] = 1
+    return seg.to(dev)
+
+
+def _decode_inputs(case, dtype, dev, first="pad"):
+    from llavamod_tpu_torch.models.llm.decoder import _quantize_kv
+
+    b, h, kh, d, s = DECODE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn((b, h, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, kh, s, d), generator=g, device=dev)
+    v = torch.randn((b, kh, s, d), generator=g, device=dev)
+    kw = {}
+    if dtype == "int8":
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
+        kw = dict(k_scale=ks, v_scale=vs)
+    elif dtype == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    return q, k, v, _decode_seg(b, kh, s, dev, first), kw
+
+
+def _check_decode(q, k, v, seg, kw):
+    from llavamod_tpu_torch.ops.decode_attention import (
+        flash_decode,
+        flash_decode_reference,
+    )
+
+    n0 = flash_decode.launches
+    out = flash_decode(q, k, v, kv_seg=seg, **kw)
+    assert flash_decode.launches == n0 + 1
+    ref = flash_decode_reference(q, k, v, kv_seg=seg, **kw)
+    _close(out, ref, "decode")
+    dead = ~(seg != 0).any(dim=1)                   # rows with no live slot
+    assert (out[dead] == 0).all()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_flash_decode_split_edges(dev, case, dtype):
+    _check_decode(*_decode_inputs(case, dtype, dev))
+
+
+@pytest.mark.parametrize("first", ROW_KINDS)
+def test_flash_decode_b1_row_kinds(dev, first):
+    _check_decode(*_decode_inputs("serve_b1", "bf16", dev, first))
+
+
+def test_flash_decode_is_deterministic(dev):
+    from llavamod_tpu_torch.ops.decode_attention import flash_decode
+
+    q, k, v, seg, kw = _decode_inputs("serve_b8", "bf16", dev)
+    assert torch.equal(flash_decode(q, k, v, kv_seg=seg, **kw),
+                       flash_decode(q, k, v, kv_seg=seg, **kw))
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
