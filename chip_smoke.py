@@ -35,7 +35,25 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      fresh state as the reference, then a warm-up and timed steps on the
      kernel path, each of which must launch K1 once per student and teacher
      layer and K3 and K4 once per student layer; one more step is profiled,
-     and its device time of K1, K3 and K4 is read out by kernel name.
+     and its device time of K1, K3 and K4 is read out by kernel name;
+  5. stages: the trainer entry point (`train/run.py::run_stage`) through
+     the paper's three stages at full width, from the repository's stage
+     configs, chained through checkpoint directories in a temporary
+     directory (removed at the end whatever happens): a seeded dense
+     LLaVA-Qwen1.5-1.8B and a Qwen1.5-7B teacher without a tower, written
+     in bf16 with `save_model`; seeded 336x336 PNGs and three JSON datasets
+     in the reference formats, read through a stand-in tokenizer; stage 1
+     (projector only, B=8, accumulation 2) -> stage 2 (upcycled to 4
+     experts top-2 inside the stage, kd_lm against the teacher, record
+     train set, B=1, accumulation 2) -> stage 3 (kto_pair against the
+     teacher, the whole LLM trainable, one pair, accumulation 2), 4
+     microbatches each.  Per stage it checks that every logged metric is
+     finite, that the optimizer took 2 updates, that every microbatch
+     launched K1, K3 and K4 as the stage's layers and remat require, and
+     that the first microbatch agrees with the same step through plain
+     attention; stage 1 must leave every decoder and tower weight bitwise
+     unchanged and write a loadable mm_projector.bin, stage 2 must write an
+     MoE model, and stage 3 must train it.
 
 Prints the kernels' JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -43,11 +61,16 @@ Prints the kernels' JSON line before the last and, as the last line,
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -91,6 +114,13 @@ TRAIN_T = 2048
 TRAIN_TIMED_STEPS = 3
 RECORD_TRAIN_SET = ("/gate", "/up", "/down", "router")
 ATTENTION_KERNELS = ("flash_fwd", "flash_decode", "flash_dq", "flash_dkv")
+STAGE_CONFIGS = (("pretrain", "configs/pretrain_qwen2_0_5b.json"),
+                 ("align", "configs/dense2sparse_qwen2_0_5b.json"),
+                 ("dpo", "configs/preference_qwen2_0_5b.json"))
+STAGE_MICROBATCHES = 4
+STAGE_ACCUM = 2
+STAGE_IMAGES = 8
+QWEN_REGULAR_IDS = 151_646     # ids below the Qwen vocab's special tokens
 
 
 def log(msg: str) -> None:
@@ -967,6 +997,450 @@ def train_phase(card: str, dev):
                 profile=prof)
 
 
+# ---------------------------------------------------------------------------
+# stages phase: the trainer entry point through the paper's three stages
+# ---------------------------------------------------------------------------
+
+class StandInTokenizer:
+    """A deterministic character-level stand-in for the Qwen tokenizer (the
+    card's machine has no tokenizer files): one id below 151,646 per
+    character, no BOS, pad id 0.  A text's ids are its pieces' ids joined,
+    so the per-round label masking of data/preprocess.py lines up
+    exactly."""
+    pad_token_id = 0
+    bos_token_id = None
+    eos_token_id = None
+
+    def __call__(self, text):
+        return types.SimpleNamespace(input_ids=[
+            10 + (ord(c) * 7919) % (QWEN_REGULAR_IDS - 10) for c in text])
+
+
+def _words(rng, n_chars: int) -> str:
+    """Seeded lower-case words, about n_chars long."""
+    out, n = [], 0
+    while n < n_chars:
+        w = "".join(chr(97 + c) for c in rng.randint(0, 26, rng.randint(2, 9)))
+        out.append(w)
+        n += len(w) + 1
+    return " ".join(out)
+
+
+def _real_tokens(conversation, template: str, n_img: int) -> int:
+    """Real tokens of one sample after the image slots are spliced in."""
+    from llavamod_tpu_torch.data.preprocess import (
+        preprocess_conversations,
+        preprocess_multimodal_text,
+    )
+
+    conv = preprocess_multimodal_text([conversation])
+    ids = preprocess_conversations(conv, StandInTokenizer(), template).input_ids
+    images = sum(1 for i in ids if i < 0)
+    return len(ids) - images + images * n_img
+
+
+def write_stage_data(root: str, n_img: int) -> dict:
+    """Seeded 336x336 PNGs and the three datasets in the reference formats:
+    stage-1 captions (LLaVA-558K style, `plain`), stage-2 multi-turn
+    conversations (LLaVA-mix665k style, `qwen`), stage-3 chosen / rejected
+    pairs (RLAIF-V style, `qwen`).  Every sample has 700-2,048 real tokens
+    (checked here) and is padded to 2,048 by the collator."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 5)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    for i in range(STAGE_IMAGES):
+        Image.fromarray(rng.randint(0, 256, (336, 336, 3), dtype=np.uint8)
+                        ).save(os.path.join(img_dir, f"{i}.png"))
+
+    def human(first):
+        return {"from": "human",
+                "value": ("<image>\n" if first else "")
+                + _words(rng, rng.randint(30, 100)) + "?"}
+
+    def gpt(lo, hi):
+        return {"from": "gpt", "value": _words(rng, rng.randint(lo, hi))}
+
+    def sample(kind, i):
+        image = f"{i % STAGE_IMAGES}.png"
+        if kind == "pretrain":
+            return "plain", {"id": i, "image": image, "conversations": [
+                {"from": "human", "value": "<image>\n"}, gpt(200, 1200)]}
+        if kind == "align":
+            turns = [human(True), gpt(100, 350)]
+            for _ in range(rng.randint(1, 3)):
+                turns += [human(False), gpt(100, 350)]
+            return "qwen", {"id": i, "image": image, "conversations": turns}
+        q = human(True)
+        return "qwen", {"id": i, "image": image, "chosen": [q, gpt(100, 900)],
+                        "rejected": [q, gpt(100, 900)]}
+
+    paths, lengths = {}, {}
+    for kind, n in (("pretrain", 32), ("align", 8), ("dpo", 8)):
+        records = []
+        while len(records) < n:
+            template, rec = sample(kind, len(records))
+            sides = [rec["conversations"]] if "conversations" in rec else [
+                rec["chosen"], rec["rejected"]]
+            real = [_real_tokens(c, template, n_img) for c in sides]
+            if all(700 <= r <= 2048 for r in real):
+                records.append(rec)
+                lengths.setdefault(kind, []).extend(real)
+        paths[kind] = os.path.join(root, f"{kind}.json")
+        with open(paths[kind], "w") as f:
+            json.dump(records, f)
+    log("[stages] data: " + ", ".join(
+        f"{k} {len(v)} sequences of {min(v)}-{max(v)} real tokens"
+        for k, v in lengths.items()) + f" ({STAGE_IMAGES} seeded PNGs)")
+    return dict(paths, images=img_dir)
+
+
+def _param_count(cfg, vision: bool = True) -> int:
+    from llavamod_tpu_torch.models import llava
+
+    model = llava.init(cfg, None, device="meta", vision=vision)
+    return sum(p.numel() for p in model.parameters())
+
+
+def write_stage_models(root: str, dev) -> dict:
+    """The seeded dense LLaVA (Qwen1.5-1.8B, CLIP-ViT-L/336, mlp2x_gelu) and
+    the Qwen1.5-7B teacher without a tower, bf16, written with `save_model`
+    as a user brings checkpoints.  Fails, with the numbers, when the disk
+    cannot hold them and the stages' outputs."""
+    from llavamod_tpu_torch.models import llava
+    from llavamod_tpu_torch.models.builder import save_model
+    from llavamod_tpu_torch.models.llava import LlavaConfig
+    from llavamod_tpu_torch.models.llm.config import (
+        QWEN1_5_1_8B,
+        QWEN1_5_7B,
+        moe_layer_indices,
+    )
+    from llavamod_tpu_torch.models.vision.vit import CLIP_VIT_L_336
+
+    def cfg_of(llm):
+        return LlavaConfig(llm=llm, vision=CLIP_VIT_L_336,
+                           projector_type="mlp2x_gelu", max_images=1)
+
+    dense_cfg, teacher_cfg = cfg_of(QWEN1_5_1_8B), cfg_of(QWEN1_5_7B)
+    moe_cfg = cfg_of(QWEN1_5_1_8B.replace(
+        moe_num_experts=4, moe_layers=moe_layer_indices("sparse", 24)))
+    gb = {"dense": 2 * _param_count(dense_cfg) / 1e9,
+          "teacher": 2 * _param_count(teacher_cfg, vision=False) / 1e9,
+          "moe": 2 * _param_count(moe_cfg) / 1e9}
+    # on disk at once, at most: the inputs with the outputs of stages 1 and
+    # 2 (the dense model and stage 1's output go before stage 3)
+    need = gb["dense"] * 2 + gb["teacher"] + gb["moe"] + 1.0
+    free = shutil.disk_usage(root).free / 1e9
+    log(f"[stages] checkpoints in {root}: dense {gb['dense']:.2f} GB, teacher "
+        f"{gb['teacher']:.2f} GB, MoE student {gb['moe']:.2f} GB (bf16); at "
+        f"most {need:.1f} GB on disk at once, {free:.1f} GB free")
+    if free < need:
+        raise AssertionError(f"the stages need {need:.1f} GB of disk in "
+                             f"{root}, {free:.1f} GB are free")
+    dirs, t0 = {}, time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for name, cfg, vision in (("dense", dense_cfg, True),
+                              ("teacher", teacher_cfg, False)):
+        with torch.no_grad():
+            model = llava.init(cfg, gen, device=dev, dtype=torch.bfloat16,
+                               vision=vision)
+        dirs[name] = save_model(os.path.join(root, name), model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[stages] built and wrote the dense LLaVA and the teacher in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dirs
+
+
+@contextlib.contextmanager
+def counted_steps(records: list):
+    """Within the block, the step functions that `run_stage` makes record,
+    for each microbatch, its K1/K3/K4 launches and its time (the card
+    synchronised before and after)."""
+    from llavamod_tpu_torch.train import steps
+
+    names = ("make_pretrain_step", "make_align_step", "make_dpo_step")
+    originals = {n: getattr(steps, n) for n in names}
+
+    def wrap(make):
+        def maker(*a, **k):
+            step = make(*a, **k)
+
+            def counted(*sa, **sk):
+                before = _launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*sa, **sk)
+                torch.cuda.synchronize()
+                records.append(dict(
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    launches={k: n - before[k]
+                              for k, n in _launch_counts().items()}))
+                return out
+            return counted
+        return maker
+
+    for n, make in originals.items():
+        setattr(steps, n, wrap(make))
+    try:
+        yield records
+    finally:
+        for n, make in originals.items():
+            setattr(steps, n, make)
+
+
+def parse_stage(stage: str, config: str, argv: list):
+    """The stage's dataclasses from the repository's config file, with the
+    command line `argv` on top."""
+    from llavamod_tpu_torch.train import args
+
+    classes = [args.ModelArgs, args.DataArgs, args.TrainArgs]
+    if stage == "align":
+        classes.append(args.AlignArgs)
+    if stage == "dpo":
+        classes.append(args.DPOArgs)
+    parsed = args.parse_into_dataclasses(classes, ["--config", config] + argv)
+    margs, dargs, targs = parsed[:3]
+    extra = parsed[3] if len(parsed) > 3 else None
+    return margs, dargs, targs, extra
+
+
+def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
+    """The stage's first microbatch through plain attention: the step that
+    `run_stage` makes, on models loaded from the same directories and the
+    loader's first batch, from a fresh state (with accumulation, the first
+    microbatch updates nothing)."""
+    from llavamod_tpu_torch.train import run, steps
+    from llavamod_tpu_torch.train.args import train_config_from_args
+    from llavamod_tpu_torch.train.loader import infinite_batches
+    from llavamod_tpu_torch.train.optim import TrainState
+
+    salign = extra if stage == "align" else None
+    sdpo = extra if stage == "dpo" else None
+    cfg, model, teacher_cfg, teacher = run.build_stage_models(
+        stage, margs, targs, salign, sdpo, dev)
+    batches = infinite_batches(run.build_data_module(stage, margs, dargs,
+                                                     targs, tok, cfg))
+    arrays = next(batches)
+    batches.close()
+    mods = run.translate_train_modules(margs.train_modules)
+    tcfg = train_config_from_args(
+        stage, targs, targs.max_steps,
+        dataclasses.replace(margs, train_modules=mods), salign,
+        sdpo).replace(attn_impl="xla")
+    if teacher is not None and steps._can_share_tower(tcfg, cfg, teacher_cfg):
+        del teacher.vision
+    state = TrainState.create(model, tcfg)
+    if stage == "align":
+        _, m = steps.make_align_step(cfg, teacher_cfg, tcfg)(
+            state, teacher, steps.batch_from_arrays(arrays, device=dev))
+    elif stage == "dpo":
+        _, m = steps.make_dpo_step(cfg, teacher_cfg, tcfg)(state, teacher,
+                                                           arrays)
+    else:
+        _, m = steps.make_pretrain_step(cfg, tcfg)(
+            state, steps.batch_from_arrays(arrays, device=dev))
+    out = {k: v.item() for k, v in m.items()}
+    del state, model, teacher, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _read_json_lines(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _num_layers(model_dir: str) -> int:
+    from llavamod_tpu_torch.models.builder import CONFIG_NAME
+
+    with open(os.path.join(model_dir, CONFIG_NAME)) as f:
+        return json.load(f)["llm"]["num_layers"]
+
+
+def drive_stage(stage, config, argv, overrides, tok, dev, card):
+    """One stage through `run_stage` (counts set to 0 just before, read just
+    after), with the plain-attention first microbatch beside it; returns
+    the stage's numbers after checking them."""
+    from llavamod_tpu_torch.train.run import run_stage
+
+    margs, dargs, targs, extra = parse_stage(stage, config, argv)
+    if overrides:
+        # a config value cannot be overridden back to the flag's default on
+        # the command line (the config fills every flag left at its
+        # default), so these are set on the parsed dataclass
+        extra = dataclasses.replace(extra, **overrides)
+    policy = (extra.policy_model_name_or_path if extra is not None
+              else margs.model_name_or_path)
+    layers = _num_layers(policy)
+    teacher_layers = (_num_layers(extra.ref_model_name_or_path)
+                      if extra is not None else 0)
+    per_mb = {"flash_fwd": layers * (2 if targs.remat else 1) + teacher_layers,
+              "flash_dq": layers, "flash_dkv": layers}
+
+    t0 = time.perf_counter()
+    plain = plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev)
+    plain_s = time.perf_counter() - t0
+
+    kw = {"align": dict(salign=extra), "dpo": dict(sdpo=extra)}.get(stage, {})
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted_steps(records):
+        _reset_launch_counts()
+        last = run_stage(stage, margs, dargs, targs, tokenizer=tok,
+                         device=dev, **kw)
+        launches = _launch_counts()
+    wall_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out = targs.output_dir
+    lines = _read_json_lines(os.path.join(out, "metrics.jsonl"))
+    with open(os.path.join(out, "run_info.json")) as f:
+        info = json.load(f)
+    first = {k: v for k, v in lines[0].items()
+             if k not in ("step", "sec_per_step")}
+    finite = all(np.isfinite(v) for ln in lines for v in ln.values())
+    updates = targs.max_steps // targs.gradient_accumulation_steps
+    rel_keys = ["loss"] + (["logps/chosen", "logps/rejected"]
+                           if stage == "dpo" else [])
+    rel = {k: abs(first[k] - plain[k]) / abs(plain[k]) for k in rel_keys}
+    rel["grad_norm"] = (abs(first["grad_norm"] - plain["grad_norm"])
+                        / abs(plain["grad_norm"]))
+    ms = [r["ms"] for r in records]
+    med = statistics.median(ms[1:])
+    rows = targs.per_device_train_batch_size * (2 if stage == "dpo" else 1)
+    tokens = rows * targs.model_max_length
+    log(f"[stages] {stage}: {len(lines)} logged microbatches, all finite: "
+        f"{finite}; optimizer updates {info['optimizer_updates']} (need "
+        f"{updates}); launches per microbatch "
+        f"{[r['launches'] for r in records]} (need {per_mb} each)")
+    log(f"[stages] {stage}: first microbatch, kernel path vs plain "
+        f"attention: " + ", ".join(
+            f"{k} {first[k]:.6f} vs {plain[k]:.6f} (rel {rel[k]:.3e})"
+            for k in rel) + f"; tol loss/logps {LOSS_REL_TOL}, grad_norm "
+        f"{GRAD_NORM_REL_TOL}")
+    log(f"[stages] {stage}: microbatch ms {' / '.join(f'{t:.1f}' for t in ms)}"
+        f" (median after the first {med:.1f}), {tokens / med * 1e3:.1f} "
+        f"tokens/s ({rows} x {targs.model_max_length} padded), peak device "
+        f"memory {peak_gib:.2f} GiB; checkpoints: load and build "
+        f"{info['build_and_load_s']:.1f} s, save {info['save_s']:.1f} s; "
+        f"run_stage {wall_s:.1f} s, plain reference {plain_s:.1f} s; on "
+        f"{card}")
+    if not (finite and len(lines) == targs.max_steps
+            and info["optimizer_updates"] == updates
+            and info["microbatches"] == targs.max_steps):
+        raise AssertionError(f"{stage}: metrics {lines} run {info}")
+    if len(records) != targs.max_steps or any(r["launches"] != per_mb
+                                              for r in records):
+        raise AssertionError(f"{stage}: launches {records}, need {per_mb}")
+    if not (all(rel[k] <= LOSS_REL_TOL for k in rel_keys)
+            and rel["grad_norm"] <= GRAD_NORM_REL_TOL):
+        raise AssertionError(f"{stage}: the kernel path disagrees with plain "
+                             f"attention: {rel}")
+    return dict(microbatch_ms=ms, median_ms=med, tokens_per_s=tokens / med * 1e3,
+                peak_gib=peak_gib, load_s=info["build_and_load_s"],
+                save_s=info["save_s"], run_stage_s=wall_s,
+                updates=info["optimizer_updates"], launches=launches,
+                launches_per_microbatch=per_mb, first=first, plain_first=plain,
+                rel=rel, last=last)
+
+
+def check_stage1_outputs(dense_dir: str, out: str) -> None:
+    """Stage 1 moved the projector only, and its mm_projector.bin loads."""
+    from llavamod_tpu_torch.train.checkpoint import load_mm_projector
+
+    def state(d):
+        return torch.load(os.path.join(d, "model.pt"), map_location="cpu",
+                          weights_only=True, mmap=True)
+
+    before, after = state(dense_dir), state(out)
+    if before.keys() != after.keys():
+        raise AssertionError("stage 1 changed the model's keys")
+    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    frozen_moved = [k for k in moved if not k.startswith("projector.")]
+    proj = load_mm_projector(os.path.join(out, "mm_projector.bin"),
+                             "mlp2x_gelu")
+    proj_ok = all(torch.equal(v, after["projector." + k])
+                  for k, v in proj.items()) and len(proj) == 4
+    log(f"[stages] pretrain: {len(moved)} tensors moved (all projector: "
+        f"{not frozen_moved}), {len(before) - len(moved)} decoder and tower "
+        f"tensors bitwise unchanged; mm_projector.bin loads and equals the "
+        f"saved projector: {proj_ok}")
+    if frozen_moved or not moved or not proj_ok:
+        raise AssertionError(f"stage 1 outputs: moved {frozen_moved[:4]}, "
+                             f"projector file ok {proj_ok}")
+
+
+def _moe_config(model_dir: str) -> dict:
+    from llavamod_tpu_torch.models.builder import CONFIG_NAME
+
+    with open(os.path.join(model_dir, CONFIG_NAME)) as f:
+        llm = json.load(f)["llm"]
+    return {k: llm[k] for k in ("moe_num_experts", "moe_top_k",
+                                "moe_capacity_factor", "moe_layers")}
+
+
+def stages_phase(card: str, dev):
+    root = tempfile.mkdtemp(prefix="llavamod_stages_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    try:
+        t0 = time.perf_counter()
+        dirs = write_stage_models(root, dev)
+        write_s = time.perf_counter() - t0
+        data = write_stage_data(root, n_img=576)
+        tok = StandInTokenizer()
+        outs = {s: os.path.join(root, f"out_{s}") for s, _ in STAGE_CONFIGS}
+        common = ["--image_folder", data["images"],
+                  "--max_steps", str(STAGE_MICROBATCHES),
+                  "--gradient_accumulation_steps", str(STAGE_ACCUM)]
+        argvs = {
+            "pretrain": ["--model_name_or_path", dirs["dense"]],
+            "align": ["--policy_model_name_or_path", outs["pretrain"],
+                      "--ref_model_name_or_path", dirs["teacher"]],
+            "dpo": ["--policy_model_name_or_path", outs["align"],
+                    "--ref_model_name_or_path", dirs["teacher"]],
+        }
+        # int8 waits for ROADMAP Queue 1, item 3 (the train phase runs
+        # without it too)
+        overrides = {"align": dict(ref_quant="", policy_head_quant=False)}
+        results = {}
+        for stage, config in STAGE_CONFIGS:
+            argv = argvs[stage] + common + ["--data_path", data[stage],
+                                            "--output_dir", outs[stage]]
+            results[stage] = drive_stage(stage, os.path.join(here, config),
+                                         argv,
+                                         overrides.get(stage), tok, dev, card)
+            if stage == "pretrain":
+                check_stage1_outputs(dirs["dense"], outs["pretrain"])
+            if stage == "align":
+                moe = _moe_config(outs["align"])
+                log(f"[stages] align: output config {moe}")
+                every_2nd = list(range(0, _num_layers(outs["align"]), 2))
+                if not (moe["moe_num_experts"] == 4 and moe["moe_top_k"] == 2
+                        and moe["moe_capacity_factor"] == 1.5
+                        and moe["moe_layers"] == every_2nd):
+                    raise AssertionError(f"stage 2 wrote {moe}")
+                shutil.rmtree(dirs["dense"])
+                shutil.rmtree(outs["pretrain"])
+            if stage == "dpo":
+                moe = _moe_config(outs["dpo"])
+                if not ("loss/moe_balance" in results["dpo"]["last"]
+                        and moe == _moe_config(outs["align"])):
+                    raise AssertionError("stage 3 did not train stage 2's "
+                                         "MoE student")
+                log("[stages] dpo: trained stage 2's MoE student (router aux "
+                    "loss logged, MoE config carried to the output)")
+        return dict(results, write_models_s=write_s)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check needs a GPU",
@@ -1018,17 +1492,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     trained = train_phase(card, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stages = stages_phase(card, dev)
 
     train_n = trained["launches"]
     serve_n = served["launches"]
+    stage_n = {path: stages[stage]["launches"] for stage, path in (
+        ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"))}
+
+    def by_path(name, **first):
+        return dict(first, **{p: n[name] for p, n in stage_n.items()})
     regs = registers_by_kernel(str(cuda_build.build_info["log"]))
     kernels = [
         dict(name="flash_fwd", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_fwd.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:75",
              launches=train_n["flash_fwd"],
-             launches_by_path={"serve": serve_n["flash_fwd"],
-                               "train": train_n["flash_fwd"]},
+             launches_by_path=by_path("flash_fwd", serve=serve_n["flash_fwd"],
+                                      train=train_n["flash_fwd"]),
              registers=regs["flash_fwd"], splits=None, **k1),
         dict(name="flash_decode", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_decode.cu",
@@ -1040,18 +1522,19 @@ def main() -> int:
              source="llavamod_tpu_torch/csrc/flash_dq.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:228",
              launches=train_n["flash_dq"],
-             launches_by_path={"train": train_n["flash_dq"]},
+             launches_by_path=by_path("flash_dq", train=train_n["flash_dq"]),
              registers=regs["flash_dq"], splits=None, **k3),
         dict(name="flash_dkv", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_dkv.cu",
              replaces="llavamod_tpu/ops/flash_attention.py:265",
              launches=train_n["flash_dkv"],
-             launches_by_path={"train": train_n["flash_dkv"]},
+             launches_by_path=by_path("flash_dkv",
+                                      train=train_n["flash_dkv"]),
              registers=regs["flash_dkv"], splits=None, **k4),
     ]
     log(json.dumps({"serve": dict(slice_stats,
                                   requests_per_s=served["requests_per_s"]),
-                    "train": trained, "card": card}))
+                    "train": trained, "stages": stages, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

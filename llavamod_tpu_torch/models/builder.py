@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,7 +24,9 @@ from llavamod_tpu_torch.mm_utils import (
 )
 from llavamod_tpu_torch.models import llava
 from llavamod_tpu_torch.models.llava import Llava, LlavaConfig
+from llavamod_tpu_torch.models.llm import decoder
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
+from llavamod_tpu_torch.models.vision import vit
 from llavamod_tpu_torch.models.vision.vit import VisionConfig
 
 CONFIG_NAME = "llavamod_config.json"
@@ -54,20 +56,48 @@ def save_model(output_dir: str, model: Llava) -> str:
     return output_dir
 
 
-def load_model(model_dir: str, device="cuda",
-               dtype=None) -> Tuple[LlavaConfig, Llava]:
+GROUPS = ("vision", "projector", "llm")
+
+
+def load_model(model_dir: str, device="cuda", dtype=None,
+               fill_missing_seed: Optional[int] = None
+               ) -> Tuple[LlavaConfig, Llava]:
     """Returns (cfg, model) with the weights on `device` (the card unless
     the caller asks for another), in `dtype` if given (else in the stored
-    dtype)."""
+    dtype).  A checkpoint may lack whole groups ('vision', 'projector',
+    'llm'; a distillation teacher is often saved without its tower): with
+    `fill_missing_seed` they are initialized fresh from that seed, directly
+    on `device` and in the stored dtype, else loading fails."""
     with open(os.path.join(model_dir, CONFIG_NAME)) as f:
         cfg = config_from_dict(json.load(f))
+    # off the CPU the file is memory-mapped: each tensor is read once, on
+    # its way to the device
     state = torch.load(os.path.join(model_dir, WEIGHTS_NAME),
-                       map_location="cpu", weights_only=True)
-    stored = next(iter(state.values())).dtype
+                       map_location="cpu", weights_only=True,
+                       mmap=torch.device(device).type != "cpu")
+    dt = dtype or next(iter(state.values())).dtype
+    missing = [g for g in GROUPS
+               if not any(k.startswith(g + ".") for k in state)]
+    if missing and fill_missing_seed is None:
+        raise KeyError(f"{model_dir} holds no {missing} weights")
     # build on the meta device (no init cost), then adopt the loaded tensors
-    model = llava.init(cfg, None, device="meta", dtype=dtype or stored)
-    model.load_state_dict(state, strict=True, assign=True)
-    model = model.to(device=device, dtype=dtype or stored)
+    model = llava.init(cfg, None, device="meta", dtype=dt)
+    keys = model.load_state_dict(state, strict=False, assign=True)
+    if keys.unexpected_keys or any(k.split(".")[0] not in missing
+                                   for k in keys.missing_keys):
+        raise KeyError(f"{model_dir}: unexpected {keys.unexpected_keys[:4]}, "
+                       f"missing {keys.missing_keys[:4]}")
+    fresh = {}
+    if missing:
+        gen = torch.Generator(device=device).manual_seed(fill_missing_seed)
+        build = {"vision": lambda: vit.init(cfg.vision, gen, device, dt),
+                 "projector": lambda: cfg.build_projector().init(gen, device,
+                                                                 dt),
+                 "llm": lambda: decoder.init(cfg.llm, gen, device, dt)}
+        fresh = {g: build[g]() for g in missing}
+    for g, module in fresh.items():
+        setattr(model, g, module)
+    model = model.to(device=device, dtype=dt)
     return cfg, model
 
 

@@ -15,10 +15,16 @@ with f32 accumulation, as in the JAX backward.
   * `chunked_kd_cross_entropy` — sum_n w_n * -sum_v p_t(v) logp_s(v) (KD);
   * `chunked_kd_ce` — both in one pass (the kd_lm recipe);
   * `softmax_cross_entropy`, `kd_align_loss`, `kd_ce_align_loss` — the
-    token-mean losses the training steps call.
+    token-mean losses the training steps call;
+  * `sequence_log_prob`, `dpo_loss` — the preference (stage-3) losses.
 
-The int8 heads and the `stream_dh` / `int8_dh` variants of the JAX package
-are not ported yet (ROADMAP Queue 1, item 3) and raise.
+For CE and the sequence log-probs, `stream_dh=True` is accepted: in the JAX
+package it reorders the backward of a frozen head exactly (dh from p@W
+streamed in the forward), so the two-pass backward here gives the same dh;
+whether dW is formed is decided by the head the Function is handed
+(`ctx.needs_input_grad`), never by the flag.  The int8 heads and the KD
+`stream_dh` / `int8_dh` variants (a straight-through estimate in the JAX
+package) are not ported yet (ROADMAP Queue 1, item 3) and raise.
 """
 
 from __future__ import annotations
@@ -132,8 +138,10 @@ def chunked_lse_and_gather(h, w, ids, vocab_limit: int,
                            stream_dh: bool = False):
     """(logsumexp over the first `vocab_limit` rows of the head, logit of
     `ids`) per row, f32 [N] each, without the full logits.  h [N, D];
-    w [V, D]; ids [N] (< vocab_limit)."""
-    _exact_only(False, stream_dh, w)
+    w [V, D]; ids [N] (< vocab_limit).  `stream_dh` (a frozen head in the
+    JAX package) gives the same gradients as the exact two-pass backward,
+    which runs either way (see the module note)."""
+    _exact_only(False, False, w)
     return _LseGather.apply(h, w, ids, vocab_limit, chunk)
 
 
@@ -309,3 +317,72 @@ def kd_ce_align_loss(hidden_s, w_head_s, hidden_t, w_head_t, labels,
                            ce_mask / ce_denom, safe, v, chunk, int8_dh,
                            stream_dh)
     return KdCeOutput(kd, ce, kd_denom, ce_denom)
+
+
+def sequence_log_prob(hidden, w_head, labels, ignore_index: int = -100,
+                      vocab_limit: Optional[int] = None,
+                      average: bool = False, chunk: int = DEFAULT_CHUNK,
+                      stream_dh: bool = False) -> torch.Tensor:
+    """Per-sequence sum (or mean) of response-token log-probs, [B] f32:
+    labels shifted by one against the hidden states, mask = shifted labels
+    != ignore_index (the reference's DPOTrainer.get_logp)."""
+    hidden, labels = hidden[:, :-1], labels[:, 1:]
+    b, t, d = hidden.shape
+    v = w_head.shape[0] if vocab_limit is None else vocab_limit
+    ids = labels.reshape(b * t)
+    mask = ids != ignore_index
+    safe = torch.where(mask, ids, 0).long()
+    lse, picked = chunked_lse_and_gather(hidden.reshape(b * t, d), w_head,
+                                         safe, v, chunk, stream_dh)
+    per_seq = ((picked - lse) * mask.float()).reshape(b, t).sum(dim=1)
+    if average:
+        per_seq = per_seq / mask.float().reshape(b, t).sum(dim=1).clamp_min(1.0)
+    return per_seq
+
+
+class DPOOutput(NamedTuple):
+    losses: torch.Tensor          # [B] (or [2B] for kto_pair)
+    chosen_rewards: torch.Tensor  # [B], no gradient
+    rejected_rewards: torch.Tensor
+
+
+def dpo_loss(policy_chosen_logps, policy_rejected_logps,
+             reference_chosen_logps, reference_rejected_logps,
+             *, beta: float = 0.1, label_smoothing: float = 0.0,
+             loss_type: str = "sigmoid",
+             reference_free: bool = False) -> DPOOutput:
+    """Preference losses: sigmoid | hinge | ipo | kto_pair (the reference's
+    dpo_trainer.py:497-562).  The rewards are beta * (policy - reference)
+    log-probs, without gradient."""
+    f = torch.nn.functional
+    pi_logratios = policy_chosen_logps - policy_rejected_logps
+    ref_logratios = 0.0 if reference_free else (
+        reference_chosen_logps - reference_rejected_logps)
+    logits = pi_logratios - ref_logratios
+
+    if loss_type == "sigmoid":
+        losses = (-f.logsigmoid(beta * logits) * (1 - label_smoothing)
+                  - f.logsigmoid(-beta * logits) * label_smoothing)
+    elif loss_type == "hinge":
+        losses = torch.relu(1 - beta * logits)
+    elif loss_type == "ipo":
+        losses = (logits - 1 / (2 * beta)) ** 2
+    elif loss_type == "kto_pair":
+        chosen_kl = (policy_chosen_logps
+                     - reference_chosen_logps).mean().clamp(min=0)
+        rejected_kl = (policy_rejected_logps
+                       - reference_rejected_logps).mean().clamp(min=0)
+        chosen_logratios = policy_chosen_logps - reference_chosen_logps
+        rejected_logratios = policy_rejected_logps - reference_rejected_logps
+        losses = torch.cat([
+            1 - torch.sigmoid(beta * (chosen_logratios - rejected_kl)),
+            1 - torch.sigmoid(beta * (chosen_kl - rejected_logratios)),
+        ], dim=0)
+    else:
+        raise ValueError(f"Unknown DPO loss type: {loss_type}")
+
+    chosen_rewards = beta * (policy_chosen_logps
+                             - reference_chosen_logps).detach()
+    rejected_rewards = beta * (policy_rejected_logps
+                               - reference_rejected_logps).detach()
+    return DPOOutput(losses, chosen_rewards, rejected_rewards)

@@ -12,8 +12,12 @@ AdamW follows optax.adamw chained after optax.clip_by_global_norm, as
 optax keeps them), arithmetic in f32, weight decay on tensors of rank >= 2,
 the schedule evaluated at the update count starting from 0 (so warmup gives
 lr = 0 on the first update), a separate schedule for the projector when
-`mm_projector_lr` is set.  Parameters are updated in place.  Adafactor and
-gradient accumulation (optax.MultiSteps) are not ported yet.
+`mm_projector_lr` is set.  Parameters are updated in place.
+
+Gradient accumulation follows optax.MultiSteps (`MultiSteps`): a running
+mean of the microbatch gradients, the inner update (clip, then AdamW per
+label) on every k-th call only, so the schedule advances once per optimizer
+step.  Adafactor is not ported yet (ROADMAP Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -145,6 +149,22 @@ class AdamW:
             self.mu[n].copy_(mu)
             self.nu[n].copy_(nu)
 
+    def state_dict(self) -> dict:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        _copy_into(self.mu, state["mu"])
+        _copy_into(self.nu, state["nu"])
+        self.count = int(state["count"])
+
+
+@torch.no_grad()
+def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
+    if dst.keys() != src.keys():
+        raise ValueError(f"state keys differ: {sorted(dst.keys() ^ src.keys())[:4]}")
+    for n, t in dst.items():
+        t.copy_(src[n])
+
 
 class Optimizer:
     """clip_by_global_norm, then AdamW per label; frozen parameters are
@@ -155,9 +175,6 @@ class Optimizer:
             raise NotImplementedError(
                 f"optimizer {cfg.optimizer!r} is not ported yet (Adafactor: "
                 f"ROADMAP Queue 1, item 4)")
-        if cfg.grad_accum_steps > 1:
-            raise NotImplementedError("gradient accumulation (MultiSteps) "
-                                      "is not ported yet")
         self.cfg = cfg
         labels = param_labels(model, cfg)
         named = dict(model.named_parameters())
@@ -185,11 +202,77 @@ class Optimizer:
             group.update(grads)
         return norm
 
+    @property
+    def updates(self) -> int:
+        """Optimizer updates applied so far."""
+        return next(iter(self.groups.values())).count
+
+    def state_dict(self) -> dict:
+        return {lab: g.state_dict() for lab, g in self.groups.items()}
+
+    def load_state_dict(self, state: dict) -> None:
+        for lab, g in self.groups.items():
+            g.load_state_dict(state[lab])
+
+
+class MultiSteps:
+    """optax.MultiSteps(Optimizer, k): every call folds the microbatch
+    gradients into a running mean, (g + n * acc) / (n + 1), kept in the
+    gradient's dtype; the k-th call hands the mean to the inner optimizer
+    (clip, then AdamW) and starts a new mean."""
+
+    def __init__(self, inner: Optimizer, k: int):
+        self.inner, self.k = inner, k
+        self.mini_step = 0
+        self.acc = {n: torch.zeros_like(p) for n, p in inner.params.items()}
+
+    @property
+    def params(self) -> Dict[str, nn.Parameter]:
+        return self.inner.params
+
+    @property
+    def updates(self) -> int:
+        return self.inner.updates
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Accumulates {key: gradient}; returns the global norm of these
+        (microbatch) gradients, not of the mean."""
+        norm = global_norm(grads.values())
+        n = self.mini_step
+        for name, acc in self.acc.items():
+            acc.copy_((grads[name].float() + n * acc.float()) / (n + 1))
+        if n == self.k - 1:
+            self.inner.update(self.acc)   # clips the mean in place
+            for acc in self.acc.values():
+                acc.zero_()
+            self.mini_step = 0
+        else:
+            self.mini_step = n + 1
+        return norm
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": self.acc}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        _copy_into(self.acc, state["acc"])
+        self.mini_step = int(state["mini_step"])
+
+
+def build_optimizer(model: nn.Module, cfg: TrainConfig):
+    """Optimizer, wrapped in MultiSteps when gradients accumulate."""
+    opt = Optimizer(model, cfg)
+    if cfg.grad_accum_steps > 1:
+        return MultiSteps(opt, cfg.grad_accum_steps)
+    return opt
+
 
 class TrainState(NamedTuple):
     step: int
     model: nn.Module
-    opt: Optimizer
+    opt: "Optimizer | MultiSteps"
 
     @classmethod
     def create(cls, model: nn.Module, cfg: TrainConfig,
@@ -199,4 +282,4 @@ class TrainState(NamedTuple):
         if lora_cfg is not None:
             raise NotImplementedError("LoRA is not ported yet")
         apply_trainable_mask(model, cfg)
-        return cls(0, model, Optimizer(model, cfg))
+        return cls(0, model, build_optimizer(model, cfg))

@@ -47,6 +47,22 @@ def test_train_config_fields_and_defaults():
         dataclasses.asdict(JTrainConfig(**kw).replace(remat=False))
 
 
+@pytest.mark.parametrize("name", ["ModelArgs", "DataArgs", "TrainArgs",
+                                  "AlignArgs", "DPOArgs"])
+def test_train_args_fields_and_defaults(name):
+    """The trainer's CLI dataclasses: same fields, same order, same
+    defaults (a default_factory compares by the value it makes)."""
+    from llavamod_tpu.train import args as jargs
+    from llavamod_tpu_torch.train import args as targs
+
+    def fields(cls):
+        return [(f.name, f.default_factory() if f.default_factory
+                 is not dataclasses.MISSING else f.default, str(f.type))
+                for f in dataclasses.fields(cls)]
+
+    assert fields(getattr(targs, name)) == fields(getattr(jargs, name))
+
+
 def test_vision_presets_and_tiny_configs():
     assert dataclasses.asdict(tvit.CLIP_VIT_L_336) == dataclasses.asdict(
         jvit.CLIP_VIT_L_336)
