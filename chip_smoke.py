@@ -20,40 +20,61 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      torch.profiler; `event_ms` is the CUDA-event window around one call
      from an idle card (host enqueue included, the measure of earlier runs)
      and `host_ms` the wrapper's host time;
-  3. serving path: builds the LLaVA-MoD-2B student at full width
+  3. W8A8 GEMM phase: every int8 product of the int8 paths at its shapes
+     (the Qwen1.5-7B teacher's wqkv, wo, gate_up and down at T=2048, an
+     8192-row head chunk at the teacher's and the student's width, the
+     student's experts at training capacity, a decode step at B=8 padded
+     to 17 rows) through `int8_matmul` (torch._int_mm) on random int8
+     operands, bitwise against the f64 product; device times of the whole
+     W8A8 `dense` split into quantize, int8 product and rescale, against
+     the bf16 torch.mm of the same shape and the int8 bound 2MKN / peak,
+     and of the int8 product on an N-major weight (the layout decision);
+  4. serving path: builds the LLaVA-MoD-2B student at full width
      (Qwen1.5-1.8B with 4 experts top-2 on the even layers, CLIP-ViT-L/336,
      mlp2x_gelu) from seeded random weights directly on the card, serves 8
      concurrent image requests plus one streamed request through the port's
      HTTP server, and checks that every served prefill went through kernel
      K1 and every decode step through kernel K2; checks the prefill's
      last-position logits against the plain attention, times prefill and
-     decode, and profiles one decode step (device time of K2 by name);
-  4. training path: upcycles a fresh dense student to the same MoE, builds
+     decode, and profiles one decode step (device time of K2 by name).
+     Then the same student quantized for serving (`--quant int8`:
+     attention, MLP, experts, head, embedding in int8) does all of that
+     again, and its prefill logits and greedy tokens are held against the
+     bf16 engine's; peak device memory of each;
+  5. training path: upcycles a fresh dense student to the same MoE, builds
      the Qwen1.5-7B teacher (sharing the student's frozen tower), and runs
      the stage-2 distillation step (`make_align_step`, kd_lm, record train
      set, AdamW) at B=1, T=2048: one step through plain attention from a
-     fresh state as the reference, then a warm-up and timed steps on the
-     kernel path, each of which must launch K1 once per student and teacher
-     layer and K3 and K4 once per student layer; one more step is profiled,
-     and its device time of K1, K3 and K4 is read out by kernel name;
-  5. stages: the trainer entry point (`train/run.py::run_stage`) through
+     fresh state as the reference; then the bf16 step and the step with
+     the stage-2 config's int8 options (an int8_head copy of the teacher,
+     the student head pre-quantized) in turns on the same batch, a warm-up
+     and timed steps each, every one launching K1 once per student and
+     teacher layer and K3 and K4 once per student layer; the first int8
+     step is held against the first bf16 step, and the teacher forward is
+     timed in both forms; one more step of each is profiled.  Last, 2 steps
+     of the router-only `policy_body_quant` recipe: the student body in
+     int8, the routers trained through the straight-through backward, every
+     other weight bitwise unchanged;
+  6. stages: the trainer entry point (`train/run.py::run_stage`) through
      the paper's three stages at full width, from the repository's stage
-     configs, chained through checkpoint directories in a temporary
-     directory (removed at the end whatever happens): a seeded dense
-     LLaVA-Qwen1.5-1.8B and a Qwen1.5-7B teacher without a tower, written
-     in bf16 with `save_model`; seeded 336x336 PNGs and three JSON datasets
-     in the reference formats, read through a stand-in tokenizer; stage 1
-     (projector only, B=8, accumulation 2) -> stage 2 (upcycled to 4
-     experts top-2 inside the stage, kd_lm against the teacher, record
-     train set, B=1, accumulation 2) -> stage 3 (kto_pair against the
-     teacher, the whole LLM trainable, one pair, accumulation 2), 4
-     microbatches each.  Per stage it checks that every logged metric is
-     finite, that the optimizer took 2 updates, that every microbatch
-     launched K1, K3 and K4 as the stage's layers and remat require, and
-     that the first microbatch agrees with the same step through plain
-     attention; stage 1 must leave every decoder and tower weight bitwise
-     unchanged and write a loadable mm_projector.bin, stage 2 must write an
-     MoE model, and stage 3 must train it.
+     configs as written, chained through checkpoint directories in a
+     temporary directory (removed at the end whatever happens): a seeded
+     dense LLaVA-Qwen1.5-1.8B and a Qwen1.5-7B teacher without a tower,
+     written in bf16 with `save_model`; seeded 336x336 PNGs and three JSON
+     datasets in the reference formats, read through a stand-in tokenizer;
+     stage 1 (projector only, B=8, accumulation 2) -> stage 2 (upcycled to
+     4 experts top-2 inside the stage, kd_lm against the teacher in W8A8
+     with an int8 head, the student head pre-quantized, record train set,
+     B=1, accumulation 2) -> stage 3 (kto_pair against the teacher, the
+     whole LLM trainable, one pair, accumulation 2), 4 microbatches each.
+     Per stage it checks that every logged metric is finite, that the
+     optimizer took 2 updates, that every microbatch launched K1, K3 and K4
+     as the stage's layers and remat require, and that the first
+     microbatch agrees with the same step through plain attention; stage 1
+     must leave every decoder and tower weight bitwise unchanged and write
+     a loadable mm_projector.bin, stage 2 must shrink its teacher, write
+     an MoE model and save the float student head bitwise as it came, and
+     stage 3 must train it.
 
 Prints the kernels' JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -62,6 +83,7 @@ Prints the kernels' JSON line before the last and, as the last line,
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -101,9 +123,28 @@ LOGITS_REL_TOL = 5e-2
 LOSS_REL_TOL = 2e-2
 GRAD_NORM_REL_TOL = 5e-2
 
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate and HBM3
-# bandwidth, for the bound each kernel is set against
+#  * the int8 W8A8 path against bf16 (same weights and inputs): W8A8
+#    quantizes every activation row and weight column to 127 levels, which
+#    moves the teacher's logits, hence the distillation loss, by about 1e-2
+#    relative; the gradient norm sums that over 2 B entries and top-2
+#    routing flips; the serving logits move through 24 int8 layers and an
+#    int8 head: each product re-quantizes its input rows (steps of ~1% of a
+#    row's range), which also turns a bf16 rounding difference upstream
+#    (the attention paths) into whole int8 steps, so the int8 engine's
+#    logits are held at 0.25 of the largest logit, against the bf16 engine
+#    and between its own attention paths (a broken int8 path is off by
+#    ~1); greedy tokens may flip where the top two logits are close
+#    (random weights leave margins of ~0.2 on logits of std ~1), so the
+#    first token must agree in at least half the rows.
+INT8_LOSS_REL_TOL = 5e-2
+INT8_GRAD_NORM_REL_TOL = 0.2
+INT8_LOGITS_REL_TOL = 0.25
+INT8_FIRST_TOKEN_MIN_ROWS = 4
+
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
+# and HBM3 bandwidth, for the bound each kernel is set against
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 MAX_BATCH = 8
@@ -121,6 +162,22 @@ STAGE_MICROBATCHES = 4
 STAGE_ACCUM = 2
 STAGE_IMAGES = 8
 QWEN_REGULAR_IDS = 151_646     # ids below the Qwen vocab's special tokens
+# the W8A8 products of the int8 paths (name, M, K, N): the Qwen1.5-7B
+# teacher's fused layer products at T=2048, one 8192-row head chunk against
+# the teacher's and the student's width, the student's experts at training
+# capacity (2048 tokens x top-2 x 1.5 / 4 experts), a decode step at B=8
+INT8_GEMM_SHAPES = (
+    ("teacher wqkv", 2048, 4096, 12288),
+    ("teacher wo", 2048, 4096, 4096),
+    ("teacher gate_up", 2048, 4096, 22016),
+    ("teacher down", 2048, 11008, 4096),
+    ("teacher head chunk", 2048, 4096, 8192),
+    ("student head chunk", 2048, 2048, 8192),
+    ("student expert up/gate", 1536, 2048, 5504),
+    ("student expert down", 1536, 5504, 2048),
+    ("decode wqkv B=8 (padded)", 8, 2048, 6144),
+)
+BODY_QUANT_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -533,6 +590,68 @@ def check_flash_bwd(gen, dev):
     return main
 
 
+def check_int8_gemm(dev):
+    """Every W8A8 product of the int8 paths at its shapes: `int8_matmul`
+    (torch._int_mm) on random int8 operands, bitwise against the f64
+    product (exact below 2^53), with the weight K-major as the port stores
+    it and N-major (the JAX [in, out] layout as written) for the layout
+    decision; device times of the whole W8A8 `dense` split into its
+    quantize, int8 product and rescale, against the bf16 `torch.mm` of the
+    same shape and the int8 bound 2MKN / peak."""
+    from llavamod_tpu_torch.models.llm.decoder import dense_int8
+    from llavamod_tpu_torch.ops.int8 import act_quant_rows, int8_matmul
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    rows = []
+    for name, m, k, n in INT8_GEMM_SHAPES:
+        a = ri(m, k)
+        w = ri(n, k).t()                         # K-major [K, N]
+        w_n = w.contiguous()                     # N-major [K, N]
+        ref = a.double() @ w.double()
+        exact = (torch.equal(int8_matmul(a, w).double(), ref)
+                 and torch.equal(int8_matmul(a, w_n).double(), ref))
+        x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+        scale = torch.rand((n,), generator=g, device=dev) * 1e-2
+        wb = torch.randn((k, n), generator=g, device=dev).bfloat16()
+        xq, s_x = act_quant_rows(x)
+        y = int8_matmul(xq, w)
+        with torch.no_grad():
+            t = dict(
+                quantize_ms=device_ms(lambda: act_quant_rows(x), calls=10),
+                int_mm_ms=device_ms(lambda: int8_matmul(xq, w), calls=10),
+                int_mm_n_major_ms=device_ms(lambda: int8_matmul(xq, w_n),
+                                            calls=10),
+                rescale_ms=device_ms(lambda: (y.float() * s_x * scale)
+                                     .to(torch.bfloat16), calls=10),
+                dense_ms=device_ms(lambda: dense_int8(x, w, scale), calls=10),
+                bf16_mm_ms=device_ms(lambda: x @ wb, calls=10))
+        ops = 2 * m * k * n
+        row = dict(name=name, m=m, k=k, n=n, exact=exact, **t,
+                   int8_bound_ms=ops / PEAK_INT8_OPS * 1e3,
+                   bf16_bound_ms=ops / PEAK_BF16_FLOPS * 1e3)
+        rows.append(row)
+        log(f"[int8] {name} M={m} K={k} N={n}: int8_matmul bitwise equal to "
+            f"the f64 product (K- and N-major weight): {exact}; device ms: "
+            f"quantize {t['quantize_ms']:.4f} + _int_mm {t['int_mm_ms']:.4f} "
+            f"+ rescale {t['rescale_ms']:.4f}, whole W8A8 dense "
+            f"{t['dense_ms']:.4f} vs bf16 torch.mm {t['bf16_mm_ms']:.4f} "
+            f"({t['dense_ms'] / t['bf16_mm_ms']:.2f}x); _int_mm on the N-major "
+            f"weight {t['int_mm_n_major_ms']:.4f} "
+            f"({t['int_mm_n_major_ms'] / t['int_mm_ms']:.1f}x K-major); int8 "
+            f"bound {row['int8_bound_ms']:.4f}, bf16 bound "
+            f"{row['bf16_bound_ms']:.4f}")
+        del a, w, w_n, ref, x, wb, xq, y
+        if not exact:
+            raise AssertionError(f"int8_matmul {name} is not exact")
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -604,7 +723,7 @@ def png_b64(seed: int) -> str:
     return base64.b64encode(buf.getvalue()).decode()
 
 
-def serve_phase(cfg, model, card: str):
+def serve_phase(cfg, model, card: str, tag: str = "[serve]"):
     from http.server import ThreadingHTTPServer
 
     from llavamod_tpu_torch.eval.generate import VQARunner
@@ -676,19 +795,19 @@ def serve_phase(cfg, model, card: str):
                 and len(final) == 1
                 and 0 < final[0]["usage"]["completion_tokens"] <= NEW_TOKENS):
             raise AssertionError(f"stream request: HTTP {code} {body[:500]!r}")
-        log(f"[serve] {MAX_BATCH} concurrent image requests + 1 streamed "
+        log(f"{tag} {MAX_BATCH} concurrent image requests + 1 streamed "
             f"request in {batches} batches: all HTTP 200 with text and usage, "
             f"SSE ends with [DONE]")
 
         prefills = batches
         steps = batches * (NEW_TOKENS - 1)
-        log(f"[serve] launches during the served requests: flash_fwd {fwd_n} "
+        log(f"{tag} launches during the served requests: flash_fwd {fwd_n} "
             f"(need >= {layers} x {prefills} prefills), flash_decode {dec_n} "
             f"(need >= {layers} x {steps} decode steps)")
         if fwd_n < layers * prefills or dec_n < layers * steps or prefills < 2:
             raise AssertionError("the served requests did not go through the "
                                  "kernels on every layer")
-        log(f"[serve] 8 concurrent requests: {t_batch:.3f} s, "
+        log(f"{tag} 8 concurrent requests: {t_batch:.3f} s, "
             f"{MAX_BATCH / t_batch:.3f} requests/s on {card} "
             f"(includes HTTP, image preprocessing, prefill and "
             f"{NEW_TOKENS} tokens of decode)")
@@ -700,7 +819,8 @@ def serve_phase(cfg, model, card: str):
         engine.shutdown()
 
 
-def logits_and_timing(cfg, model, runner, card: str):
+def logits_and_timing(cfg, model, runner, card: str, tag: str = "[slice]",
+                      logits_tol: float = LOGITS_REL_TOL):
     from llavamod_tpu_torch import generation
     from llavamod_tpu_torch.generation import GenerationConfig
     from llavamod_tpu_torch.models import llava
@@ -730,16 +850,17 @@ def logits_and_timing(cfg, model, runner, card: str):
         diff = (lk - lp).abs().max().item()
         scale = lp.abs().max().item()
         agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    ok = bool(torch.isfinite(lk).all().item()) and diff <= LOGITS_REL_TOL * scale
-    log(f"[slice] prefill last-position logits [{MAX_BATCH}, "
+    ok = bool(torch.isfinite(lk).all().item()) and diff <= logits_tol * scale
+    log(f"{tag} prefill last-position logits [{MAX_BATCH}, "
         f"{lk.shape[-1]}], kernel path vs plain attention: max abs diff "
         f"{diff:.4e}, max |logit| {scale:.4e}, rel {diff / scale:.4e} "
-        f"(tol {LOGITS_REL_TOL}), greedy argmax agreement {agree:.3f}")
+        f"(tol {logits_tol}), greedy argmax agreement {agree:.3f}")
     if not ok:
         raise AssertionError("kernel-path prefill logits disagree with the "
                              "plain-attention forward")
 
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
+    greedy = generation.generate(model, batch, gcfg)
 
     def prefill():
         return generation._prefill(model, batch, gcfg, None)
@@ -763,16 +884,64 @@ def logits_and_timing(cfg, model, runner, card: str):
     t_dec = statistics.median(decode_s)
     tok_s = MAX_BATCH * (NEW_TOKENS - 1) / t_dec
     step_ms = sorted(t * 1e3 / (NEW_TOKENS - 1) for t in decode_s)
-    log(f"[slice] prefill (B={MAX_BATCH}, T={PROMPT_LEN}, tower + LLM + "
+    log(f"{tag} prefill (B={MAX_BATCH}, T={PROMPT_LEN}, tower + LLM + "
         f"head): {prefill_ms:.3f} ms (median of 5); decode {NEW_TOKENS - 1} "
         f"steps at B={MAX_BATCH}, median of 3: {t_dec * 1e3:.3f} ms, "
         f"{tok_s:.1f} tokens/s, ms/step {step_ms[0]:.3f} / {step_ms[1]:.3f} "
         f"/ {step_ms[2]:.3f} (min / median / max); on {card}")
-    decode_profile = summarize_profile("[slice] profiled decode step", wall_ms,
-                                       rows, step_ms[1])
+    decode_profile = summarize_profile(f"{tag} profiled decode step",
+                                       wall_ms, rows, step_ms[1])
     return dict(prefill_ms=prefill_ms, decode_tok_s=tok_s,
                 decode_ms_per_step=step_ms, logits_rel=diff / scale,
-                decode_profile=decode_profile)
+                decode_profile=decode_profile, prefill_logits=lk,
+                greedy=greedy)
+
+
+def int8_serving(cfg, model, bf16_stats, card: str):
+    """The same student quantized for serving in place (`--quant int8`:
+    attention, dense MLP, experts, head and embedding in int8) answers the
+    same 8 concurrent image requests; its prefill logits and greedy tokens
+    are held against the bf16 engine's on the same batch."""
+    from llavamod_tpu_torch.models.builder import quantize_for_serving
+
+    t0 = time.perf_counter()
+    quantize_for_serving(model)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve int8] quantize_for_serving in {time.perf_counter() - t0:.1f}"
+        f" s: the model now holds {module_gib(model):.2f} GiB on the device")
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_phase(cfg, model, card, tag="[serve int8]")
+    stats = logits_and_timing(cfg, model, served.pop("runner"), card,
+                              tag="[slice int8]",
+                              logits_tol=INT8_LOGITS_REL_TOL)
+    stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ref, got = bf16_stats.pop("prefill_logits"), stats.pop("prefill_logits")
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    g16, g8 = bf16_stats.pop("greedy"), stats.pop("greedy")
+    lead = [int(np.argmin(np.append(a == b, False))) for a, b in zip(g8, g16)]
+    first_ok = sum(n >= 1 for n in lead)
+    stats.update(logits_rel_to_bf16=rel, leading_tokens_equal=lead,
+                 first_token_rows_equal=first_ok)
+    steps = {k: v["decode_profile"] for k, v in (("bf16", bf16_stats),
+                                                  ("int8", stats))}
+    log(f"[serve int8] prefill last-position logits, int8 vs bf16 engine: "
+        f"rel max abs diff {rel:.4e} (tol {INT8_LOGITS_REL_TOL}); greedy "
+        f"tokens equal from the start for {lead} of {NEW_TOKENS} per row, "
+        f"first token equal in {first_ok} of {len(lead)} rows (need >= "
+        f"{INT8_FIRST_TOKEN_MIN_ROWS}); decode ms/step median int8 "
+        f"{stats['decode_ms_per_step'][1]:.3f} vs bf16 "
+        f"{bf16_stats['decode_ms_per_step'][1]:.3f}; kernels per profiled "
+        f"decode step int8 {steps['int8'] and steps['int8']['kernels']} vs "
+        f"bf16 {steps['bf16'] and steps['bf16']['kernels']}; peak device "
+        f"memory int8 {stats['peak_gib']:.2f} vs bf16 "
+        f"{bf16_stats['peak_gib']:.2f} GiB; requests/s int8 "
+        f"{served['requests_per_s']:.3f}; on {card}")
+    if not (rel <= INT8_LOGITS_REL_TOL
+            and first_ok >= INT8_FIRST_TOKEN_MIN_ROWS):
+        raise AssertionError("the int8 engine disagrees with the bf16 one")
+    return served, stats
 
 
 # ---------------------------------------------------------------------------
@@ -888,7 +1057,8 @@ def summarize_profile(tag: str, wall_ms: float, rows, step_ms: float,
                 attention_kernels=attn)
 
 
-def profile_step(step, state, teacher, batch, step_ms: float):
+def profile_step(step, state, teacher, batch, step_ms: float,
+                 tag: str = "[train] profiled step"):
     """One training step under torch.profiler (`summarize_profile`)."""
     out = {}
 
@@ -896,11 +1066,68 @@ def profile_step(step, state, teacher, batch, step_ms: float):
         out["state"], _ = step(state, teacher, batch)
 
     wall_ms, rows = profile_window(run)
-    return out["state"], summarize_profile("[train] profiled step", wall_ms,
-                                           rows, step_ms)
+    return out["state"], summarize_profile(tag, wall_ms, rows, step_ms)
+
+
+def module_gib(module) -> float:
+    """Device bytes of a module's parameters and buffers, in GiB."""
+    return sum(nbytes(t) for t in list(module.parameters())
+               + list(module.buffers())) / 2**30
+
+
+@contextlib.contextmanager
+def swapped_head(llm, head):
+    """Within the block the student's head is `head` (its int8 form); the
+    float head is put back afterwards."""
+    float_head = llm.lm_head.weight
+    del llm.lm_head.weight
+    llm.lm_head.weight = head
+    try:
+        yield
+    finally:
+        del llm.lm_head.weight
+        llm.lm_head.weight = float_head
+
+
+def first_step(step, student, tcfg, teacher, batch):
+    """One step from a fresh state; the weights are put back afterwards.
+    Returns its metrics."""
+    from llavamod_tpu_torch.train.optim import TrainState
+
+    state = TrainState.create(student, tcfg)
+    saved = {n: p.detach().clone() for n, p in state.opt.params.items()}
+    _, m = step(state, teacher, batch)
+    out = {k: v.item() for k, v in m.items()}
+    with torch.no_grad():
+        for n, p in state.opt.params.items():
+            p.copy_(saved[n])
+    del state, saved, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def teacher_forward_ms(teacher, teacher_cfg, student, cfg, batch) -> float:
+    """Device time of the teacher's forward on the batch (the step's
+    teacher side before the loss), on the student's tower features."""
+    from llavamod_tpu_torch.models import llava
+
+    tb = batch._replace(pixels=batch.pixels.bfloat16())
+    with torch.no_grad():
+        pixels = tb.pixels.reshape((-1,) + tuple(tb.pixels.shape[2:]))
+        tower = llava.encode_tower(student, cfg, pixels)
+        return device_ms(lambda: llava.forward(teacher, teacher_cfg, tb,
+                                               tower_feats=tower), calls=3)
 
 
 def train_phase(card: str, dev):
+    """The stage-2 step in bf16 and with the stage-2 config's int8 options
+    (ref_quant=int8_head, policy_head_quant), alternated on one batch, then
+    the router-only policy_body_quant recipe."""
+    from llavamod_tpu_torch.models.llm.decoder import (
+        quantize_decoder_int8,
+        quantize_head_int8,
+    )
     from llavamod_tpu_torch.train.config import TrainConfig
     from llavamod_tpu_torch.train.optim import TrainState
     from llavamod_tpu_torch.train.steps import make_align_step
@@ -924,19 +1151,30 @@ def train_phase(card: str, dev):
     n_tok = batch.input_ids.numel()
 
     # the reference: the first step through plain attention, from the same
-    # weights with a fresh state; the weights are put back afterwards
-    plain_cfg = tcfg.replace(attn_impl="xla")
-    plain_state = TrainState.create(student, plain_cfg)
-    saved = {n: p.detach().clone() for n, p in plain_state.opt.params.items()}
-    _, pm = make_align_step(cfg, teacher_cfg, plain_cfg)(plain_state, teacher,
-                                                         batch)
-    plain = {k: v.item() for k, v in pm.items()}
+    # weights with a fresh state
+    plain = first_step(make_align_step(cfg, teacher_cfg,
+                                       tcfg.replace(attn_impl="xla")),
+                       student, tcfg, teacher, batch)
+
+    # the stage-2 config's int8 options: the teacher in W8A8 with an int8
+    # head (a copy, quantized layer by layer), the student's frozen head
+    # pre-quantized
+    t0 = time.perf_counter()
+    teacher8 = copy.deepcopy(teacher)
+    quantize_decoder_int8(teacher8.llm, include_lm_head=True)
     with torch.no_grad():
-        for n, p in plain_state.opt.params.items():
-            p.copy_(saved[n])
-    del plain_state, saved, pm
-    gc.collect()
-    torch.cuda.empty_cache()
+        head8 = quantize_head_int8(student.llm.lm_head.weight)
+    torch.cuda.synchronize()
+    gib = {"bf16": module_gib(teacher), "int8": module_gib(teacher8)}
+    log(f"[train int8] teacher quantized to W8A8 with an int8 head in "
+        f"{time.perf_counter() - t0:.1f} s: {gib['bf16']:.2f} GiB in bf16 -> "
+        f"{gib['int8']:.2f} GiB; student head "
+        f"{module_gib(student.llm.lm_head) :.3f} -> {module_gib(head8):.3f} "
+        f"GiB")
+    tcfg8 = tcfg.replace(student_head_quant=True)
+    step8 = make_align_step(cfg, teacher_cfg, tcfg8)
+    with swapped_head(student.llm, head8):
+        first8 = first_step(step8, student, tcfg8, teacher8, batch)
 
     state = TrainState.create(student, tcfg)
     n_train = sum(p.numel() for p in state.opt.params.values())
@@ -944,33 +1182,44 @@ def train_phase(card: str, dev):
     per_step = {"flash_fwd": cfg.llm.num_layers + teacher_cfg.llm.num_layers,
                 "flash_dq": cfg.llm.num_layers,
                 "flash_dkv": cfg.llm.num_layers}
-    torch.cuda.reset_peak_memory_stats()
+    runs = {"bf16": (step, teacher, contextlib.nullcontext),
+            "int8": (step8, teacher8,
+                     lambda: swapped_head(student.llm, head8))}
+    times = {"bf16": [], "int8": []}
+    peaks = {"bf16": 0.0, "int8": 0.0}
+    first = None
     _reset_launch_counts()
-    times, first = [], None
     for i in range(1 + TRAIN_TIMED_STEPS):
-        before = _launch_counts()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, m = step(state, teacher, batch)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t1
-        vals = {k: v.item() for k, v in m.items()}
-        got = {k: n - before[k] for k, n in _launch_counts().items()}
-        log(f"[train] step {i}: {dt * 1e3:.1f} ms loss {vals['loss']:.5f} "
-            f"(align {vals['loss/align']:.5f} lm {vals['loss/lm']:.5f} "
-            f"moe {vals['loss/moe_balance']:.5f}) grad_norm "
-            f"{vals['grad_norm']:.5f} launches {got}")
-        if not all(np.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"step {i}: non-finite metrics {vals}")
-        if got != per_step:
-            raise AssertionError(f"step {i} launched {got}, expected "
-                                 f"{per_step} per step")
-        if i == 0:
-            first = vals
-        else:
-            times.append(dt)
+        # bf16 and int8 in turns: AB, BA, AB, BA
+        for kind in (("bf16", "int8") if i % 2 == 0 else ("int8", "bf16")):
+            fn, tch, ctx = runs[kind]
+            before = _launch_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            with ctx():
+                state, m = fn(state, tch, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t1
+            peaks[kind] = max(peaks[kind],
+                              torch.cuda.max_memory_allocated() / 2**30)
+            vals = {k: v.item() for k, v in m.items()}
+            got = {k: n - before[k] for k, n in _launch_counts().items()}
+            log(f"[train] step {i} {kind}: {dt * 1e3:.1f} ms loss "
+                f"{vals['loss']:.5f} (align {vals['loss/align']:.5f} lm "
+                f"{vals['loss/lm']:.5f} moe {vals['loss/moe_balance']:.5f}) "
+                f"grad_norm {vals['grad_norm']:.5f} launches {got}")
+            if not all(np.isfinite(v) for v in vals.values()):
+                raise AssertionError(f"step {i} {kind}: non-finite metrics "
+                                     f"{vals}")
+            if got != per_step:
+                raise AssertionError(f"step {i} {kind} launched {got}, "
+                                     f"expected {per_step} per step")
+            if i == 0 and kind == "bf16":
+                first = vals
+            elif i > 0:
+                times[kind].append(dt)
     launches = _launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     rel = {k: abs(first[k] - plain[k]) / abs(plain[k])
            for k in ("loss", "grad_norm")}
@@ -979,22 +1228,116 @@ def train_phase(card: str, dev):
         f"tol {LOSS_REL_TOL}), grad_norm {first['grad_norm']:.6f} vs "
         f"{plain['grad_norm']:.6f} (rel {rel['grad_norm']:.3e}, tol "
         f"{GRAD_NORM_REL_TOL})")
+    rel8 = {k: abs(first8[k] - first[k]) / abs(first[k])
+            for k in ("loss", "loss/align", "loss/lm", "grad_norm")}
+    log(f"[train int8] first step, int8 (int8_head teacher, int8 student "
+        f"head) vs bf16: loss {first8['loss']:.6f} vs {first['loss']:.6f} "
+        f"(rel {rel8['loss']:.3e}, tol {INT8_LOSS_REL_TOL}; align rel "
+        f"{rel8['loss/align']:.3e}, lm rel {rel8['loss/lm']:.3e}), grad_norm "
+        f"{first8['grad_norm']:.6f} vs {first['grad_norm']:.6f} (rel "
+        f"{rel8['grad_norm']:.3e}, tol {INT8_GRAD_NORM_REL_TOL})")
     if not (rel["loss"] <= LOSS_REL_TOL
             and rel["grad_norm"] <= GRAD_NORM_REL_TOL):
         raise AssertionError("the kernel-path training step disagrees with "
                              "the plain-attention step")
+    if not (rel8["loss"] <= INT8_LOSS_REL_TOL
+            and rel8["grad_norm"] <= INT8_GRAD_NORM_REL_TOL):
+        raise AssertionError("the int8 training step disagrees with bf16")
 
-    ms = sorted(t * 1e3 for t in times)
-    med = statistics.median(ms)
-    log(f"[train] make_align_step, B=1 T={TRAIN_T}, {n_train / 1e9:.3f} B "
-        f"trainable: step ms {ms[0]:.1f} / {med:.1f} / {ms[-1]:.1f} (min / "
-        f"median / max of {len(ms)} after 1 warm-up), {n_tok / med * 1e3:.1f} "
-        f"tokens/s, peak device memory {peak_gib:.2f} GiB; on {card}")
-    state, prof = profile_step(step, state, teacher, batch, med)
-    return dict(step_ms=ms, tokens_per_s=n_tok / med * 1e3,
-                peak_gib=peak_gib, trainable=n_train, launches=launches,
+    fwd_ms = {"bf16": teacher_forward_ms(teacher, teacher_cfg, student, cfg,
+                                         batch),
+              "int8": teacher_forward_ms(teacher8, teacher_cfg, student, cfg,
+                                         batch)}
+    ms = {k: sorted(t * 1e3 for t in v) for k, v in times.items()}
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    for kind in ("bf16", "int8"):
+        other = "int8" if kind == "bf16" else "bf16"
+        log(f"[train] make_align_step {kind}, B=1 T={TRAIN_T}, "
+            f"{n_train / 1e9:.3f} B trainable: step ms {ms[kind][0]:.1f} / "
+            f"{med[kind]:.1f} / {ms[kind][-1]:.1f} (min / median / max of "
+            f"{len(ms[kind])} after 1 warm-up, bf16 and int8 in turns), "
+            f"{n_tok / med[kind] * 1e3:.1f} tokens/s, peak device memory "
+            f"{peaks[kind]:.2f} GiB ({peaks[kind] - gib[other]:.2f} without "
+            f"the {other} teacher kept for the other step), teacher forward "
+            f"{fwd_ms[kind]:.2f} ms device time; on {card}")
+    state, prof = profile_step(step, state, teacher, batch, med["bf16"])
+    with swapped_head(student.llm, head8):
+        state, prof8 = profile_step(step8, state, teacher8, batch,
+                                    med["int8"], "[train int8] profiled step")
+    del state, teacher, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    body = body_quant_steps(cfg, student, teacher_cfg, teacher8, tcfg, batch,
+                            per_step, card)
+    return dict(step_ms=ms["bf16"], tokens_per_s=n_tok / med["bf16"] * 1e3,
+                peak_gib=peaks["bf16"], trainable=n_train, launches=launches,
                 first_step=first, plain_first_step=plain, rel=rel,
-                profile=prof)
+                profile=prof, int8=dict(
+                    step_ms=ms["int8"],
+                    tokens_per_s=n_tok / med["int8"] * 1e3,
+                    peak_gib=peaks["int8"], teacher_gib=gib,
+                    teacher_forward_ms=fwd_ms, first_step=first8,
+                    rel_to_bf16=rel8, profile=prof8),
+                body_quant=body)
+
+
+def body_quant_steps(cfg, student, teacher_cfg, teacher8, tcfg, batch,
+                     per_step, card):
+    """The router-only recipe with --policy_body_quant: the student's whole
+    body (experts included) in int8 through `run.quantize_stage_models`,
+    only the routers train (the projector frozen), and their gradients come
+    through the straight-through backward of every int8 product.  Every
+    non-router weight must stay bitwise as it was."""
+    from llavamod_tpu_torch.train.args import AlignArgs
+    from llavamod_tpu_torch.train.optim import TrainState
+    from llavamod_tpu_torch.train.run import quantize_stage_models
+    from llavamod_tpu_torch.train.steps import make_align_step
+
+    tcfgb = tcfg.replace(train_modules=("router",), student_body_quant=True,
+                         freeze_mm_mlp_adapter=True, learning_rate=1e-3,
+                         warmup_ratio=0.0)
+    t0 = time.perf_counter()
+    stash = quantize_stage_models(tcfgb, AlignArgs(), student, teacher8)
+    torch.cuda.synchronize()
+    log(f"[train body-quant] student body quantized to int8 (experts "
+        f"included) in {time.perf_counter() - t0:.1f} s, float layers kept "
+        f"on the host ({len(stash['layers'])}); student now "
+        f"{module_gib(student):.2f} GiB")
+    before = {k: v.clone() for k, v in student.state_dict().items()}
+    state = TrainState.create(student, tcfgb)
+    step = make_align_step(cfg, teacher_cfg, tcfgb)
+    routers = {f"llm.layers.{i}.mlp.router" for i in cfg.llm.moe_layers}
+    # nothing below layer 0's MoE block takes a gradient (embedding, tower
+    # and projector frozen), so layer 0's attention forms no backward
+    per_step = dict(per_step, flash_dq=per_step["flash_dq"] - 1,
+                    flash_dkv=per_step["flash_dkv"] - 1)
+    out = []
+    _reset_launch_counts()
+    for i in range(BODY_QUANT_STEPS):
+        before_n = _launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, teacher8, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        vals = {k: v.item() for k, v in m.items()}
+        got = {k: n - before_n[k] for k, n in _launch_counts().items()}
+        out.append(dict(ms=dt * 1e3, **vals))
+        log(f"[train body-quant] step {i}: {dt * 1e3:.1f} ms loss "
+            f"{vals['loss']:.5f} grad_norm {vals['grad_norm']:.5f} (routers "
+            f"only) launches {got}")
+        if not (all(np.isfinite(v) for v in vals.values())
+                and vals["grad_norm"] > 0 and got == per_step):
+            raise AssertionError(f"body-quant step {i}: {vals} {got}")
+    after = student.state_dict()
+    moved = {k for k in before if not torch.equal(before[k], after[k])}
+    log(f"[train body-quant] after {BODY_QUANT_STEPS} steps: moved "
+        f"{sorted(moved)}; {len(before) - len(moved)} other tensors bitwise "
+        f"unchanged (need exactly the {len(routers)} routers to move); on "
+        f"{card}")
+    if moved != routers:
+        raise AssertionError(f"body-quant moved {sorted(moved ^ routers)[:6]}")
+    return dict(steps=out, launches=_launch_counts(), routers_moved=len(moved))
 
 
 # ---------------------------------------------------------------------------
@@ -1232,6 +1575,7 @@ def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
         sdpo).replace(attn_impl="xla")
     if teacher is not None and steps._can_share_tower(tcfg, cfg, teacher_cfg):
         del teacher.vision
+    run.quantize_stage_models(tcfg, extra, model, teacher)
     state = TrainState.create(model, tcfg)
     if stage == "align":
         _, m = steps.make_align_step(cfg, teacher_cfg, tcfg)(
@@ -1261,18 +1605,47 @@ def _num_layers(model_dir: str) -> int:
         return json.load(f)["llm"]["num_layers"]
 
 
-def drive_stage(stage, config, argv, overrides, tok, dev, card):
+@contextlib.contextmanager
+def recorded_quantization(record: dict):
+    """Within the block, `run.quantize_stage_models` records the teacher's
+    device GiB before and after it, and whether the student's head ended
+    in int8."""
+    from llavamod_tpu_torch.models.params import Int8Weight
+    from llavamod_tpu_torch.train import run
+
+    original = run.quantize_stage_models
+
+    def recording(tcfg, stage_args, model, teacher):
+        before = module_gib(teacher.llm) if teacher is not None else 0.0
+        stash = original(tcfg, stage_args, model, teacher)
+        record.update(
+            teacher_gib_before=before,
+            teacher_gib_after=(module_gib(teacher.llm) if teacher is not None
+                               else 0.0),
+            # float matrices left in the teacher's LLM besides its
+            # embedding table (which W8A8 keeps in bf16)
+            teacher_float_matrices=0 if teacher is None else sum(
+                p.dim() >= 2 and n != "embed.embedding"
+                for n, p in teacher.llm.named_parameters()),
+            ref_quant=getattr(stage_args, "ref_quant", ""),
+            student_head_int8=isinstance(model.llm.lm_head.weight,
+                                         Int8Weight))
+        return stash
+
+    run.quantize_stage_models = recording
+    try:
+        yield record
+    finally:
+        run.quantize_stage_models = original
+
+
+def drive_stage(stage, config, argv, tok, dev, card):
     """One stage through `run_stage` (counts set to 0 just before, read just
     after), with the plain-attention first microbatch beside it; returns
     the stage's numbers after checking them."""
     from llavamod_tpu_torch.train.run import run_stage
 
     margs, dargs, targs, extra = parse_stage(stage, config, argv)
-    if overrides:
-        # a config value cannot be overridden back to the flag's default on
-        # the command line (the config fills every flag left at its
-        # default), so these are set on the parsed dataclass
-        extra = dataclasses.replace(extra, **overrides)
     policy = (extra.policy_model_name_or_path if extra is not None
               else margs.model_name_or_path)
     layers = _num_layers(policy)
@@ -1286,10 +1659,10 @@ def drive_stage(stage, config, argv, overrides, tok, dev, card):
     plain_s = time.perf_counter() - t0
 
     kw = {"align": dict(salign=extra), "dpo": dict(sdpo=extra)}.get(stage, {})
-    records = []
+    records, quant = [], {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with counted_steps(records):
+    with counted_steps(records), recorded_quantization(quant):
         _reset_launch_counts()
         last = run_stage(stage, margs, dargs, targs, tokenizer=tok,
                          device=dev, **kw)
@@ -1343,12 +1716,24 @@ def drive_stage(stage, config, argv, overrides, tok, dev, card):
             and rel["grad_norm"] <= GRAD_NORM_REL_TOL):
         raise AssertionError(f"{stage}: the kernel path disagrees with plain "
                              f"attention: {rel}")
+    if quant.get("ref_quant"):
+        log(f"[stages] {stage}: --ref_quant {quant['ref_quant']} from the "
+            f"config: teacher LLM {quant['teacher_gib_before']:.2f} GiB -> "
+            f"{quant['teacher_gib_after']:.2f} GiB on the device, float "
+            f"matrices left besides the embedding: "
+            f"{quant['teacher_float_matrices']}; student head in int8: "
+            f"{quant['student_head_int8']}")
+        if (quant["teacher_float_matrices"] or not quant["student_head_int8"]
+                or not quant["teacher_gib_after"]
+                < quant["teacher_gib_before"]):
+            raise AssertionError(f"{stage}: the int8 options did not take: "
+                                 f"{quant}")
     return dict(microbatch_ms=ms, median_ms=med, tokens_per_s=tokens / med * 1e3,
                 peak_gib=peak_gib, load_s=info["build_and_load_s"],
                 save_s=info["save_s"], run_stage_s=wall_s,
                 updates=info["optimizer_updates"], launches=launches,
                 launches_per_microbatch=per_mb, first=first, plain_first=plain,
-                rel=rel, last=last)
+                rel=rel, last=last, quantization=quant)
 
 
 def check_stage1_outputs(dense_dir: str, out: str) -> None:
@@ -1375,6 +1760,26 @@ def check_stage1_outputs(dense_dir: str, out: str) -> None:
     if frozen_moved or not moved or not proj_ok:
         raise AssertionError(f"stage 1 outputs: moved {frozen_moved[:4]}, "
                              f"projector file ok {proj_ok}")
+
+
+def check_float_head(before_dir: str, out: str) -> None:
+    """Stage 2 ran the config's policy_head_quant: its checkpoint holds the
+    float student head, bitwise the head it was given (the int8 copy was a
+    training-time stand-in), and no int8 tensor."""
+    def state(d):
+        return torch.load(os.path.join(d, "model.pt"), map_location="cpu",
+                          weights_only=True, mmap=True)
+
+    before, after = state(before_dir), state(out)
+    key = "llm.lm_head.weight"
+    same = torch.equal(before[key], after[key])
+    int8 = [k for k in after if "w_int8" in k or k.endswith(".scale")]
+    log(f"[stages] align: saved student head {tuple(after[key].shape)} "
+        f"{after[key].dtype}, bitwise the input head: {same}; int8 tensors in "
+        f"the checkpoint: {len(int8)}")
+    if not same or int8:
+        raise AssertionError(f"stage 2 checkpoint: head equal {same}, int8 "
+                             f"{int8[:4]}")
 
 
 def _moe_config(model_dir: str) -> dict:
@@ -1406,19 +1811,16 @@ def stages_phase(card: str, dev):
             "dpo": ["--policy_model_name_or_path", outs["align"],
                     "--ref_model_name_or_path", dirs["teacher"]],
         }
-        # int8 waits for ROADMAP Queue 1, item 3 (the train phase runs
-        # without it too)
-        overrides = {"align": dict(ref_quant="", policy_head_quant=False)}
         results = {}
         for stage, config in STAGE_CONFIGS:
             argv = argvs[stage] + common + ["--data_path", data[stage],
                                             "--output_dir", outs[stage]]
             results[stage] = drive_stage(stage, os.path.join(here, config),
-                                         argv,
-                                         overrides.get(stage), tok, dev, card)
+                                         argv, tok, dev, card)
             if stage == "pretrain":
                 check_stage1_outputs(dirs["dense"], outs["pretrain"])
             if stage == "align":
+                check_float_head(outs["pretrain"], outs["align"])
                 moe = _moe_config(outs["align"])
                 log(f"[stages] align: output config {moe}")
                 every_2nd = list(range(0, _num_layers(outs["align"]), 2))
@@ -1478,15 +1880,20 @@ def main() -> int:
     k2 = check_flash_decode(gen, dev)
     k3, k4 = check_flash_bwd(gen, dev)
 
+    int8_gemm = check_int8_gemm(dev)
+
     t0 = time.perf_counter()
     cfg, model, n_params = build_model(dev)
     torch.cuda.synchronize()
     log(f"[slice] LLaVA-MoD-2B student ({n_params / 1e9:.3f} B params, bf16, "
         f"seeded random weights) built on the card in "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
     served = serve_phase(cfg, model, card)
     slice_stats = logits_and_timing(cfg, model, served.pop("runner"), card)
-    log(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    slice_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[slice] peak device memory {slice_stats['peak_gib']:.2f} GiB")
+    served8, slice8 = int8_serving(cfg, model, slice_stats, card)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1500,9 +1907,12 @@ def main() -> int:
     serve_n = served["launches"]
     stage_n = {path: stages[stage]["launches"] for stage, path in (
         ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"))}
+    stage_n["serve_int8"] = served8["launches"]
+    stage_n["train_body_quant"] = trained["body_quant"]["launches"]
 
     def by_path(name, **first):
-        return dict(first, **{p: n[name] for p, n in stage_n.items()})
+        return dict(first, **{p: n[name] for p, n in stage_n.items()
+                              if name in n})
     regs = registers_by_kernel(str(cuda_build.build_info["log"]))
     kernels = [
         dict(name="flash_fwd", route="cuda",
@@ -1516,7 +1926,9 @@ def main() -> int:
              source="llavamod_tpu_torch/csrc/flash_decode.cu",
              replaces="llavamod_tpu/ops/decode_attention.py:57",
              launches=serve_n["flash_decode"],
-             launches_by_path={"serve": serve_n["flash_decode"]},
+             launches_by_path={"serve": serve_n["flash_decode"],
+                               "serve_int8": served8["launches"][
+                                   "flash_decode"]},
              registers=regs["flash_decode"], **k2),
         dict(name="flash_dq", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_dq.cu",
@@ -1534,7 +1946,10 @@ def main() -> int:
     ]
     log(json.dumps({"serve": dict(slice_stats,
                                   requests_per_s=served["requests_per_s"]),
-                    "train": trained, "stages": stages, "card": card}))
+                    "serve_int8": dict(slice8,
+                                       requests_per_s=served8["requests_per_s"]),
+                    "int8_gemm": int8_gemm, "train": trained,
+                    "stages": stages, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

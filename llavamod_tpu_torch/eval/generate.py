@@ -36,7 +36,7 @@ class VQARunner:
 
     @property
     def device(self) -> torch.device:
-        return self.model.llm.embed.embedding.device
+        return self.model.llm.final_norm.weight.device
 
     def build_prompt(self, question_text: str, has_image: bool) -> str:
         conv = conv_lib.get_template(self.template_name)

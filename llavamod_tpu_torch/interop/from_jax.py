@@ -5,6 +5,10 @@ state_dict keys and the JAX layouts as tensor shapes, so the conversion is
 leaf for leaf.  This module imports no jax: it takes the tree after
 `jax.device_get`, i.e. nested dicts/lists of numpy arrays, and gives back
 flat numpy state (`numpy_from_state_dict`) for leaf-for-leaf comparisons.
+A quantized JAX tree (its {'w_int8', 'scale'} dicts) loads the same way
+into a module quantized with the same flags
+(models/llm/decoder.py `quantize_decoder_int8`), whose `Int8Weight`
+buffers carry those paths.
 """
 
 from __future__ import annotations

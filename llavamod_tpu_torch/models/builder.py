@@ -2,8 +2,9 @@
 
 A native checkpoint directory holds `llavamod_config.json` (the LlavaConfig
 as JSON, the same file the JAX package writes) and `model.pt`, the flat
-state dict saved with torch.save and loaded with weights_only=True.  HF
-checkpoint import and int8 serving quantization are not ported yet.
+state dict saved with torch.save and loaded with weights_only=True.
+`quantize_for_serving` turns a loaded model into its int8 W8A8 serving form.
+HF checkpoint import is not ported yet.
 """
 
 from __future__ import annotations
@@ -121,3 +122,13 @@ def load_pretrained_model(model_path: str, device="cuda", dtype=None,
     tokenizer = transformers.AutoTokenizer.from_pretrained(
         tokenizer_path or model_path)
     return tokenizer, model, cfg, make_image_preprocessor(cfg), context_len
+
+
+def quantize_for_serving(model: Llava) -> Llava:
+    """int8 W8A8 serving of a loaded model, in place: attention and MLP,
+    the MoE experts, the LM head and the embedding table all int8 (the JAX
+    builder's `quantize_for_serving`; the reference's load_8bit
+    counterpart)."""
+    decoder.quantize_decoder_int8(model.llm, include_lm_head=True,
+                                  include_experts=True, include_embed=True)
+    return model

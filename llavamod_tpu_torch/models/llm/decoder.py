@@ -21,8 +21,15 @@ choice (llavamod_tpu_torch/train/optim.py `apply_trainable_mask`), and
 serving runs under `torch.inference_mode()`.
 
 The KV cache is updated IN PLACE (the JAX cache is a new value each step);
-`forward` returns the same tensors with the advanced `length`.  The dense
-bf16/f32 `dense` only: int8 W8A8 serving comes later.
+`forward` returns the same tensors with the advanced `length`.
+
+int8 W8A8: `quantize_decoder_int8` replaces float weights, in place, with
+`Int8Weight`s (models/params.py) under the JAX paths ('layers.3.attn.wqkv
+.w_int8', 'lm_head.weight.scale', ...).  `dense`, the expert MLP, `embed`
+and `logits_from_hidden` take either form; an int8 product quantizes its
+activation rows dynamically (ops/int8.py) and its backward is the JAX
+straight-through estimate, so a router upstream of frozen int8 weights
+still trains.
 """
 
 from __future__ import annotations
@@ -35,9 +42,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
-from llavamod_tpu_torch.models.params import Initializer, ParamGroup
+from llavamod_tpu_torch.models.params import Initializer, Int8Weight, ParamGroup
 from llavamod_tpu_torch.ops.attention import dot_product_attention
 from llavamod_tpu_torch.ops.decode_attention import flash_decode
+from llavamod_tpu_torch.ops.int8 import act_quant_rows, int8_matmul
 from llavamod_tpu_torch.ops.matmul import matmul_f32_out
 from llavamod_tpu_torch.ops.moe import (
     GatingConfig,
@@ -187,34 +195,245 @@ def _activation(cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(cfg.activation)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w with w in the JAX [in, out] layout."""
+# --- int8 W8A8 matmuls with a straight-through backward --------------------
+# A frozen quantized weight still passes dL/dx to what trains upstream (the
+# router of a quantized student body, JAX decoder.py:251-262): the backward
+# is the straight-through estimate dL/dx = g @ W_deq^T, itself an int8
+# product (g * scale row-quantized like a forward activation).  The int8
+# weight and its scale take no gradient (they are buffers).
+
+def _int8_rows_product(x: torch.Tensor, w_int8: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., K] float -> (int32 [M, N] of its row-quantized form @ w_int8
+    [K, N], the rows' scales [M, 1])."""
+    xq, s_x = act_quant_rows(x.reshape(-1, x.shape[-1]))
+    return int8_matmul(xq, w_int8), s_x
+
+
+class _DenseInt8(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_int8, scale):
+        y, s_x = _int8_rows_product(x, w_int8)
+        ctx.save_for_backward(w_int8, scale)
+        out = (y.float() * s_x * scale.float()).to(x.dtype)
+        return out.reshape(*x.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_int8, scale = ctx.saved_tensors
+        dx, s_g = _int8_rows_product(g.float() * scale.float(), w_int8.t())
+        dx = (dx.float() * s_g).to(g.dtype)
+        return dx.reshape(*g.shape[:-1], -1), None, None
+
+
+def dense_int8(x: torch.Tensor, w_int8: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """W8A8 x @ W: x [..., in] @ {w_int8 [in, out], scale [out]}; dynamic
+    per-row activation quantization, int8 product, f32 rescale."""
+    return _DenseInt8.apply(x, w_int8, scale)
+
+
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """x @ w with w in the JAX [in, out] layout, or an `Int8Weight`
+    (`dense_int8`)."""
+    if isinstance(w, Int8Weight):
+        return dense_int8(x, w.w_int8, w.scale)
     return x @ w
 
 
+def _k_major(q: torch.Tensor) -> torch.Tensor:
+    """The same [..., K, N] values stored with K contiguous.  cuBLASLt runs
+    the int8 product on its fast tensor-core path only when both operands
+    are K-major (`torch._int_mm` on an N-major [K, N] weight is 5-8x slower
+    on the H100: PERF.md); the state_dict still shows the JAX [in, out]
+    shape and values."""
+    return q.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def _quantize(w: torch.Tensor, dim: int):
+    """Symmetric int8 over `dim` (amax / 127, floored at 1e-8), f32 math."""
+    wf = w.detach().float()
+    scale = (wf.abs().amax(dim=dim) / 127.0).clamp_min(1e-8)
+    q = torch.clamp(torch.round(wf / scale.unsqueeze(dim)), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_dense_int8(w: torch.Tensor) -> Int8Weight:
+    """[in, out] float -> Int8Weight with per-output-channel scales."""
+    q, scale = _quantize(w, 0)
+    return Int8Weight(_k_major(q), scale)
+
+
+def quantize_head_int8(w: torch.Tensor) -> Int8Weight:
+    """[V, D] head/embedding-layout weight -> Int8Weight {'w_int8' [V, D],
+    'scale' [V]} with per-vocab-row scales (the layout the vocab-chunked
+    losses stream; a [V, D] row-major head is K-major as h @ W^T)."""
+    q, scale = _quantize(w, 1)
+    return Int8Weight(q, scale)
+
+
+def quantize_experts_int8(experts: nn.Module) -> nn.Module:
+    """Stacked expert weights {name: [E, in, out]} -> a group of
+    Int8Weights with per-(expert, output-channel) scales [E, out]."""
+    out = ParamGroup()
+    for name, w in experts.named_parameters(recurse=False):
+        q, scale = _quantize(w, 1)
+        out.add_module(name, Int8Weight(_k_major(q), scale))
+    return out
+
+
+def _replace(group: nn.Module, name: str, w) -> None:
+    """Swap a group's float parameter `name` for `w` (the float tensor is
+    dropped here, so a layer quantized in place frees its float weights)."""
+    if name in group._parameters:
+        del group._parameters[name]
+    setattr(group, name, w)
+
+
+def _float(group: nn.Module, name: str) -> bool:
+    return name in group._parameters
+
+
+def quantize_decoder_int8(model: "Decoder", include_lm_head: bool = False,
+                          include_experts: bool = False,
+                          include_embed: bool = False,
+                          include_mlp: bool = True,
+                          fuse: bool = True) -> "Decoder":
+    """Quantize every layer's attention/MLP weights to int8 IN PLACE, one
+    layer at a time (each float weight is dropped as its int8 form
+    arrives), and return the module; the JAX counterpart (decoder.py:363)
+    returns a new tree with the same paths.  Embedding and norms stay float.
+
+      * include_lm_head: the output head too (per-vocab-row scales); a
+        tied model gains an int8 `lm_head` copy, which `lm_head_weight`
+        then prefers, and keeps its float embedding for the lookup;
+      * include_embed: the embedding table (dequantized on gather);
+      * include_experts: the stacked MoE experts and the residual MLP;
+      * include_mlp=False: the attention projections only;
+      * fuse: wq|wk|wv -> 'wqkv' and gate|up -> 'gate_up', one activation
+        quantization and one wide int8 product each (forward bit-identical
+        to the unfused layout).
+
+    A weight that is already int8 is left as it is, so a second call
+    changes nothing."""
+    with torch.no_grad():
+        if include_lm_head and not isinstance(lm_head_weight(model),
+                                              Int8Weight):
+            head = quantize_head_int8(lm_head_weight(model))
+            if not hasattr(model, "lm_head"):
+                model.lm_head = ParamGroup()
+            _replace(model.lm_head, "weight", head)
+        if include_embed and _float(model.embed, "embedding"):
+            w_e = model.embed.embedding
+            q = quantize_head_int8(w_e)
+            _replace(model.embed, "embedding", Int8Weight(
+                q.w_int8, q.scale, torch.zeros((0,), dtype=w_e.dtype,
+                                               device=w_e.device)))
+        for layer in model.layers:
+            _quantize_layer(layer, include_mlp, include_experts, fuse)
+    return model
+
+
+def _quantize_layer(layer: "DecoderLayer", include_mlp: bool,
+                    include_experts: bool, fuse: bool) -> None:
+    attn = layer.attn
+    if fuse and all(_float(attn, k) for k in ("wq", "wk", "wv")):
+        wqkv = torch.cat([attn.wq, attn.wk, attn.wv], dim=1)
+        for k in ("wq", "wk", "wv"):
+            del attn._parameters[k]
+        attn.wqkv = quantize_dense_int8(wqkv)
+        del wqkv
+    for k in ("wq", "wk", "wv", "wo"):
+        if _float(attn, k):
+            _replace(attn, k, quantize_dense_int8(getattr(attn, k)))
+    mlp = layer.mlp
+    if include_mlp and not layer.is_moe:
+        if (fuse and _float(mlp, "gate") and _float(mlp, "up")
+                and mlp.gate.shape == mlp.up.shape):
+            gate_up = torch.cat([mlp.gate, mlp.up], dim=1)
+            del mlp._parameters["gate"], mlp._parameters["up"]
+            mlp.gate_up = quantize_dense_int8(gate_up)
+            del gate_up
+        for k in ("gate", "up", "down"):
+            if _float(mlp, k):
+                _replace(mlp, k, quantize_dense_int8(getattr(mlp, k)))
+    if include_experts and layer.is_moe:
+        if hasattr(mlp, "residual_mlp"):
+            for k in ("gate", "up", "down"):
+                if _float(mlp.residual_mlp, k):
+                    _replace(mlp.residual_mlp, k, quantize_dense_int8(
+                        getattr(mlp.residual_mlp, k)))
+        if any(True for _ in mlp.experts.parameters(recurse=False)):
+            mlp.experts = quantize_experts_int8(mlp.experts)
+
+
 def mlp_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
-    up = dense(x, p.up)
-    if cfg.mlp_bias:
-        up = up + p.up_bias
-    if cfg.gated_mlp:
-        h = _activation(cfg, dense(x, p.gate)) * up
+    if hasattr(p, "gate_up"):
+        # fused int8 gate|up (quantize_decoder_int8 fuse=True)
+        gu = dense(x, p.gate_up)
+        f = gu.shape[-1] // 2
+        up = gu[..., f:]
+        if cfg.mlp_bias:
+            up = up + p.up_bias
+        h = _activation(cfg, gu[..., :f]) * up
     else:
-        h = _activation(cfg, up)
+        up = dense(x, p.up)
+        if cfg.mlp_bias:
+            up = up + p.up_bias
+        if cfg.gated_mlp:
+            h = _activation(cfg, dense(x, p.gate)) * up
+        else:
+            h = _activation(cfg, up)
     out = dense(h, p.down)
     if cfg.mlp_bias:
         out = out + p.down_bias
     return out
 
 
+class _ExpertDenseInt8(torch.autograd.Function):
+    """Per-expert W8A8 product with the straight-through dL/dx.  There is
+    no batched int8 GEMM in the library, so it loops over the experts."""
+
+    @staticmethod
+    def forward(ctx, xe, w_int8, scale):
+        xq, s_x = act_quant_rows(xe)
+        y = torch.stack([int8_matmul(xq[e], w_int8[e])
+                         for e in range(xe.shape[0])])
+        ctx.save_for_backward(w_int8, scale)
+        return (y.float() * s_x * scale.float()[:, None, :]).to(xe.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_int8, scale = ctx.saved_tensors
+        gq, s_g = act_quant_rows(g.float() * scale.float()[:, None, :])
+        dx = torch.stack([int8_matmul(gq[e], w_int8[e].t())
+                          for e in range(g.shape[0])])
+        return (dx.float() * s_g).to(g.dtype), None, None
+
+
+def expert_dense_int8(xe: torch.Tensor, w_int8: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """W8A8 per-expert matmul: xe [E, C, D] @ {w_int8 [E, D, F], scale
+    [E, F]} with the straight-through dL/dx (see dense_int8)."""
+    return _ExpertDenseInt8.apply(xe, w_int8, scale)
+
+
+def _expert_dense(xe: torch.Tensor, w) -> torch.Tensor:
+    """xe [E, C, D] @ w [E, D, F] (float, or an Int8Weight) -> [E, C, F]."""
+    if isinstance(w, Int8Weight):
+        return expert_dense_int8(xe, w.w_int8, w.scale)
+    return torch.bmm(xe, w)
+
+
 def _expert_mlp(cfg: DecoderConfig, experts: ParamGroup,
                 xe: torch.Tensor) -> torch.Tensor:
     """xe: [E, C, D] -> [E, C, D]; expert weights carry a leading E axis."""
-    up = torch.bmm(xe, experts.up)
+    up = _expert_dense(xe, experts.up)
     if cfg.gated_mlp:
-        h = _activation(cfg, torch.bmm(xe, experts.gate)) * up
+        h = _activation(cfg, _expert_dense(xe, experts.gate)) * up
     else:
         h = _activation(cfg, up)
-    return torch.bmm(h, experts.down)
+    return _expert_dense(h, experts.down)
 
 
 def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
@@ -281,7 +500,13 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
     b, t, d = x.shape
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q, k, v = dense(x, p.wq), dense(x, p.wk), dense(x, p.wv)
+    if hasattr(p, "wqkv"):
+        # fused int8 projection (quantize_decoder_int8 fuse=True): one
+        # activation quantization and one wide int8 product for q|k|v
+        qkv = dense(x, p.wqkv)
+        q, k, v = qkv.split([h * dh, kh * dh, kh * dh], dim=-1)
+    else:
+        q, k, v = dense(x, p.wq), dense(x, p.wk), dense(x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, t, h, dh)
@@ -544,14 +769,24 @@ def forward(
 
 def embed(model: Decoder, cfg: DecoderConfig,
           input_ids: torch.Tensor) -> torch.Tensor:
-    e = model.embed.embedding[input_ids.long()]
+    w = model.embed.embedding
+    ids = input_ids.long()
+    if isinstance(w, Int8Weight):
+        # int8 table (per-row scales): gather the int8 rows and their
+        # scales, dequantize to the dtype `dtype_ref` carries
+        tgt = w.dtype_ref.dtype if hasattr(w, "dtype_ref") else torch.bfloat16
+        e = (w.w_int8[ids].float() * w.scale[ids][..., None]).to(tgt)
+    else:
+        e = w[ids]
     if cfg.embed_scale is not None:
         e = (e.float() * cfg.embed_scale).to(e.dtype)
     return e
 
 
 def lm_head_weight(model: Decoder, cfg: Optional[DecoderConfig] = None):
-    """[V, D] output-projection weight (tied embedding or separate head)."""
+    """[V, D] output-projection weight (tied embedding or separate head),
+    or its Int8Weight.  An explicit `lm_head` wins even for tied models
+    (that is where the int8 copy of a tied head lives)."""
     if hasattr(model, "lm_head"):
         return model.lm_head.weight
     return model.embed.embedding
@@ -566,7 +801,14 @@ def logits_from_hidden(model: Decoder, cfg: DecoderConfig,
     if cfg.logit_scale is not None:
         hidden = hidden * cfg.logit_scale
     b, t, d = hidden.shape
-    logits = matmul_f32_out(hidden.reshape(b * t, d), w).reshape(b, t, -1)
+    h = hidden.reshape(b * t, d)
+    if isinstance(w, Int8Weight):
+        # int8 head: dynamic per-row activation quantization, int8 product
+        hq, s_h = act_quant_rows(h)
+        logits = int8_matmul(hq, w.w_int8.t()).float() * s_h * w.scale[None, :]
+    else:
+        logits = matmul_f32_out(h, w)
+    logits = logits.reshape(b, t, -1)
     if hasattr(model, "lm_head") and hasattr(model.lm_head, "bias"):
         logits = logits + model.lm_head.bias.float()
     if cfg.final_logit_softcap is not None:

@@ -7,7 +7,9 @@ and dtype; a torch.Generator stands in for the JAX key (the two give
 different numbers from one seed, so parity tests load JAX weights instead).
 Parameters are built trainable, the frozen vision tower excepted; a
 training step freezes the rest of what its train set leaves out
-(llavamod_tpu_torch/train/optim.py `apply_trainable_mask`).
+(llavamod_tpu_torch/train/optim.py `apply_trainable_mask`).  An
+`Int8Weight` takes the place of a float weight that the int8 quantizers
+(models/llm/decoder.py) replaced.
 """
 
 from __future__ import annotations
@@ -21,6 +23,35 @@ class ParamGroup(nn.Module):
         super().__init__()
         for name, t in tensors.items():
             self.register_parameter(name, nn.Parameter(t))
+
+
+class Int8Weight(nn.Module):
+    """An int8-quantized weight, the JAX dict {'w_int8', 'scale'} (plus
+    'dtype_ref' for the int8 embedding; llavamod_tpu/models/llm/decoder.py
+    `quantize_dense_int8`, `quantize_head_int8`, `quantize_experts_int8`).
+
+    Its tensors are buffers, not parameters: the optimizer, the trainable
+    mask and the compute-dtype cast (train/steps.py `_cast_tree`) see only
+    parameters, so a quantized weight is frozen by construction, as the
+    JAX int leaves take float0 cotangents.  `scale` stays f32 through
+    `.to(dtype)`: the JAX `_cast_tree` exempts it, since it multiplies the
+    int32 accumulators.  `dtype_ref` is a zero-size tensor carrying the
+    activation dtype that the int8 embedding dequantizes to."""
+
+    def __init__(self, w_int8: torch.Tensor, scale: torch.Tensor,
+                 dtype_ref: "torch.Tensor | None" = None):
+        super().__init__()
+        self.register_buffer("w_int8", w_int8)
+        self.register_buffer("scale", scale.float())
+        if dtype_ref is not None:
+            self.register_buffer("dtype_ref", dtype_ref)
+
+    def _apply(self, fn, recurse=True):
+        scale = self.scale
+        super()._apply(fn, recurse)
+        if self.scale.dtype != torch.float32:
+            self.scale = scale.to(self.scale.device, torch.float32)
+        return self
 
 
 class Initializer:

@@ -11,11 +11,19 @@ Same HTTP surface as the JAX package:
   * GET  /stats        -> batching counters (requests, batches, histogram)
 
 Requests queue up; a single batcher thread drains up to --max-batch of
-them every --batch-window seconds, pads the batch up to a power-of-two
-bucket, runs the batched cached decode (llavamod_tpu_torch.generation) on
-the runner's device, and fans the texts back out.  Prompt length is padded
-to --max-prompt-len, decode length to the largest max_new_tokens in the
-batch (each request is trimmed to its own limit host-side).
+them every --batch-window seconds, splits them into one batch per distinct
+(temperature, top_p), pads each batch up to a power-of-two bucket, runs the
+batched cached decode (llavamod_tpu_torch.generation) on the runner's
+device, and fans the texts back out.  Prompt length is padded to
+--max-prompt-len, decode length to the largest max_new_tokens in the batch
+(each request is trimmed to its own limit host-side); a response ends at
+the template's stop string or the tokenizer's EOS (the runner's
+`stopping`, as in the JAX package's eval runner).  `--quant int8` serves
+the int8 W8A8 form of the model (models/builder.py `quantize_for_serving`).
+
+Two differences from the JAX server, whose batcher ignores both: it stops
+at the template's stop strings, and it honours each request's
+`temperature` and `top_p`.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -41,14 +49,15 @@ def _bucket(n: int, max_batch: int) -> int:
 
 
 class _Request:
-    __slots__ = ("prompt", "image", "max_new_tokens", "event", "result",
-                 "error", "rid", "stream", "chunks")
+    __slots__ = ("prompt", "image", "max_new_tokens", "sampling", "event",
+                 "result", "error", "rid", "stream", "chunks")
 
     def __init__(self, prompt: str, image, max_new_tokens: int,
-                 stream: bool = False):
+                 sampling: Tuple[float, float], stream: bool = False):
         self.prompt = prompt
         self.image = image                    # preprocessed array or None
         self.max_new_tokens = max_new_tokens
+        self.sampling = sampling              # (temperature, top_p)
         self.event = threading.Event()
         self.result: Optional[Dict[str, Any]] = None
         self.error: Optional[str] = None
@@ -72,7 +81,7 @@ class BatchingEngine:
         self.batch_window = batch_window
         self.default_max_new = default_max_new
         self.stream_chunk = stream_chunk
-        self._gcfg_base = dict(temperature=temperature, top_p=top_p)
+        self._default_sampling = (temperature, top_p)
         self._gcfg_cls = GenerationConfig
         self._q: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
@@ -103,10 +112,18 @@ class BatchingEngine:
             h[str(bucket)] = h.get(str(bucket), 0) + 1
 
     # -- client side ------------------------------------------------------
+    def _sampling(self, temperature: Optional[float],
+                  top_p: Optional[float]) -> Tuple[float, float]:
+        t, p = self._default_sampling
+        return (t if temperature is None else float(temperature),
+                p if top_p is None else float(top_p))
+
     def submit(self, prompt: str, image, max_new_tokens: Optional[int],
-               timeout: float = 300.0) -> Dict[str, Any]:
+               timeout: float = 300.0, temperature: Optional[float] = None,
+               top_p: Optional[float] = None) -> Dict[str, Any]:
         req = _Request(prompt, image,
-                       max_new_tokens or self.default_max_new)
+                       max_new_tokens or self.default_max_new,
+                       self._sampling(temperature, top_p))
         self._count_request()
         self._q.put(req)
         if not req.event.wait(timeout):
@@ -117,12 +134,15 @@ class BatchingEngine:
         return req.result
 
     def submit_stream(self, prompt: str, image,
-                      max_new_tokens: Optional[int]) -> _Request:
+                      max_new_tokens: Optional[int],
+                      temperature: Optional[float] = None,
+                      top_p: Optional[float] = None) -> _Request:
         """Enqueue a STREAMING request and return it immediately; consume
         text deltas from `req.chunks` (None = done, then read req.result /
         req.error)."""
         req = _Request(prompt, image,
-                       max_new_tokens or self.default_max_new, stream=True)
+                       max_new_tokens or self.default_max_new,
+                       self._sampling(temperature, top_p), stream=True)
         self._count_request()
         self._q.put(req)
         return req
@@ -152,17 +172,22 @@ class BatchingEngine:
 
     def _loop(self):
         while not self._stop.is_set():
-            batch = self._drain()
-            if not batch:
-                continue
-            try:
-                self._run_batch(batch)
-            except Exception as exc:  # noqa: BLE001 — fan the error out
-                for r in batch:
-                    r.error = f"{type(exc).__name__}: {exc}"
-                    r.event.set()
-                    if r.stream:
-                        r.chunks.put(None)
+            drained = self._drain()
+            groups: Dict[Tuple[float, float], List[_Request]] = {}
+            for r in drained:
+                groups.setdefault(r.sampling, []).append(r)
+            for batch in groups.values():
+                self._serve(batch)
+
+    def _serve(self, batch: List[_Request]) -> None:
+        try:
+            self._run_batch(batch)
+        except Exception as exc:  # noqa: BLE001 — fan the error out
+            for r in batch:
+                r.error = f"{type(exc).__name__}: {exc}"
+                r.event.set()
+                if r.stream:
+                    r.chunks.put(None)
 
     def _run_batch(self, reqs: List[_Request]):
         from llavamod_tpu_torch.generation import decode_texts, generate
@@ -180,12 +205,13 @@ class BatchingEngine:
             images.append(images[0])
         enc = self.runner._encode_batch(prompts, images)
         max_new = max(r.max_new_tokens for r in reqs)
-        eos = self.runner.tokenizer.eos_token_id
+        eos_ids, stop_seqs = self.runner.stopping()
+        temperature, top_p = reqs[0].sampling     # one per batch (_loop)
         gcfg = self._gcfg_cls(
             max_new_tokens=max_new,
             pad_token_id=self.runner.tokenizer.pad_token_id or 0,
-            eos_token_ids=(eos,) if eos is not None else (),
-            **self._gcfg_base)
+            eos_token_ids=eos_ids, stop_sequences=stop_seqs,
+            temperature=temperature, top_p=top_p)
         import numpy as np
 
         if any(r.stream for r in reqs):
@@ -244,15 +270,24 @@ class BatchingEngine:
 
 
 def build_engine(model_path: str, *, device: str = "cuda",
-                 conv_mode: str = "qwen", max_batch: int = 8,
-                 batch_window: float = 0.02, max_prompt_len: int = 1024,
-                 temperature: float = 0.0,
+                 conv_mode: str = "qwen", quant: str = "",
+                 max_batch: int = 8, batch_window: float = 0.02,
+                 max_prompt_len: int = 1024, temperature: float = 0.0,
                  default_max_new: int = 128) -> BatchingEngine:
+    """A BatchingEngine over the native checkpoint at `model_path`;
+    quant='int8' serves its int8 W8A8 form."""
     from llavamod_tpu_torch.eval.generate import VQARunner
-    from llavamod_tpu_torch.models.builder import load_pretrained_model
+    from llavamod_tpu_torch.models.builder import (
+        load_pretrained_model,
+        quantize_for_serving,
+    )
 
+    if quant not in ("", "int8"):
+        raise ValueError(f"quant must be '' or 'int8', got {quant!r}")
     tokenizer, model, cfg, preproc, _ = load_pretrained_model(
         model_path, device=device)
+    if quant == "int8":
+        model = quantize_for_serving(model)
     runner = VQARunner(model=model, tokenizer=tokenizer,
                        image_preprocessor=preproc,
                        template_name=conv_mode,
@@ -283,10 +318,10 @@ def make_handler(engine: BatchingEngine, model_name: str):
                 return self._json(200, engine.stats_snapshot())
             return self._json(404, {"error": "not found"})
 
-        def _stream(self, full_prompt, img, max_new):
+        def _stream(self, full_prompt, img, max_new, sampling):
             """Server-sent events: data: {"delta": ...} per text chunk,
             then data: {"done": true, ...final result...}, then [DONE]."""
-            req = engine.submit_stream(full_prompt, img, max_new)
+            req = engine.submit_stream(full_prompt, img, max_new, **sampling)
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -323,11 +358,15 @@ def make_handler(engine: BatchingEngine, model_name: str):
                     pil = Image.open(io.BytesIO(raw)).convert("RGB")
                     img = engine.runner.image_preprocessor(pil)
                 full = engine.runner.build_prompt(prompt, img is not None)
+                sampling = {k: payload.get(k)
+                            for k in ("temperature", "top_p")}
                 if payload.get("stream"):
                     return self._stream(full, img,
-                                        payload.get("max_new_tokens"))
+                                        payload.get("max_new_tokens"),
+                                        sampling)
                 out = engine.submit(full, img,
-                                    payload.get("max_new_tokens"))
+                                    payload.get("max_new_tokens"),
+                                    **sampling)
                 return self._json(200, out)
             except (KeyError, ValueError, json.JSONDecodeError) as exc:
                 return self._json(400, {"error": str(exc)})
@@ -350,11 +389,14 @@ def main(argv=None):
     ap.add_argument("--max-prompt-len", type=int, default=1024)
     ap.add_argument("--max-new-tokens", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--quant", default="", choices=["", "int8"],
+                    help="int8-W8A8 serving quantization")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     engine = build_engine(
         args.model_path, device=args.device, conv_mode=args.conv_mode,
+        quant=args.quant,
         max_batch=args.max_batch, batch_window=args.batch_window,
         max_prompt_len=args.max_prompt_len, temperature=args.temperature,
         default_max_new=args.max_new_tokens)

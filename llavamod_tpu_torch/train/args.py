@@ -9,7 +9,10 @@ NotImplementedError on them, naming the ROADMAP item that ports them.
 `parse_into_dataclasses` is a small HfArgumentParser equivalent: every
 dataclass field becomes a `--flag`; bools accept true/false; List fields
 accept repeated values; `--config` JSON fills only the flags the command
-line left at their defaults.
+line did not give.  That is the one difference from the JAX parser, which
+fills every flag whose value equals its default, so that there
+`--ref_quant ""` cannot undo a config's `int8_head` although its help says
+the command line overrides the config.
 """
 
 from __future__ import annotations
@@ -140,8 +143,8 @@ class AlignArgs:
     ref_pretrain_mm_mlp_adapter: Optional[str] = None
     moe_loss_enable: bool = False
     kd_vocab_limit: Optional[int] = None
-    # int8 W8A8 teacher, student head and body and their loss modes:
-    # ROADMAP Queue 1, item 3
+    # int8 W8A8 teacher, student head and body and their loss modes
+    # (train/run.py `quantize_stage_models`, ops/losses.py)
     ref_quant: str = ""                 # '' | 'int8' | 'int8_head'
     policy_head_quant: bool = False
     policy_body_quant: bool = False
@@ -160,7 +163,7 @@ class DPOArgs:
     moe_loss_enable: bool = False
     dpo_beta: float = 0.1
     dpo_label_smoothing: float = 0.0
-    ref_quant: str = ""                 # int8: ROADMAP Queue 1, item 3
+    ref_quant: str = ""                 # '' | 'int8' | 'int8_head' (W8A8 ref)
 
 
 def _str2bool(v: str) -> bool:
@@ -173,12 +176,15 @@ def _str2bool(v: str) -> bool:
     raise argparse.ArgumentTypeError(f"boolean value expected, got {v!r}")
 
 
-def _add_dataclass_args(parser: argparse.ArgumentParser, cls: Type) -> None:
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls: Type,
+                        suppress: bool = False) -> None:
     group = parser.add_argument_group(cls.__name__)
     for f in dataclasses.fields(cls):
         name = "--" + f.name
         default = (f.default_factory() if f.default_factory
                    is not dataclasses.MISSING else f.default)
+        if suppress:
+            default = argparse.SUPPRESS
         ann = str(f.type)   # annotation strings (from __future__ annotations)
         if "bool" in ann:
             group.add_argument(name, type=_str2bool, default=default)
@@ -194,25 +200,32 @@ def _add_dataclass_args(parser: argparse.ArgumentParser, cls: Type) -> None:
             group.add_argument(name, type=str, default=default)
 
 
-def parse_into_dataclasses(classes: Sequence[Type],
-                           argv: Optional[Sequence[str]] = None,
-                           prog: str = "llavamod_tpu_torch.train") -> Tuple:
+def _parser(classes: Sequence[Type], prog: str,
+            suppress: bool = False) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog=prog)
     parser.add_argument("--config", type=str, default=None,
                         help="JSON file of flag defaults (CLI overrides it)")
     for cls in classes:
-        _add_dataclass_args(parser, cls)
-    ns, unknown = parser.parse_known_args(argv)
+        _add_dataclass_args(parser, cls, suppress)
+    return parser
+
+
+def parse_into_dataclasses(classes: Sequence[Type],
+                           argv: Optional[Sequence[str]] = None,
+                           prog: str = "llavamod_tpu_torch.train") -> Tuple:
+    ns, unknown = _parser(classes, prog).parse_known_args(argv)
     if unknown:
         raise SystemExit(f"unknown arguments: {unknown}")
     values = vars(ns)
     if ns.config:
         with open(ns.config) as fh:
             overrides = json.load(fh)
-        # the config file fills only flags the CLI left at their defaults
-        defaults = {a.dest: a.default for a in parser._actions}
+        # the config file fills only the flags the command line did not
+        # give: a second parse without defaults names those it did
+        given = vars(_parser(classes, prog, suppress=True)
+                     .parse_known_args(argv)[0])
         for k, v in overrides.items():
-            if k in values and values[k] == defaults.get(k):
+            if k in values and k not in given:
                 values[k] = v
     return tuple(cls(**{f.name: values[f.name] for f in dataclasses.fields(cls)})
                  for cls in classes)

@@ -3,8 +3,8 @@
 Re-declared with the same fields and defaults as the JAX dataclass
 (tests/test_torch_config.py holds them field by field), so a recipe reads
 the same in both packages.  Fields of JAX-only mechanisms (the fused
-backward step, the int8 heads and bodies, Adafactor, accumulation) are kept
-for that reason; the port's steps raise on the ones they do not run yet.
+backward step, Adafactor) are kept for that reason; the port's steps raise
+on the ones they do not run yet.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class TrainConfig:
     vocab_chunk: int = 2048
     attn_impl: str = "auto"                    # auto | flash | xla
     share_vision_tower: bool = True            # one frozen tower per step
-    student_head_quant: bool = False           # int8 heads: not ported yet
+    student_head_quant: bool = False           # int8 frozen student head
     kd_int8_dh: bool = False
     kd_stream_dh: bool = False
     student_body_quant: bool = False

@@ -31,6 +31,7 @@ updates), periodic `checkpoint-<step>/`, the final model
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -87,21 +88,13 @@ def _not_ported(what: str, item: int):
                                f"item {item})")
 
 
-def refuse_unported(margs: ModelArgs, targs: TrainArgs,
-                    stage_args=None) -> None:
+def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
     """Raise on every option of the JAX engine that the port does not run
     yet, before anything is built."""
     if margs.lora_enable:
         raise _not_ported("LoRA (--lora_enable)", 6)
     if margs.video_tower or margs.s2:
         raise _not_ported("video frames and S2 (--video_tower, --s2)", 6)
-    if stage_args is not None:
-        if getattr(stage_args, "ref_quant", ""):
-            raise _not_ported("the int8 W8A8 reference (--ref_quant)", 3)
-        for flag in ("policy_head_quant", "policy_body_quant", "kd_int8_dh",
-                     "kd_stream_dh"):
-            if getattr(stage_args, flag, False):
-                raise _not_ported(f"--{flag}", 3)
     if targs.fused_update:
         raise _not_ported("--fused_update", 4)
     if targs.optimizer != "adamw":
@@ -318,6 +311,89 @@ def _prune_checkpoints(output_dir: str, keep: int):
         shutil.rmtree(path, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# int8 W8A8 options
+# ---------------------------------------------------------------------------
+
+def quantize_stage_models(tcfg: TrainConfig, stage_args, model,
+                          teacher) -> Dict[str, Any]:
+    """Apply the stage's int8 options in place (JAX run.py:521-600):
+
+      * `ref_quant` int8 / int8_head: the teacher's (stage 3: the
+        reference's) LLM to W8A8, with its head for int8_head.  The layers
+        are quantized one at a time on the device, each float layer
+        dropped as its int8 form arrives;
+      * student_head_quant (--policy_head_quant) with an explicit student
+        head: the frozen head to int8 once; the float head is kept on the
+        host for the checkpoint (a tied head is quantized per step
+        instead, train/steps.py);
+      * student_body_quant (--policy_body_quant): only routers may train
+        among the decoder layers (checked on the actual trainable mask);
+        the body, experts included, to int8; the float layers are kept on
+        the host.
+
+    Returns the host stash that `restore_float_weights` puts back."""
+    from llavamod_tpu_torch.models.llm.decoder import (
+        quantize_decoder_int8,
+        quantize_head_int8,
+    )
+    from llavamod_tpu_torch.models.params import Int8Weight
+    from llavamod_tpu_torch.train.optim import trainable_mask
+
+    stash: Dict[str, Any] = {}
+    rq = getattr(stage_args, "ref_quant", "") if stage_args else ""
+    if rq not in ("", "int8", "int8_head"):
+        raise ValueError(f"--ref_quant must be '', 'int8' or 'int8_head'; "
+                         f"got {rq!r}")
+    if teacher is not None and rq:
+        quantize_decoder_int8(teacher.llm, include_lm_head=rq == "int8_head")
+        rank0_print("[build] teacher attention/MLP quantized to int8 (W8A8)"
+                    + (" + int8 LM head" if rq == "int8_head" else ""))
+    llm = model.llm
+    if (tcfg.student_head_quant and hasattr(llm, "lm_head")
+            and not isinstance(llm.lm_head.weight, Int8Weight)):
+        with torch.no_grad():
+            stash["head"] = llm.lm_head.weight.detach().to("cpu", copy=True)
+            head = quantize_head_int8(llm.lm_head.weight)
+        del llm.lm_head._parameters["weight"]
+        llm.lm_head.weight = head
+        rank0_print("[build] student LM head pre-quantized to int8 "
+                    "(frozen-head recipe; float head kept on the host)")
+    if tcfg.student_body_quant:
+        mask = trainable_mask(model, tcfg)
+        bad = [n for n, t in mask.items()
+               if t and n.startswith("llm.layers.") and "router" not in n]
+        if bad:
+            raise ValueError(
+                "--policy_body_quant needs every decoder weight except the "
+                f"router frozen via --train_modules; trainable: {bad[:4]}")
+        stash["layers"] = [copy.deepcopy(layer).to("cpu")
+                           for layer in llm.layers]
+        quantize_decoder_int8(llm, include_experts=True)
+        rank0_print("[build] student body quantized to int8 W8A8 (frozen "
+                    "attn/MLP/experts; the straight-through backward "
+                    "carries router gradients; float body kept on the host)")
+    return stash
+
+
+def restore_float_weights(model, stash: Dict[str, Any]) -> None:
+    """Put the float head and body back for the export (the int8 copies
+    were training-time stand-ins that never moved), grafting in the routers
+    that did train."""
+    from torch import nn
+
+    llm = model.llm
+    device = llm.final_norm.weight.device
+    if "head" in stash:
+        llm.lm_head.weight = nn.Parameter(stash["head"].to(device),
+                                          requires_grad=False)
+    for i, layer in enumerate(stash.get("layers", ())):
+        layer = layer.to(device)
+        if layer.is_moe:
+            layer.mlp.router = llm.layers[i].mlp.router
+        llm.layers[i] = layer
+
+
 def final_save(output_dir: str, cfg, state, tcfg: TrainConfig):
     """The full model (llavamod_config.json + model.pt); stage 1 also
     exports mm_projector.bin (reference train.py:535-557)."""
@@ -396,7 +472,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     )
 
     assert stage in ("pretrain", "finetune", "align", "dpo"), stage
-    refuse_unported(margs, targs, salign or sdpo)
+    refuse_unported(margs, targs)
     t_build = time.perf_counter()
     if tokenizer is None:
         tokenizer = load_tokenizer(margs)
@@ -420,6 +496,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
             and hasattr(teacher, "vision"):
         # the frozen tower is shared with the teacher: drop its own copy
         del teacher.vision
+    float_stash = quantize_stage_models(tcfg, salign or sdpo, model, teacher)
 
     # (prestack_layers has no effect: the JAX package pre-stacks the layer
     # trees for its lax.scan layer loop, a TPU workaround the port does not
@@ -497,6 +574,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     loop_s = time.perf_counter() - t_loop - save_s
 
     t_save = time.perf_counter()
+    restore_float_weights(state.model, float_stash)
     final_save(targs.output_dir, cfg, state, tcfg)
     save_s += time.perf_counter() - t_save
     info = {"stage": stage, "build_and_load_s": build_s, "loop_s": loop_s,

@@ -30,6 +30,8 @@ from torch import nn
 
 from llavamod_tpu_torch.models import llava
 from llavamod_tpu_torch.models.llava import LlavaConfig, MultimodalBatch
+from llavamod_tpu_torch.models.llm.decoder import quantize_head_int8
+from llavamod_tpu_torch.models.params import Int8Weight
 from llavamod_tpu_torch.ops.losses import (
     dpo_loss,
     kd_align_loss,
@@ -89,15 +91,19 @@ def _stop_frozen(model: nn.Module, tcfg: TrainConfig, lora_cfg=None):
 
 def _student_forward(model, cfg: LlavaConfig, batch: MultimodalBatch,
                      tcfg: TrainConfig, tower_feats=None):
-    """Inside `_cast_tree`: (LlavaOutput, head weight) of the student."""
-    if tcfg.student_head_quant or tcfg.student_body_quant:
-        raise NotImplementedError("int8 student heads and bodies are not "
-                                  "ported yet (ROADMAP Queue 1, item 3)")
+    """Inside `_cast_tree`: (LlavaOutput, head weight) of the student.  An
+    int8 body (student_body_quant) was quantized when the stage was built
+    (train/run.py); with student_head_quant, a head still in float (a tied
+    model's embedding) is quantized here each step, without a gradient."""
     dtype = _DTYPES[tcfg.compute_dtype]
     cbatch = batch._replace(pixels=batch.pixels.to(dtype))
     out = llava.forward(model, cfg, cbatch, train=True, remat=tcfg.remat,
                         attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
-    return out, llava.lm_head_weight(model, cfg)
+    w_head = llava.lm_head_weight(model, cfg)
+    if tcfg.student_head_quant and not isinstance(w_head, Int8Weight):
+        with torch.no_grad():
+            w_head = quantize_head_int8(w_head)
+    return out, w_head
 
 
 def _can_share_tower(tcfg: TrainConfig, a: LlavaConfig, b: LlavaConfig) -> bool:
@@ -198,12 +204,13 @@ def _apply_update(state: TrainState, metrics: Metrics):
     return state._replace(step=state.step + 1), metrics
 
 
-def _head_frozen(w_head: torch.Tensor) -> bool:
-    """The head the loss is handed takes no gradient.  Decided from the
-    leaf itself, not from the config: the JAX `_head_weight_frozen` derives
-    the head's path from tie_word_embeddings while `lm_head_weight` prefers
-    an explicit lm_head leaf (ROADMAP Queue 3)."""
-    return not w_head.requires_grad
+def _head_frozen(w_head) -> bool:
+    """The head the loss is handed takes no gradient (an Int8Weight never
+    does).  Decided from the leaf itself, not from the config: the JAX
+    `_head_weight_frozen` derives the head's path from tie_word_embeddings
+    while `lm_head_weight` prefers an explicit lm_head leaf (ROADMAP Queue
+    3)."""
+    return isinstance(w_head, Int8Weight) or not w_head.requires_grad
 
 
 # ---------------------------------------------------------------------------

@@ -111,3 +111,37 @@ def test_builder_config_roundtrip_reads_the_jax_file(tmp_path):
     d = json.loads(json.dumps(jto_dict(j)))
     t = config_from_dict(d)
     assert config_to_dict(t) == jto_dict(j)
+
+
+@pytest.mark.parametrize("argv,differs", [
+    (["--ref_quant", "", "--policy_head_quant", "false"],
+     {"ref_quant": ("", "int8_head"), "policy_head_quant": (False, True)}),
+    (["--gradient_accumulation_steps", "1", "--learning_rate", "2e-05"],
+     {"gradient_accumulation_steps": (1, 8)}),
+    (["--max_steps", "7", "--train_modules", "wg"], {}),
+    ([], {}),
+], ids=["undo-int8", "default-valued", "non-default", "config-only"])
+def test_command_line_flags_win_over_the_config(argv, differs):
+    """The port's parser lets every flag the command line gives win over
+    --config; the JAX parser lets the config overwrite a flag whose value
+    equals its default.  That is the one difference: every other field
+    parses the same."""
+    import os
+
+    from llavamod_tpu.train import args as jargs
+    from llavamod_tpu_torch.train import args as targs
+
+    config = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "dense2sparse_qwen2_0_5b.json")
+    names = ["ModelArgs", "DataArgs", "TrainArgs", "AlignArgs"]
+    full = ["--config", config] + argv
+    got = targs.parse_into_dataclasses([getattr(targs, n) for n in names],
+                                       full)
+    want = jargs.parse_into_dataclasses([getattr(jargs, n) for n in names],
+                                        full)
+    seen = {}
+    for g, w in zip(got, want):
+        for k, v in vars(w).items():
+            if vars(g)[k] != v:
+                seen[k] = (vars(g)[k], v)
+    assert seen == differs

@@ -309,3 +309,62 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                     requires_grad=True)
     with pytest.raises(TypeError):
         flash_attention(w, w, w, causal=True)           # f32
+
+
+# int8 W8A8 products on the card (llavamod_tpu_torch/ops/int8.py): the
+# library's int8 GEMM, exact, so bitwise equal to the f64 product.
+INT8_SHAPES = {   # name: (M, K, N)
+    "decode_b8_padded": (8, 4096, 12288),
+    "one_row_padded": (1, 2048, 5504),
+    "rows_17": (17, 4096, 12288),
+    "odd_rows": (1001, 2048, 5504),
+    "teacher_down": (2048, 11008, 4096),
+}
+
+
+@pytest.mark.parametrize("layout", ["k_major", "n_major"])
+@pytest.mark.parametrize("case", list(INT8_SHAPES))
+def test_int8_matmul_is_exact_on_the_card(dev, case, layout):
+    from llavamod_tpu_torch.ops.int8 import int8_matmul
+
+    m, k, n = INT8_SHAPES[case]
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+
+    def ri(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    a = ri(m, k)
+    b = ri(n, k).t() if layout == "k_major" else ri(k, n)
+    y = int8_matmul(a, b)
+    assert y.dtype == torch.int32 and y.shape == (m, n)
+    assert torch.equal(y.double(), a.double() @ b.double())
+
+
+def test_int8_matmul_refuses_widths_the_library_refuses(dev):
+    from llavamod_tpu_torch.ops.int8 import int8_matmul
+
+    a = torch.zeros((32, 60), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        int8_matmul(a, torch.zeros((60, 64), dtype=torch.int8, device=dev))
+
+
+def test_int8_dense_on_the_card_matches_the_cpu(dev):
+    """The W8A8 dense, forward and straight-through dx, on the card equals
+    the same function on the CPU: the int8 products are exact on both, the
+    f32 rescale is elementwise."""
+    from llavamod_tpu_torch.models.llm import decoder as tdec
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 8, 2048), generator=g)
+    w = tdec.quantize_dense_int8(torch.randn((2048, 4096), generator=g))
+    gy = torch.randn((4, 8, 4096), generator=g)
+    outs = []
+    for d in ("cpu", dev):
+        wd = tdec.Int8Weight(w.w_int8.to(d), w.scale.to(d))
+        xd = x.detach().to(d).requires_grad_()
+        y = tdec.dense(xd, wd)
+        y.backward(gy.to(d))
+        outs.append((y.detach().cpu(), xd.grad.cpu()))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

@@ -122,6 +122,12 @@ def test_frozen_head_takes_no_gradient_and_int8_modes_wait():
                               chunk=CHUNK)
     (out.kd_loss + out.ce_loss).backward()
     assert th.grad is not None and tw.grad is None
-    with pytest.raises(NotImplementedError):
-        tl.kd_align_loss(th, tw, torch.tensor(h_t), torch.tensor(w_t),
-                         torch.tensor(labels), stream_dh=True)
+    # the int8 modes are ported (tests/test_torch_int8.py); with a float
+    # head they change nothing: stream_dh and int8_dh give the same bits
+    th2 = torch.tensor(h_s, requires_grad=True)
+    out2 = tl.kd_ce_align_loss(th2, tw, torch.tensor(h_t), torch.tensor(w_t),
+                               torch.tensor(labels), vocab_limit=LIMIT,
+                               chunk=CHUNK, stream_dh=True, int8_dh=True)
+    (out2.kd_loss + out2.ce_loss).backward()
+    assert torch.equal(out2.kd_loss, out.kd_loss)
+    assert torch.equal(th2.grad, th.grad) and tw.grad is None

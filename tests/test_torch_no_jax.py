@@ -68,9 +68,10 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
     assert len(_modules()) >= 20
-    # the trainer's modules are among those imported
+    # the trainer's modules and the W8A8 blocks are among those imported
     assert {f"llavamod_tpu_torch.{m}" for m in (
         "train.run", "train.args", "train.checkpoint", "train.sampler",
         "train.loader", "train.train", "train.align_train", "train.dpo_train",
         "data.preprocess", "data.dataset", "data.collator",
-        "runtime.prefetch", "utils.logging", "utils.misc")} <= set(_modules())
+        "runtime.prefetch", "utils.logging", "utils.misc",
+        "ops.int8")} <= set(_modules())

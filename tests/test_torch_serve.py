@@ -212,3 +212,130 @@ def test_build_engine_from_a_native_checkpoint(tmp_path):
         assert engine.runner.device == torch.device("cpu")
     finally:
         engine.shutdown()
+
+
+@pytest.mark.parametrize("template,stop", [("qwen", "<|endoftext|>"),
+                                           ("mpt", "<|im_end|>")])
+def test_responses_end_at_the_template_stop_string(template, stop):
+    """The batcher passes the runner's stop machinery (the template's stop
+    string, the tokenizer's EOS) into generation, as the JAX eval runner
+    does; the JAX server's batcher passes only the EOS id, so there the
+    stop string never ends a response."""
+    from llavamod_tpu_torch.generation import GenerationConfig, generate
+
+    class StopTok(CharTok):
+        stop_id = None
+
+        def __call__(self, text):
+            if text == stop and self.stop_id is not None:
+                return types.SimpleNamespace(input_ids=[self.stop_id])
+            return super().__call__(text)
+
+    cfg = _cfg()
+    tok = StopTok()
+    runner = VQARunner(model=llava.init(cfg, torch.Generator().manual_seed(2)),
+                       tokenizer=tok,
+                       image_preprocessor=make_image_preprocessor(cfg),
+                       template_name=template, max_prompt_len=64)
+    prompt = runner.build_prompt("what is item 3?", False)
+    ids = generate(runner.model, runner._encode_batch([prompt], [None]),
+                   GenerationConfig(max_new_tokens=6))[0].tolist()
+    # the first position whose token has not come before: stop there
+    cut = next(i for i in range(1, 6) if ids[i] not in ids[:i])
+    engine = BatchingEngine(runner, max_batch=1, batch_window=0.01,
+                            default_max_new=6)
+    try:
+        free = engine.submit(prompt, None, 6)
+        tok.stop_id = ids[cut]
+        stopped = engine.submit(prompt, None, 6)
+    finally:
+        engine.shutdown()
+    assert free["usage"]["completion_tokens"] == 6
+    assert stopped["usage"]["completion_tokens"] == cut
+    assert stopped["text"] == free["text"][:cut]
+
+
+class _SamplingEcho(BatchingEngine):
+    """The batcher without a model: answers each request with the
+    (temperature, top_p) of the batch it ran in."""
+
+    def _run_batch(self, reqs):
+        self._count_batch(len(reqs), _bucket(len(reqs), self.max_batch))
+        for r in reqs:
+            r.result = {"id": r.rid, "text": r.prompt,
+                        "batch": [list(q.sampling) for q in reqs]}
+            r.event.set()
+
+
+def test_each_request_keeps_its_temperature_and_top_p():
+    """Requests drained together run as one batch per distinct
+    (temperature, top_p), each with its own values (the JAX server ignores
+    both fields of the request)."""
+    engine = _SamplingEcho(types.SimpleNamespace(
+        build_prompt=lambda q, has_image: q), max_batch=8, batch_window=0.5,
+        temperature=0.0, top_p=1.0)
+    server, url = _serve(engine)
+    wants = [{}, {"temperature": 0.7}, {"temperature": 0.7, "top_p": 0.9},
+             {"top_p": 0.9}, {"temperature": 0.7}, {}]
+    results = [None] * len(wants)
+
+    def fire(i):
+        results[i] = _post(url, {"prompt": str(i), **wants[i]})
+
+    try:
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(wants))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+    for want, out in zip(wants, results):
+        own = [want.get("temperature", 0.0), want.get("top_p", 1.0)]
+        assert out["batch"] and all(s == own for s in out["batch"]), out
+    assert engine.stats["batches"] >= 4
+
+
+def test_hot_requests_sample_and_cold_ones_stay_greedy(served):
+    engine, runner, url = served
+    greedy = _post(url, {"prompt": "name a color", "max_new_tokens": 6})
+    cold = _post(url, {"prompt": "name a color", "max_new_tokens": 6,
+                       "temperature": 0.0, "top_p": 0.5})
+    hot = _post(url, {"prompt": "name a color", "max_new_tokens": 6,
+                      "temperature": 50.0})
+    assert cold["text"] == greedy["text"]
+    assert hot["text"] != greedy["text"]
+
+
+def test_build_engine_serves_int8(tmp_path):
+    """build_engine(quant='int8') serves the int8 W8A8 form of the model
+    (models/builder.py `quantize_for_serving`)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from util_tokenizer import make_tiny_tokenizer
+
+    from llavamod_tpu_torch.models.builder import save_model
+    from llavamod_tpu_torch.models.params import Int8Weight
+    from llavamod_tpu_torch.serve.server import build_engine
+
+    d = str(tmp_path / "model")
+    save_model(d, llava.init(_cfg(), torch.Generator().manual_seed(1)))
+    make_tiny_tokenizer(d)
+    engine = build_engine(d, device="cpu", quant="int8", max_prompt_len=48,
+                          default_max_new=3, batch_window=0.01)
+    try:
+        llm = engine.runner.model.llm
+        assert isinstance(llm.embed.embedding, Int8Weight)
+        assert isinstance(llm.lm_head.weight, Int8Weight)
+        assert isinstance(llm.layers[0].mlp.experts.up, Int8Weight)
+        out = engine.submit(engine.runner.build_prompt("hello", False), None, 3)
+        assert 0 < out["usage"]["completion_tokens"] <= 3
+    finally:
+        engine.shutdown()
+    with pytest.raises(ValueError):
+        build_engine(d, device="cpu", quant="int4")

@@ -346,10 +346,6 @@ def test_pretrain_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
     (dict(margs=dict(lora_enable=True)), 6),
     (dict(margs=dict(s2=True)), 6),
     (dict(margs=dict(video_tower="frames")), 6),
-    (dict(salign=dict(ref_quant="int8_head")), 3),
-    (dict(salign=dict(policy_head_quant=True)), 3),
-    (dict(salign=dict(policy_body_quant=True)), 3),
-    (dict(salign=dict(kd_stream_dh=True)), 3),
     (dict(targs=dict(fused_update=True)), 4),
     (dict(targs=dict(optimizer="adafactor")), 4),
     (dict(targs=dict(data_parallel=2)), 9),
@@ -357,8 +353,7 @@ def test_pretrain_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
     (dict(targs=dict(sequence_parallel=True)), 9),
     (dict(model="hf_dir"), 7),
     (dict(model="tiktoken_dir"), 7),
-], ids=["lora", "s2", "video", "ref_quant", "head_quant", "body_quant",
-        "kd_stream_dh", "fused_update", "adafactor", "data_parallel",
+], ids=["lora", "s2", "video", "fused_update", "adafactor", "data_parallel",
         "expert_parallel", "sequence_parallel", "hf_dir", "tiktoken"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item):
