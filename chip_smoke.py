@@ -74,7 +74,23 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      must leave every decoder and tower weight bitwise unchanged and write
      a loadable mm_projector.bin, stage 2 must shrink its teacher, write
      an MoE model and save the float student head bitwise as it came, and
-     stage 3 must train it.
+     stage 3 must train it;
+  7. eval: on stage 3's trained student, still in the temporary directory,
+     the port's eval CLI (`eval/cli.py generate`) answers 20 POPE-format
+     questions over the stage images in batches of 8 (the last padded),
+     32 new tokens, with the router-probability dump: every prefill and
+     gating forward must launch K1 on every layer, every decode step K2 on
+     every layer, and no decoder attention may take the plain path (the
+     expected counts are printed beside the measured ones); the first
+     batch's prefill logits are held against plain attention; the same
+     run with an int8 KV cache (K2's int8 mode on every step) must give
+     the same first token in every row, and one with W8A8 weights and the
+     int8 cache must answer every question; two --num-chunks 2 fan-out
+     runs go through merge, convert --benchmark gqa and score --benchmark
+     pope; then `run_llava.single_query` and the chat CLI, streamed and
+     not, whose greedy replies must be equal.  Each run prints
+     questions/s, the host ms of batch building, prefill ms, decode
+     ms/step and peak device memory.
 
 Prints the kernels' JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -86,6 +102,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
@@ -414,8 +431,9 @@ def _quant(x):
 
 def check_flash_decode(gen, dev):
     """K2 against its plain version; the serving case (B=8) and the
-    streamed request's (B=1) carry their SDPA time and bound.  Returns the
-    B=8 case with both timed cases under `by_shape`."""
+    streamed request's (B=1) carry their SDPA time and bound, the int8-cache
+    serving case its time and bound alone (no library call computes it).
+    Returns the B=8 bf16 case with every timed case under `by_shape`."""
     from llavamod_tpu_torch.ops.decode_attention import (
         decode_splits,
         flash_decode,
@@ -425,14 +443,14 @@ def check_flash_decode(gen, dev):
 
     s_len = PROMPT_LEN + NEW_TOKENS
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cases = [  # name, B, H, KH, D, int8, timed against SDPA
-        ("serving decode bf16", 8, 16, 16, 128, False, True),
-        ("streamed decode bf16", 1, 16, 16, 128, False, True),
-        ("serving decode int8", 8, 16, 16, 128, True, False),
-        ("gqa", 4, 14, 2, 64, False, False),
+    cases = [  # name, B, H, KH, D, int8, timed (against SDPA / alone)
+        ("serving decode bf16", 8, 16, 16, 128, False, "library"),
+        ("streamed decode bf16", 1, 16, 16, 128, False, "library"),
+        ("serving decode int8", 8, 16, 16, 128, True, "alone"),
+        ("gqa", 4, 14, 2, 64, False, None),
     ]
     timed = {}
-    for name, b, h, kh, d, quant, vs_library in cases:
+    for name, b, h, kh, d, quant, timing in cases:
         q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
         k = torch.randn((b, kh, s_len, d), generator=gen, device=dev).bfloat16()
         v = torch.randn((b, kh, s_len, d), generator=gen, device=dev).bfloat16()
@@ -468,25 +486,37 @@ def check_flash_decode(gen, dev):
             raise AssertionError(f"flash_decode {name} disagrees with its "
                                  f"plain version or itself: err {err} "
                                  f"deterministic {same_bits}")
-        if vs_library:
-            live = int((seg != 0).sum().item())     # cache slots read
-            qt = q[:, :, None]
-            mask = (seg != 0)[:, None, None, :]
-            lib = timings(lambda: F.scaled_dot_product_attention(
-                qt, k, v, attn_mask=mask, enable_gqa=h != kh))
-            timed[name] = dict(max_abs_err=err, **tk, plain_ms=plain_ms,
-                               library_ms=lib["ms"],
-                               library_event_ms=lib["event_ms"],
-                               splits=splits, deterministic=same_bits,
-                               **bound(4 * d * h * live,
-                                       nbytes(q, out, seg)
-                                       + 2 * live * kh * d * k.element_size()))
-            log(f"[kernel] flash_decode {name}: library "
-                f"scaled_dot_product_attention {lib['ms']:.4f} ms (event "
-                f"window {lib['event_ms']:.4f}), bound "
-                f"{timed[name]['bound_ms']:.4f} ms "
+        if timing is None:
+            continue
+        live = int((seg != 0).sum().item())     # cache slots read
+        # K and V of the live slots in the cache dtype (with their f32
+        # scales in int8 mode), q, out and the segment row
+        moved = (nbytes(q, out, seg) + 2 * live * kh * d * k.element_size()
+                 + (2 * live * kh * 4 if quant else 0))
+        timed[name] = dict(max_abs_err=err, **tk, plain_ms=plain_ms,
+                           library_ms=None, library_event_ms=None,
+                           splits=splits, deterministic=same_bits,
+                           **bound(4 * d * h * live, moved))
+        if timing == "alone":
+            log(f"[kernel] flash_decode {name}: no PyTorch call computes "
+                f"attention over an int8 cache with per-slot scales (no "
+                f"library time); bound {timed[name]['bound_ms']:.4f} ms "
                 f"({timed[name]['bound_by']}, {live} live slots of "
-                f"{b * s_len}), kernel / library {tk['ms'] / lib['ms']:.2f}x")
+                f"{b * s_len}), kernel / bound "
+                f"{tk['ms'] / timed[name]['bound_ms']:.2f}x")
+            continue
+        qt = q[:, :, None]
+        mask = (seg != 0)[:, None, None, :]
+        lib = timings(lambda: F.scaled_dot_product_attention(
+            qt, k, v, attn_mask=mask, enable_gqa=h != kh))
+        timed[name].update(library_ms=lib["ms"],
+                           library_event_ms=lib["event_ms"])
+        log(f"[kernel] flash_decode {name}: library "
+            f"scaled_dot_product_attention {lib['ms']:.4f} ms (event "
+            f"window {lib['event_ms']:.4f}), bound "
+            f"{timed[name]['bound_ms']:.4f} ms "
+            f"({timed[name]['bound_by']}, {live} live slots of "
+            f"{b * s_len}), kernel / library {tk['ms'] / lib['ms']:.2f}x")
     return dict(timed["serving decode bf16"], by_shape=timed)
 
 
@@ -819,12 +849,46 @@ def serve_phase(cfg, model, card: str, tag: str = "[serve]"):
         engine.shutdown()
 
 
+def prefill_logits_vs_plain(cfg, model, batch, tag: str,
+                            logits_tol: float = LOGITS_REL_TOL):
+    """The batch's prefill last-position logits through the kernels (K1,
+    the cache written as generation writes it) and through plain
+    attention; fails unless they agree within `logits_tol` of the largest
+    logit.  Returns (kernel-path logits, relative difference)."""
+    from llavamod_tpu_torch.models import llava
+    from llavamod_tpu_torch.models.llm import decoder
+
+    b, t = batch.input_ids.shape
+    with torch.inference_mode():
+        seg = batch.segment_ids
+        pos = torch.clamp_min(torch.cumsum(seg, dim=1) - 1, 0)
+        bp = batch._replace(positions=pos)
+        cache = decoder.init_cache(cfg.llm, b, t + NEW_TOKENS,
+                                   device=seg.device)
+        hk = llava.forward(model, cfg, bp, cache=cache,
+                           attn_impl="fresh").hidden
+        hp = llava.forward(model, cfg, bp, cache=None, attn_impl="xla").hidden
+        lk = llava.logits(model, cfg, hk[:, -1:])[:, 0]
+        lp = llava.logits(model, cfg, hp[:, -1:])[:, 0]
+        torch.cuda.synchronize()
+        diff = (lk - lp).abs().max().item()
+        scale = lp.abs().max().item()
+        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    ok = bool(torch.isfinite(lk).all().item()) and diff <= logits_tol * scale
+    log(f"{tag} prefill last-position logits [{b}, "
+        f"{lk.shape[-1]}], kernel path vs plain attention: max abs diff "
+        f"{diff:.4e}, max |logit| {scale:.4e}, rel {diff / scale:.4e} "
+        f"(tol {logits_tol}), greedy argmax agreement {agree:.3f}")
+    if not ok:
+        raise AssertionError("kernel-path prefill logits disagree with the "
+                             "plain-attention forward")
+    return lk, diff / scale
+
+
 def logits_and_timing(cfg, model, runner, card: str, tag: str = "[slice]",
                       logits_tol: float = LOGITS_REL_TOL):
     from llavamod_tpu_torch import generation
     from llavamod_tpu_torch.generation import GenerationConfig
-    from llavamod_tpu_torch.models import llava
-    from llavamod_tpu_torch.models.llm import decoder
 
     pp = runner.image_preprocessor
     rng = np.random.RandomState(1)
@@ -836,28 +900,8 @@ def logits_and_timing(cfg, model, runner, card: str, tag: str = "[slice]",
     prompts = [runner.build_prompt(f"Question number {i}?", True)
                for i in range(MAX_BATCH)]
     batch = runner._encode_batch(prompts, imgs)
-    with torch.inference_mode():
-        seg = batch.segment_ids
-        pos = torch.clamp_min(torch.cumsum(seg, dim=1) - 1, 0)
-        b = batch._replace(positions=pos)
-        cache = decoder.init_cache(cfg.llm, MAX_BATCH,
-                                   PROMPT_LEN + NEW_TOKENS, device=runner.device)
-        hk = llava.forward(model, cfg, b, cache=cache, attn_impl="fresh").hidden
-        hp = llava.forward(model, cfg, b, cache=None, attn_impl="xla").hidden
-        lk = llava.logits(model, cfg, hk[:, -1:])[:, 0]
-        lp = llava.logits(model, cfg, hp[:, -1:])[:, 0]
-        torch.cuda.synchronize()
-        diff = (lk - lp).abs().max().item()
-        scale = lp.abs().max().item()
-        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    ok = bool(torch.isfinite(lk).all().item()) and diff <= logits_tol * scale
-    log(f"{tag} prefill last-position logits [{MAX_BATCH}, "
-        f"{lk.shape[-1]}], kernel path vs plain attention: max abs diff "
-        f"{diff:.4e}, max |logit| {scale:.4e}, rel {diff / scale:.4e} "
-        f"(tol {logits_tol}), greedy argmax agreement {agree:.3f}")
-    if not ok:
-        raise AssertionError("kernel-path prefill logits disagree with the "
-                             "plain-attention forward")
+    lk, logits_rel = prefill_logits_vs_plain(cfg, model, batch, tag,
+                                             logits_tol)
 
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS)
     greedy = generation.generate(model, batch, gcfg)
@@ -892,7 +936,7 @@ def logits_and_timing(cfg, model, runner, card: str, tag: str = "[slice]",
     decode_profile = summarize_profile(f"{tag} profiled decode step",
                                        wall_ms, rows, step_ms[1])
     return dict(prefill_ms=prefill_ms, decode_tok_s=tok_s,
-                decode_ms_per_step=step_ms, logits_rel=diff / scale,
+                decode_ms_per_step=step_ms, logits_rel=logits_rel,
                 decode_profile=decode_profile, prefill_logits=lk,
                 greedy=greedy)
 
@@ -1349,14 +1393,20 @@ class StandInTokenizer:
     card's machine has no tokenizer files): one id below 151,646 per
     character, no BOS, pad id 0.  A text's ids are its pieces' ids joined,
     so the per-round label masking of data/preprocess.py lines up
-    exactly."""
+    exactly.  `decode` maps the ids of printable ASCII back to their
+    characters and writes any other id as <id>."""
     pad_token_id = 0
     bos_token_id = None
     eos_token_id = None
+    _chars = {10 + (c * 7919) % (QWEN_REGULAR_IDS - 10): chr(c)
+              for c in [10] + list(range(32, 127))}
 
     def __call__(self, text):
         return types.SimpleNamespace(input_ids=[
             10 + (ord(c) * 7919) % (QWEN_REGULAR_IDS - 10) for c in text])
+
+    def decode(self, ids, skip_special_tokens=True):
+        return "".join(self._chars.get(int(i), f"<{int(i)}>") for i in ids)
 
 
 def _words(rng, n_chars: int) -> str:
@@ -1791,6 +1841,372 @@ def _moe_config(model_dir: str) -> dict:
                                 "moe_capacity_factor", "moe_layers")}
 
 
+# ---------------------------------------------------------------------------
+# eval phase: the eval CLI, the single-query API and the chat CLI on the
+# student that stage 3 has just trained
+# ---------------------------------------------------------------------------
+
+EVAL_QUESTIONS = 20
+EVAL_TEMPLATE = "qwen"          # the "version" of the stage configs
+POPE_CATEGORIES = ("adversarial", "popular", "random")
+EVAL_OBJECTS = ("dog", "cat", "car", "person", "chair", "bicycle", "bottle",
+                "cup", "bird", "umbrella")
+ANSWER_KEYS = {"question_id", "prompt", "text", "answer_id", "model_id",
+               "metadata"}
+
+
+def write_eval_data(root: str):
+    """20 POPE-format questions over the stage images (question_id, image,
+    text, category) and the POPE label files, one per category, with
+    seeded yes / no labels."""
+    rng = np.random.RandomState(SEED + 9)
+    questions = [{"question_id": i, "image": f"{i % STAGE_IMAGES}.png",
+                  "text": f"Is there a {EVAL_OBJECTS[i % len(EVAL_OBJECTS)]}"
+                          f" in the image?",
+                  "category": POPE_CATEGORIES[i % len(POPE_CATEGORIES)]}
+                 for i in range(EVAL_QUESTIONS)]
+    qfile = os.path.join(root, "eval_questions.jsonl")
+    with open(qfile, "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in questions)
+    ann = os.path.join(root, "pope_annotations")
+    os.makedirs(ann)
+    for cat in POPE_CATEGORIES:
+        with open(os.path.join(ann, f"coco_pope_{cat}.json"), "w") as f:
+            f.writelines(json.dumps({"question_id": q["question_id"],
+                                     "label": ("yes", "no")[rng.randint(2)]})
+                         + "\n" for q in questions if q["category"] == cat)
+    return questions, qfile, ann
+
+
+def _eval_counts() -> dict:
+    from llavamod_tpu_torch.ops.decode_attention import flash_decode
+    from llavamod_tpu_torch.ops.flash_attention import flash_fwd
+
+    return {"flash_fwd": flash_fwd.launches,
+            "flash_decode": flash_decode.launches,
+            "flash_decode_int8": flash_decode.int8_launches}
+
+
+def _reset_eval_counts():
+    from llavamod_tpu_torch.ops.decode_attention import flash_decode
+
+    _reset_launch_counts()
+    flash_decode.launches = flash_decode.int8_launches = 0
+
+
+@contextlib.contextmanager
+def recorded_eval(rec: dict):
+    """Within the block: every prefill and every run of decode steps that
+    `generation.generate` makes records its time (the card synchronised
+    before and after) and its K1/K2 launches; every gating forward its
+    launches; `VQARunner.run` its wall time; `generate` the ids of every
+    batch; and the decoder counts its attention calls that take the plain
+    path."""
+    from llavamod_tpu_torch import generation
+    from llavamod_tpu_torch.eval import generate as eval_generate
+    from llavamod_tpu_torch.models.llm import decoder
+
+    runner_cls = eval_generate.VQARunner
+    rec.update(prefill=[], decode=[], gating=[], ids=[], plain=0, run_s=0.0)
+
+    def timed(kind, fn, steps=lambda a: 1):
+        def wrapper(*a, **k):
+            before = _eval_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec[kind].append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, steps=steps(a),
+                launches={n: c - before[n] for n, c in _eval_counts().items()}))
+            return out
+        return wrapper
+
+    orig = {"run": runner_cls.run, "generate": eval_generate.generate,
+            "attention": decoder.dot_product_attention}
+
+    def run(self, *a, **k):
+        t0 = time.perf_counter()
+        out = orig["run"](self, *a, **k)
+        rec["run_s"] += time.perf_counter() - t0
+        return out
+
+    def generate(*a, **k):
+        ids = orig["generate"](*a, **k)
+        rec["ids"].append(ids)
+        return ids
+
+    def attention(q, k, v, **kw):
+        impl = kw.get("impl", "auto")
+        if impl == "xla" or (impl == "auto" and not (
+                q.is_cuda and kw.get("bias") is None
+                and kw.get("mask") is None)):
+            rec["plain"] += 1
+        return orig["attention"](q, k, v, **kw)
+
+    patches = [
+        (generation, "_prefill", timed("prefill", generation._prefill)),
+        (generation, "_decode_steps",
+         timed("decode", generation._decode_steps, steps=lambda a: a[3])),
+        (runner_cls, "_collect_gating",
+         timed("gating", runner_cls._collect_gating)),
+        (runner_cls, "run", run),
+        (eval_generate, "generate", generate),
+        (decoder, "dot_product_attention", attention),
+    ]
+    originals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield rec
+    finally:
+        for obj, name, fn in originals:
+            setattr(obj, name, fn)
+
+
+def drive_eval(tag: str, argv: list, tok, card: str, layers: int,
+               int8_cache: bool):
+    """One `eval.cli generate` run (counts set to 0 just before, read just
+    after); checks that every prefill and gating forward launched K1 on
+    every layer, every decode step K2 on every layer (in its int8 mode with
+    an int8 cache) and that no decoder attention took the plain path.
+    Returns the runner and the run's numbers."""
+    from llavamod_tpu_torch.eval import cli as eval_cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec = {}
+    with recorded_eval(rec):
+        _reset_eval_counts()
+        t0 = time.perf_counter()
+        runner = eval_cli.main(["generate"] + argv, tokenizer=tok)
+        wall_s = time.perf_counter() - t0
+        launches = _eval_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    batches = len(rec["prefill"])
+    steps = sum(d["steps"] for d in rec["decode"])
+    gating = len(rec["gating"])
+    expect = {"flash_fwd": layers * (batches + gating),
+              "flash_decode": layers * steps,
+              "flash_decode_int8": layers * steps if int8_cache else 0}
+    per_call = all(r["launches"]["flash_fwd"] == layers
+                   for r in rec["prefill"] + rec["gating"]) and all(
+        r["launches"]["flash_decode"] == layers * r["steps"]
+        for r in rec["decode"])
+    prefill_ms = statistics.median(r["ms"] for r in rec["prefill"])
+    decode_ms = sum(r["ms"] for r in rec["decode"]) / max(steps, 1)
+    stats = dict(
+        questions_per_s=EVAL_QUESTIONS / rec["run_s"], run_s=rec["run_s"],
+        load_s=wall_s - rec["run_s"], batches=batches, decode_steps=steps,
+        image_ms_per_batch=runner.timings["image"] / batches * 1e3,
+        encode_ms_per_batch=runner.timings["encode"] / batches * 1e3,
+        prefill_ms=prefill_ms,
+        prefill_ms_all=[r["ms"] for r in rec["prefill"]],
+        decode_ms_per_step=decode_ms,
+        gating_ms=[r["ms"] for r in rec["gating"]], peak_gib=peak_gib,
+        launches=launches, expected_launches=expect,
+        plain_attention_calls=rec["plain"], card=card)
+    log(f"{tag} {EVAL_QUESTIONS} questions in {batches} batches of "
+        f"{runner.batch_size}: {stats['questions_per_s']:.3f} questions/s "
+        f"(run {rec['run_s']:.2f} s; load {stats['load_s']:.2f} s); batch "
+        f"building host ms per batch: image load + preprocess "
+        f"{stats['image_ms_per_batch']:.1f}, tokenize + splice + copy to "
+        f"the card {stats['encode_ms_per_batch']:.1f}; prefill (B="
+        f"{runner.batch_size}, T={runner.max_prompt_len}, tower + LLM + head)"
+        f" {prefill_ms:.2f} ms median of {batches}; decode "
+        f"{decode_ms:.3f} ms/step over {steps} steps; gating forward ms "
+        f"{' / '.join(f'{t:.1f}' for t in stats['gating_ms'])}; peak device "
+        f"memory {peak_gib:.2f} GiB; on {card}")
+    ids = np.concatenate(rec["ids"])
+    values, counts = np.unique(ids, return_counts=True)
+    top = sorted(zip(counts.tolist(), values.tolist()), reverse=True)[:3]
+    log(f"{tag} generated ids (padded rows included): {ids.size}, "
+        f"{len(values)} distinct, most frequent "
+        + ", ".join(f"{v} = {tok.decode([v])!r} x{c}" for c, v in top))
+    log(f"{tag} launches {launches} (expected {expect}: {layers} layers x "
+        f"({batches} prefills + {gating} gating forwards) for K1, {layers} "
+        f"layers x {steps} decode steps for K2); decoder attention calls on "
+        f"the plain path: {rec['plain']}")
+    if launches != expect or not per_call or rec["plain"]:
+        raise AssertionError(f"{tag}: the eval run did not go through the "
+                             f"kernels on every layer: {launches} vs {expect}"
+                             f", per call {per_call}, plain {rec['plain']}")
+    return runner, rec, stats
+
+
+def check_answers(tag: str, path: str, questions: list) -> list:
+    rows = _read_json_lines(path)
+    want = [q["question_id"] for q in questions]
+    ok = ([r["question_id"] for r in rows] == want
+          and all(set(r) == ANSWER_KEYS and isinstance(r["text"], str)
+                  for r in rows))
+    log(f"{tag} {len(rows)} answer rows in question order with the "
+        f"reference schema: {ok}; first answer {rows[0]['text'][:80]!r}")
+    if not ok:
+        raise AssertionError(f"{tag}: answer rows {rows[:2]}")
+    return rows
+
+
+def check_gating(path: str, questions: list, shape: tuple) -> None:
+    dump = np.load(path)
+    sums = [float(np.abs(dump[k].sum(-1) - 1.0).max()) for k in dump.files]
+    ok = (sorted(dump.files, key=int) == [str(q["question_id"])
+                                          for q in questions]
+          and all(dump[k].shape == shape and dump[k].dtype == np.float32
+                  for k in dump.files) and max(sums) <= 1e-3)
+    log(f"[eval] gating dump: {len(dump.files)} question ids, each "
+        f"{dump[dump.files[0]].shape} {dump[dump.files[0]].dtype} (need "
+        f"{shape}); rows sum to 1 within {max(sums):.2e} (tol 1e-3)")
+    if not ok:
+        raise AssertionError(f"gating dump {path} malformed")
+
+
+def eval_phase(model_dir: str, image_dir: str, root: str, tok, card: str):
+    """The eval CLI on stage 3's student at full width: bf16 generation with
+    the router dump, its first batch's prefill logits against plain
+    attention, the int8 KV cache, W8A8 with the int8 cache, the chunk
+    fan-out through merge / convert / score, one single query and the chat
+    CLI streamed and not."""
+    from llavamod_tpu_torch.eval import cli as eval_cli
+    from llavamod_tpu_torch.eval import run_llava
+    from llavamod_tpu_torch.serve import cli as chat_cli
+
+    questions, qfile, ann = write_eval_data(root)
+    moe = _moe_config(model_dir)
+    layers = _num_layers(model_dir)
+    common = ["--model-path", model_dir, "--question-file", qfile,
+              "--image-folder", image_dir, "--conv-mode", EVAL_TEMPLATE,
+              "--batch-size", str(MAX_BATCH), "--max-new-tokens",
+              str(NEW_TOKENS)]
+
+    def outputs(name):
+        return (os.path.join(root, f"answers_{name}.jsonl"),
+                os.path.join(root, f"gating_{name}.npz"))
+
+    def run(tag, name, *extra):
+        answers, gating = outputs(name)
+        return drive_eval(tag, common + ["--answers-file", answers,
+                                         "--dump-gating", gating, *extra],
+                          tok, card, layers, int8_cache="int8" in extra)
+
+    out = {}
+    runner, rec16, out["bf16"] = run("[eval]", "bf16")
+    check_answers("[eval]", outputs("bf16")[0], questions)
+    check_gating(outputs("bf16")[1], questions,
+                 (len(moe["moe_layers"]), PROMPT_LEN, moe["moe_num_experts"]))
+
+    first = questions[:MAX_BATCH]
+    images = [runner._load_image(q, image_dir)[1] for q in first]
+    batch = runner._encode_batch(
+        [runner.build_prompt(q["text"], True) for q in first], images)
+    _, out["logits_rel"] = prefill_logits_vs_plain(runner.cfg, runner.model,
+                                                   batch, "[eval] first batch:")
+    del runner, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runner, rec8c, out["int8_cache"] = run(
+        "[eval int8-cache]", "int8_cache", "--kv-cache-dtype", "int8")
+    del runner
+    check_answers("[eval int8-cache]", outputs("int8_cache")[0], questions)
+    real = [min(MAX_BATCH, EVAL_QUESTIONS - i)
+            for i in range(0, EVAL_QUESTIONS, MAX_BATCH)]
+    ids16 = np.concatenate([g[:n] for g, n in zip(rec16["ids"], real)])
+    ids8 = np.concatenate([g[:n] for g, n in zip(rec8c["ids"], real)])
+    first_equal = int((ids16[:, 0] == ids8[:, 0]).sum())
+    lead = [int(np.argmin(np.append(a == b, False)))
+            for a, b in zip(ids8, ids16)]
+    later = float((ids16[:, 1:] == ids8[:, 1:]).mean())
+    out["int8_cache"].update(first_token_rows_equal=first_equal,
+                             leading_tokens_equal=lead,
+                             later_positions_equal=later)
+    log(f"[eval int8-cache] first generated token equal to the bf16-cache "
+        f"run's in {first_equal} of {len(ids16)} rows (prefill reads no "
+        f"cache: need all); tokens equal from the start per row {lead} of "
+        f"{NEW_TOKENS}; later positions equal {later:.3f} (not checked)")
+    if first_equal != len(ids16):
+        raise AssertionError("the int8-cache run's first tokens differ")
+
+    runner, _, out["int8"] = run("[eval int8]", "int8", "--quant", "int8",
+                                 "--kv-cache-dtype", "int8")
+    del runner
+    check_answers("[eval int8]", outputs("int8")[0], questions)
+
+    # chunk fan-out -> merge -> convert -> score (host commands)
+    chunks = []
+    for idx in range(2):
+        chunks.append(os.path.join(root, f"answers_chunk{idx}.jsonl"))
+        eval_cli.main(["generate"] + common + [
+            "--answers-file", chunks[-1], "--num-chunks", "2",
+            "--chunk-idx", str(idx)], tokenizer=tok)
+        gc.collect()
+        torch.cuda.empty_cache()
+    merged = os.path.join(root, "answers_merged.jsonl")
+    eval_cli.main(["merge", "--inputs", *chunks, "--output", merged])
+    ids = [r["question_id"] for r in _read_json_lines(merged)]
+    gqa = os.path.join(root, "gqa_predictions.json")
+    eval_cli.main(["convert", "--benchmark", "gqa", "--answers", merged,
+                   "--output", gqa])
+    with open(gqa) as f:
+        converted = json.load(f)
+    pope = os.path.join(root, "pope_score.json")
+    eval_cli.main(["score", "--benchmark", "pope", "--question-file", qfile,
+                   "--answers", merged, "--annotation-dir", ann,
+                   "--output", pope])
+    with open(pope) as f:
+        out["pope"] = json.load(f)
+    counted = sum(m[k] for m in out["pope"].values()
+                  for k in ("TP", "FP", "TN", "FN"))
+    log(f"[eval host] merge of 2 fan-out chunks: {len(ids)} rows, every "
+        f"question id once: {sorted(ids) == list(range(EVAL_QUESTIONS))}; "
+        f"convert gqa: {len(converted)} predictions; score pope per "
+        f"category {out['pope']} counts {counted} answers (need "
+        f"{EVAL_QUESTIONS})")
+    if not (sorted(ids) == list(range(EVAL_QUESTIONS))
+            and len(converted) == EVAL_QUESTIONS
+            and counted == EVAL_QUESTIONS):
+        raise AssertionError("merge / convert / score on the fan-out answers")
+
+    # single query and the chat CLI
+    image = os.path.join(image_dir, "0.png")
+    runner = run_llava.load_runner(model_dir, conv_mode=EVAL_TEMPLATE,
+                                   tokenizer=tok)
+    t0 = time.perf_counter()
+    text = run_llava.single_query(model_dir, image, "Describe the image.",
+                                  conv_mode=EVAL_TEMPLATE,
+                                  max_new_tokens=NEW_TOKENS, runner=runner)
+    out["single_query_s"] = time.perf_counter() - t0
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[eval chat] single_query with a preloaded runner in "
+        f"{out['single_query_s']:.2f} s: {text[:80]!r}")
+    if not isinstance(text, str):
+        raise AssertionError(f"single_query returned {text!r}")
+    replies, stdin = {}, sys.stdin
+    for chunk in (8, 0):
+        sys.stdin = io.StringIO("What is in the image?\n"
+                                "And what colour is it?\n\n")
+        try:
+            replies[chunk] = chat_cli.main(
+                ["--model-path", model_dir, "--image-file", image,
+                 "--conv-mode", EVAL_TEMPLATE, "--temperature", "0",
+                 "--max-new-tokens", str(NEW_TOKENS), "--stream-chunk",
+                 str(chunk)], tokenizer=tok)
+        finally:
+            sys.stdin = stdin
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["chat_replies_equal"] = replies[8] == replies[0]
+    log(f"[eval chat] 2 scripted turns, --stream-chunk 8 vs 0: greedy "
+        f"replies equal {out['chat_replies_equal']} "
+        f"({[len(r) for r in replies[0]]} characters)")
+    if len(replies[0]) != 2 or not out["chat_replies_equal"]:
+        raise AssertionError(f"chat replies differ: {replies}")
+    return out
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1838,6 +2254,10 @@ def stages_phase(card: str, dev):
                                          "MoE student")
                 log("[stages] dpo: trained stage 2's MoE student (router aux "
                     "loss logged, MoE config carried to the output)")
+                gc.collect()
+                torch.cuda.empty_cache()
+                results["eval"] = eval_phase(outs["dpo"], data["images"],
+                                             root, tok, card)
         return dict(results, write_models_s=write_s)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1909,6 +2329,9 @@ def main() -> int:
         ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"))}
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
+    for path, run in (("eval", "bf16"), ("eval_int8", "int8"),
+                      ("eval_int8_cache", "int8_cache")):
+        stage_n[path] = stages["eval"][run]["launches"]
 
     def by_path(name, **first):
         return dict(first, **{p: n[name] for p, n in stage_n.items()
@@ -1926,9 +2349,8 @@ def main() -> int:
              source="llavamod_tpu_torch/csrc/flash_decode.cu",
              replaces="llavamod_tpu/ops/decode_attention.py:57",
              launches=serve_n["flash_decode"],
-             launches_by_path={"serve": serve_n["flash_decode"],
-                               "serve_int8": served8["launches"][
-                                   "flash_decode"]},
+             launches_by_path=by_path("flash_decode",
+                                      serve=serve_n["flash_decode"]),
              registers=regs["flash_decode"], **k2),
         dict(name="flash_dq", route="cuda",
              source="llavamod_tpu_torch/csrc/flash_dq.cu",

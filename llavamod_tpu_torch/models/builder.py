@@ -4,7 +4,8 @@ A native checkpoint directory holds `llavamod_config.json` (the LlavaConfig
 as JSON, the same file the JAX package writes) and `model.pt`, the flat
 state dict saved with torch.save and loaded with weights_only=True.
 `quantize_for_serving` turns a loaded model into its int8 W8A8 serving form.
-HF checkpoint import is not ported yet.
+HF checkpoint import and LoRA merges are not ported yet:
+`load_pretrained_model` refuses them.
 """
 
 from __future__ import annotations
@@ -111,16 +112,35 @@ def make_image_preprocessor(cfg: LlavaConfig) -> ImagePreprocessor:
         image_aspect_ratio=cfg.image_aspect_ratio)
 
 
-def load_pretrained_model(model_path: str, device="cuda", dtype=None,
-                          tokenizer_path=None, context_len: int = 2048):
-    """Reference-shaped loader: returns (tokenizer, model, cfg,
-    image_preprocessor, context_len) for a native checkpoint directory that
-    carries its own HF tokenizer files."""
-    cfg, model = load_model(model_path, device=device, dtype=dtype)
-    import transformers  # the tokenizer is the only user of transformers
+def not_ported(what: str, item: int) -> NotImplementedError:
+    """The error for an option of the JAX package that the port does not run
+    yet, naming its ROADMAP item."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, "
+                               f"item {item})")
 
-    tokenizer = transformers.AutoTokenizer.from_pretrained(
-        tokenizer_path or model_path)
+
+def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
+                          device="cuda", dtype=None, tokenizer_path=None,
+                          context_len: int = 2048, tokenizer=None):
+    """Reference-shaped loader: returns (tokenizer, model, cfg,
+    image_preprocessor, context_len) for a native checkpoint directory.
+
+    The tokenizer is `tokenizer` when given, else the HF tokenizer files in
+    `tokenizer_path` or the checkpoint directory (AutoTokenizer).  A LoRA
+    merge (`model_base`) and an HF checkpoint directory (no
+    llavamod_config.json) are refused: neither is ported yet."""
+    if model_base is not None:
+        raise not_ported(f"merging LoRA weights onto --model-base "
+                         f"{model_base}", 6)
+    if not os.path.exists(os.path.join(model_path, CONFIG_NAME)):
+        raise not_ported(f"loading the HF checkpoint directory {model_path}",
+                         7)
+    cfg, model = load_model(model_path, device=device, dtype=dtype)
+    if tokenizer is None:
+        import transformers  # the tokenizer is the only user of transformers
+
+        tokenizer = transformers.AutoTokenizer.from_pretrained(
+            tokenizer_path or model_path)
     return tokenizer, model, cfg, make_image_preprocessor(cfg), context_len
 
 

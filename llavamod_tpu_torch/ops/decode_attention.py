@@ -11,7 +11,8 @@ segment row (0 = empty/pad).
   * `flash_decode` — the kernel's wrapper.  A CUDA tensor launches K2 or
     raises; a CPU tensor goes to `flash_decode_reference`.
     `flash_decode.launches` counts kernel launches (one per call: the split
-    kernel and its combine pass).
+    kernel and its combine pass); `flash_decode.int8_launches` counts those
+    of them that read an int8 cache.
   * `flash_decode_reference` — the plain version, the same arithmetic over
     the whole cache row at once.
   * `decode_splits` / `split_bounds` — how K2 cuts the cache length across
@@ -182,7 +183,9 @@ def flash_decode(
         float(softcap or 0.0), stream)
     cuda_build.check(err, "flash_decode launch")
     flash_decode.launches += 1
+    flash_decode.int8_launches += quantized
     return out
 
 
 flash_decode.launches = 0
+flash_decode.int8_launches = 0

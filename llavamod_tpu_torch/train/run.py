@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from llavamod_tpu_torch.models.builder import not_ported
 from llavamod_tpu_torch.train.args import (
     AlignArgs,
     DataArgs,
@@ -83,31 +84,26 @@ def translate_train_modules(mods) -> Optional[Tuple[str, ...]]:
     return tuple(_TRAIN_MODULE_ALIASES.get(m, m) for m in mods)
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, "
-                               f"item {item})")
-
-
 def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
     """Raise on every option of the JAX engine that the port does not run
     yet, before anything is built."""
     if margs.lora_enable:
-        raise _not_ported("LoRA (--lora_enable)", 6)
+        raise not_ported("LoRA (--lora_enable)", 6)
     if margs.video_tower or margs.s2:
-        raise _not_ported("video frames and S2 (--video_tower, --s2)", 6)
+        raise not_ported("video frames and S2 (--video_tower, --s2)", 6)
     if targs.fused_update:
-        raise _not_ported("--fused_update", 4)
+        raise not_ported("--fused_update", 4)
     if targs.optimizer != "adamw":
-        raise _not_ported(f"--optimizer {targs.optimizer}", 4)
+        raise not_ported(f"--optimizer {targs.optimizer}", 4)
     if (max(targs.data_parallel, targs.expert_parallel, targs.tensor_parallel,
             targs.pipeline_parallel) > 1 or targs.sequence_parallel):
-        raise _not_ported("data, expert, tensor, sequence and pipeline "
-                          "parallelism", 9)
+        raise not_ported("data, expert, tensor, sequence and pipeline "
+                         "parallelism", 9)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
             torch.distributed.is_available()
             and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
-        raise _not_ported("multi-process training", 9)
+        raise not_ported("multi-process training", 9)
 
 
 # ---------------------------------------------------------------------------
@@ -131,8 +127,8 @@ def build_llava(name_or_path: str, margs: ModelArgs, *, seed: int = 0,
     if os.path.isdir(name_or_path):
         if not os.path.exists(os.path.join(name_or_path,
                                            model_builder.CONFIG_NAME)):
-            raise _not_ported(f"loading the HF checkpoint directory "
-                              f"{name_or_path}", 7)
+            raise not_ported(f"loading the HF checkpoint directory "
+                             f"{name_or_path}", 7)
         cfg, model = model_builder.load_model(name_or_path, device=device,
                                               fill_missing_seed=seed)
         return cfg, model
@@ -612,8 +608,8 @@ def load_tokenizer(margs: ModelArgs):
     if os.path.isdir(path) and any(
             os.path.exists(os.path.join(path, f))
             for f in ("qwen.tiktoken", "arcade100k.tiktoken")):
-        raise _not_ported("the tiktoken tokenizers (qwen-1.0, arcade100k)",
-                          7)
+        raise not_ported("the tiktoken tokenizers (qwen-1.0, arcade100k)",
+                         7)
     import transformers
 
     tok = transformers.AutoTokenizer.from_pretrained(path)

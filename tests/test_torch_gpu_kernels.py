@@ -212,9 +212,10 @@ def _check_decode(q, k, v, seg, kw):
         flash_decode_reference,
     )
 
-    n0 = flash_decode.launches
+    n0, i0 = flash_decode.launches, flash_decode.int8_launches
     out = flash_decode(q, k, v, kv_seg=seg, **kw)
     assert flash_decode.launches == n0 + 1
+    assert flash_decode.int8_launches == i0 + (k.dtype == torch.int8)
     ref = flash_decode_reference(q, k, v, kv_seg=seg, **kw)
     _close(out, ref, "decode")
     dead = ~(seg != 0).any(dim=1)                   # rows with no live slot
