@@ -51,10 +51,22 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      and timed steps each, every one launching K1 once per student and
      teacher layer and K3 and K4 once per student layer; the first int8
      step is held against the first bf16 step, and the teacher forward is
-     timed in both forms; one more step of each is profiled.  Last, 2 steps
-     of the router-only `policy_body_quant` recipe: the student body in
-     int8, the routers trained through the straight-through backward, every
-     other weight bitwise unchanged;
+     timed in both forms; one more step of each is profiled.  Then
+     [train fused], the JAX package's configuration of record for stage 2:
+     Adafactor and the fused backward+update step, the recipe's
+     accumulation 8 folded into B=8, gating groups of one sequence, the
+     int8 options; one update at a constant lr of 1e-2 against the
+     unfused path (make_align_step + Adafactor + MultiSteps(8)) on the
+     same microbatches (loss, grad_norm and the updated weights), then a
+     warm-up, 2 timed updates, the share of bf16 entries one update at the
+     recipe's lr leaves unchanged, and a profiled update, each launching
+     K1 / K3 / K4 exactly as the chunk rules give; [moe dispatch]: one
+     step each with gather, ragged and einsum dispatch and with
+     remat_policy='moe', loss and grad_norm against gather, step ms, peak
+     memory and the dispatch kernels' device ms.  Last, 2 steps of the
+     router-only `policy_body_quant` recipe: the student body in int8, the
+     routers trained through the straight-through backward, every other
+     weight bitwise unchanged;
   6. stages: the trainer entry point (`train/run.py::run_stage`) through
      the paper's three stages at full width, from the repository's stage
      configs as written, chained through checkpoint directories in a
@@ -74,7 +86,11 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      must leave every decoder and tower weight bitwise unchanged and write
      a loadable mm_projector.bin, stage 2 must shrink its teacher, write
      an MoE model and save the float student head bitwise as it came, and
-     stage 3 must train it;
+     stage 3 must train it.  Stage 2 runs again with `--optimizer
+     adafactor --fused_update` ([stages fused]: 2 updates of 2 folded
+     microbatches on a dataset of one repeated sample, the global-gating
+     warning, peak memory beside AdamW's), and a second run resumed from
+     its checkpoint after update 1 must reach the same second update;
   7. eval: on stage 3's trained student, still in the temporary directory,
      the port's eval CLI (`eval/cli.py generate`) answers 20 POPE-format
      questions over the stage images in batches of 8 (the last padded),
@@ -104,6 +120,7 @@ import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import shutil
 import statistics
@@ -158,6 +175,42 @@ INT8_GRAD_NORM_REL_TOL = 0.2
 INT8_LOGITS_REL_TOL = 0.25
 INT8_FIRST_TOKEN_MIN_ROWS = 4
 
+#  * [train fused]: one fused update (8 microbatches folded, gating groups
+#    of one sequence) against the unfused path (make_align_step,
+#    Adafactor, MultiSteps(8)) from the same weights and microbatches.  The
+#    forwards run the same kernels at the same shapes (one B=1 chunk per
+#    microbatch), so the mean loss moves only by the order of the
+#    microbatch sums (limit LOSS_REL_TOL); the gradients are summed in bf16
+#    in another order (per layer and microbatch, against MultiSteps'
+#    running mean), limit GRAD_NORM_REL_TOL.  The parameters after that
+#    update, at a constant lr of 1e-2 (the recipe's 2e-5 moves almost no
+#    bf16 entry), by ||p_fused - p_unfused|| / ||p_unfused - p_0|| over the
+#    trainable set: each path rounds p - u to bf16, and an update of
+#    ~1e-2 rms(p) is 2-3 bf16 ulps of an entry, so where the two u differ
+#    by the gradients' rounding (~1e-2 relative) some 3-10% of entries
+#    round one ulp apart, ~0.05-0.15 of the update's norm; an update that
+#    missed one of the 8 microbatches, or used other Adafactor blocks or
+#    another lr, is off by 0.35 or more.
+FUSED_PARAM_REL_TOL = 0.25
+#  * [stages fused] auto-resume: the run resumed from the checkpoint after
+#    update 1 against the uninterrupted run, on identical batches: the same
+#    kernels on the same inputs.  Update 2's loss rel 1e-5 and grad_norm
+#    rel 1e-3, and the weights after it within 5e-2 of update 2's own
+#    change (||w_resumed - w_whole|| / ||w_whole - w_after_update_1||): a
+#    non-deterministic reduction, if the path holds one, flips single bf16
+#    roundings; a resume that lost the Adafactor statistics or the update
+#    count moves the update by its whole size.
+RESUME_LOSS_REL_TOL = 1e-5
+RESUME_GRAD_NORM_REL_TOL = 1e-3
+RESUME_PARAM_REL_TOL = 5e-2
+#  * [moe dispatch]: gather, ragged and einsum dispatch route the same
+#    tokens to the same slots with the same weights, so one step from the
+#    same weights differs only by the order of the expert sums (loss rel
+#    1e-3, grad_norm rel 5e-2 against gather; remat_policy 'moe' against
+#    'none' likewise).
+DISPATCH_LOSS_REL_TOL = 1e-3
+DISPATCH_GRAD_NORM_REL_TOL = 5e-2
+
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
 # and HBM3 bandwidth, for the bound each kernel is set against
 PEAK_BF16_FLOPS = 989e12
@@ -170,6 +223,11 @@ NEW_TOKENS = 32
 SEED = 0
 TRAIN_T = 2048
 TRAIN_TIMED_STEPS = 3
+FUSED_ACCUM = 8                # the recipe's gradient_accumulation_steps
+FUSED_TIMED_UPDATES = 2
+FUSED_CHECK_LR = 1e-2
+RECIPE_LR = 2e-5
+DISPATCH_MODES = ("gather", "ragged", "einsum")
 RECORD_TRAIN_SET = ("/gate", "/up", "/down", "router")
 ATTENTION_KERNELS = ("flash_fwd", "flash_decode", "flash_dq", "flash_dkv")
 STAGE_CONFIGS = (("pretrain", "configs/pretrain_qwen2_0_5b.json"),
@@ -1029,7 +1087,12 @@ def train_batch(cfg, dev):
     ids; labels masked on the image slots and the first T/4 tokens."""
     from llavamod_tpu_torch.train.steps import batch_from_arrays
 
-    rng = np.random.RandomState(SEED)
+    return batch_from_arrays(train_arrays(cfg, SEED), device=dev)
+
+
+def train_arrays(cfg, seed: int) -> dict:
+    """The host arrays of `train_batch` drawn from `seed`."""
+    rng = np.random.RandomState(seed)
     t, n_img, s = TRAIN_T, cfg.num_image_tokens, cfg.vision.image_size
     ids = rng.randint(10, 1000, size=(1, t)).astype(np.int32)
     image_mask = np.zeros((1, t), bool)
@@ -1038,11 +1101,10 @@ def train_batch(cfg, dev):
     image_pos[0, 1:1 + n_img] = np.arange(n_img)
     labels = np.where(image_mask, -100, ids)
     labels[:, :t // 4] = -100
-    return batch_from_arrays({
-        "input_ids": ids, "segment_ids": np.ones((1, t), np.int32),
-        "image_mask": image_mask, "image_pos": image_pos,
-        "pixels": rng.randn(1, 1, 3, s, s).astype(np.float32),
-        "pixel_valid": np.ones((1, 1), bool), "labels": labels}, device=dev)
+    return {"input_ids": ids, "segment_ids": np.ones((1, t), np.int32),
+            "image_mask": image_mask, "image_pos": image_pos,
+            "pixels": rng.randn(1, 1, 3, s, s).astype(np.float32),
+            "pixel_valid": np.ones((1, 1), bool), "labels": labels}
 
 
 def _launch_counts():
@@ -1308,12 +1370,18 @@ def train_phase(card: str, dev):
     with swapped_head(student.llm, head8):
         state, prof8 = profile_step(step8, state, teacher8, batch,
                                     med["int8"], "[train int8] profiled step")
-    del state, teacher, runs
+    # the loop's last pair still names the bf16 teacher
+    del state, teacher, runs, fn, tch, ctx
     gc.collect()
     torch.cuda.empty_cache()
+    fused = train_fused_phase(cfg, student, teacher_cfg, teacher8, head8,
+                              tcfg8, card)
+    dispatch = moe_dispatch_phase(cfg, student, teacher_cfg, teacher8, head8,
+                                  tcfg8, batch, card)
     body = body_quant_steps(cfg, student, teacher_cfg, teacher8, tcfg, batch,
                             per_step, card)
-    return dict(step_ms=ms["bf16"], tokens_per_s=n_tok / med["bf16"] * 1e3,
+    return dict(fused=fused, dispatch=dispatch,
+                step_ms=ms["bf16"], tokens_per_s=n_tok / med["bf16"] * 1e3,
                 peak_gib=peaks["bf16"], trainable=n_train, launches=launches,
                 first_step=first, plain_first_step=plain, rel=rel,
                 profile=prof, int8=dict(
@@ -1323,6 +1391,288 @@ def train_phase(card: str, dev):
                     teacher_forward_ms=fwd_ms, first_step=first8,
                     rel_to_bf16=rel8, profile=prof8),
                 body_quant=body)
+
+
+def _sq_dist(a: dict, b: dict, dev=None) -> float:
+    """Sum over the tensors of ||a - b||^2, in f32 (on `dev`, tensor by
+    tensor, when given)."""
+    return sum((a[n].to(dev).float() - b[n].to(dev).float()).pow(2).sum()
+               .item() for n in a)
+
+
+def train_fused_phase(cfg, student, teacher_cfg, teacher8, head8, tcfg8,
+                      card):
+    """[train fused]: the JAX package's configuration of record for stage 2
+    (bench.py BENCH_CONFIG=flagship): Adafactor, the fused backward+update
+    step, the recipe's accumulation 8 folded into the batch (B=8, T=2048),
+    gating groups of one sequence, no remat, with the stage-2 config's int8
+    options (the int8_head teacher, the student head in int8).  bench.py's
+    student attention and embedding int8 (BENCH_STUDENT_ATTN_QUANT,
+    BENCH_EMBED_QUANT) quantize outside the trainer and are left out.
+
+    One update at a constant lr of 1e-2 is held against the unfused path
+    (make_align_step, Adafactor, MultiSteps(8)) on the same 8 microbatches
+    from the same weights; then, at the recipe's peak lr of 2e-5, a
+    warm-up and 2 timed updates (peak memory over these three), one update
+    whose bitwise-unchanged share of trainable entries is counted, and one
+    profiled update.  Every update must launch K1 / K3 / K4 exactly as the
+    auto chunk rules give: the teacher in 1-row chunks, the student forward
+    in one chunk per microbatch, the backward one microbatch at a time."""
+    from llavamod_tpu_torch.train.fused_steps import (
+        init_fused_state,
+        make_fused_align_step,
+    )
+    from llavamod_tpu_torch.train.loader import fold_microbatches
+    from llavamod_tpu_torch.train.optim import TrainState, apply_trainable_mask
+    from llavamod_tpu_torch.train.steps import (
+        batch_from_arrays,
+        make_align_step,
+    )
+
+    dev = student.llm.final_norm.weight.device
+    cfg_f = cfg.replace(llm=cfg.llm.replace(moe_gating_group_size=TRAIN_T))
+    tcfg_f = tcfg8.replace(optimizer="adafactor",
+                           grad_accum_steps=FUSED_ACCUM, remat=False)
+    arrays = [train_arrays(cfg, SEED + 10 + i) for i in range(FUSED_ACCUM)]
+    (folded,) = list(fold_microbatches(
+        iter(arrays), FUSED_ACCUM,
+        rows_per_sample=cfg.max_images * cfg.num_image_tokens))
+    micro = [batch_from_arrays(a, device=dev) for a in arrays]
+    batch = batch_from_arrays(folded, device=dev)
+    n_tok = batch.input_ids.numel()
+    layers, t_layers = cfg.llm.num_layers, teacher_cfg.llm.num_layers
+    per_update = {"flash_fwd": (t_layers + 2 * layers) * FUSED_ACCUM,
+                  "flash_dq": layers * FUSED_ACCUM,
+                  "flash_dkv": layers * FUSED_ACCUM}
+    check = tcfg_f.replace(lr_schedule="constant", warmup_ratio=0.0,
+                           learning_rate=FUSED_CHECK_LR)
+    recipe = check.replace(learning_rate=RECIPE_LR)
+
+    def run_update(step, state, label):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, teacher8, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        vals = {k: v.item() for k, v in m.items()}
+        got = {k: n - before[k] for k, n in _launch_counts().items()}
+        log(f"[train fused] {label}: {dt * 1e3:.1f} ms loss "
+            f"{vals['loss']:.5f} grad_norm {vals['grad_norm']:.5f} "
+            f"launches {got}")
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"{label}: non-finite metrics {vals}")
+        if got != per_update:
+            raise AssertionError(f"{label} launched {got}, expected "
+                                 f"{per_update} per update")
+        return state, vals, dt
+
+    with swapped_head(student.llm, head8):
+        mask = apply_trainable_mask(student, tcfg_f)
+        params = {n: p for n, p in student.named_parameters() if mask[n]}
+        n_train = sum(p.numel() for p in params.values())
+        p0 = {n: p.detach().clone() for n, p in params.items()}
+
+        def restore():
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(p0[n])
+
+        # the unfused reference: 8 microbatches through MultiSteps(8); the
+        # inner optimizer's return is the norm of the mean gradient
+        t0 = time.perf_counter()
+        state = TrainState.create(student, check)
+        norms, inner_update = [], state.opt.inner.update
+        state.opt.inner.update = lambda g: norms.append(inner_update(g))
+        step = make_align_step(cfg_f, teacher_cfg, check)
+        losses = []
+        for b in micro:
+            state, m = step(state, teacher8, b)
+            losses.append(m["loss"].item())
+        ref = {"loss": statistics.fmean(losses), "grad_norm": norms[0].item()}
+        p_ref = {n: p.detach().clone() for n, p in params.items()}
+        ref_s = time.perf_counter() - t0
+        restore()
+        del state, step, norms
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _reset_launch_counts()
+        fstep = make_fused_align_step(cfg_f, teacher_cfg, check)
+        state, got, _ = run_update(fstep, init_fused_state(student, cfg_f,
+                                                           check),
+                                   "check update, lr 1e-2")
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k])
+               for k in ("loss", "grad_norm")}
+        rel["params"] = (math.sqrt(_sq_dist(params, p_ref))
+                         / math.sqrt(_sq_dist(p_ref, p0)))
+        restore()
+        del state, p_ref, p0
+        log(f"[train fused] one fused update vs the unfused path "
+            f"(make_align_step + Adafactor + MultiSteps({FUSED_ACCUM}), "
+            f"{ref_s:.1f} s), constant lr {FUSED_CHECK_LR}: loss "
+            f"{got['loss']:.6f} vs mean {ref['loss']:.6f} (rel "
+            f"{rel['loss']:.3e}, tol {LOSS_REL_TOL}), grad_norm "
+            f"{got['grad_norm']:.6f} vs {ref['grad_norm']:.6f} (rel "
+            f"{rel['grad_norm']:.3e}, tol {GRAD_NORM_REL_TOL}), "
+            f"||p_fused - p_unfused|| / ||p_unfused - p_0|| "
+            f"{rel['params']:.4f} (tol {FUSED_PARAM_REL_TOL})")
+        if not (rel["loss"] <= LOSS_REL_TOL
+                and rel["grad_norm"] <= GRAD_NORM_REL_TOL
+                and rel["params"] <= FUSED_PARAM_REL_TOL):
+            raise AssertionError(f"the fused update disagrees with the "
+                                 f"unfused path: {rel}")
+
+        # the recipe's lr: warm-up, timed updates, the unchanged share, and
+        # a profiled update
+        fstep = make_fused_align_step(cfg_f, teacher_cfg, recipe)
+        state = init_fused_state(student, cfg_f, recipe)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        times = []
+        for i in range(1 + FUSED_TIMED_UPDATES):
+            state, _, dt = run_update(fstep, state,
+                                      "warm-up update" if i == 0
+                                      else f"timed update {i}")
+            if i:
+                times.append(dt * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        before = {n: p.detach().clone() for n, p in params.items()}
+        state, _, _ = run_update(fstep, state, "update at lr 2e-5")
+        same = sum((before[n] == p).sum().item() for n, p in params.items())
+        del before
+        med = statistics.median(times)
+        prof_state, prof = profile_step(fstep, state, teacher8, batch, med,
+                                        "[train fused] profiled update")
+        launches = _launch_counts()
+        n_updates = 3 + FUSED_TIMED_UPDATES
+        if launches != {k: v * n_updates for k, v in per_update.items()}:
+            raise AssertionError(f"[train fused] launched {launches} over "
+                                 f"{n_updates} updates")
+        del state, prof_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    share = same / n_train
+    log(f"[train fused] make_fused_align_step, {FUSED_ACCUM} microbatches "
+        f"of B=1 T={TRAIN_T} folded, groups of {TRAIN_T}, int8_head teacher "
+        f"+ int8 student head, {n_train / 1e9:.3f} B trainable: update ms "
+        f"{' / '.join(f'{t:.1f}' for t in times)} (median {med:.1f}, "
+        f"{med / FUSED_ACCUM:.1f} ms a microbatch), {n_tok / med * 1e3:.1f} "
+        f"tokens/s, peak device memory {peak:.2f} GiB; launches per update "
+        f"{per_update}; on {card}")
+    log(f"[train fused] one update at the recipe's lr {RECIPE_LR} left "
+        f"{same} of {n_train} trainable bf16 entries bitwise unchanged "
+        f"({share:.6f}); on {card}")
+    return dict(update_ms=times, median_ms=med,
+                microbatch_ms=med / FUSED_ACCUM,
+                tokens_per_s=n_tok / med * 1e3, peak_gib=peak,
+                per_update=per_update, launches=launches, check=got,
+                reference=ref, rel=rel, unchanged_share=share,
+                profile=prof)
+
+
+# device kernels of the MoE dispatch, by name fragment
+DISPATCH_OPS = {
+    "index backward": ("indexing_backward_kernel",),
+    "gather / index": ("index_elementwise_kernel", "vectorized_gather",
+                       "gather_kernel"),
+    "scatter / index_put": ("scatter", "index_put"),
+    "cat": ("CatArrayBatchedCopy",),
+    "cumsum": ("scan",),
+}
+
+
+def dispatch_op_ms(rows) -> dict:
+    return {k: sum(ms for n, ms, _ in rows if any(f in n for f in frags))
+            for k, frags in DISPATCH_OPS.items()}
+
+
+def moe_dispatch_phase(cfg, student, teacher_cfg, teacher8, head8, tcfg8,
+                       batch, card):
+    """[moe dispatch]: one align step (Adafactor, the int8 options, B=1,
+    T=2048, gating groups of one sequence) from the same weights with
+    moe_dispatch gather, ragged and einsum, then gather with
+    remat_policy='moe' (full remat off).  Every step starts from a fresh
+    Adafactor state, whose first update has lr 0 under the recipe's
+    warmup: the weights stay as they are (checked).  Each mode: a warm-up
+    step, a timed step (peak memory) and a profiled one (device ms of the
+    dispatch kernels).  Measurements only: no speed claim."""
+    from llavamod_tpu_torch.train.optim import TrainState, apply_trainable_mask
+    from llavamod_tpu_torch.train.steps import make_align_step
+
+    tcfg_d = tcfg8.replace(optimizer="adafactor", remat=False)
+    modes = [(m, dict(moe_dispatch=m)) for m in DISPATCH_MODES] + [
+        ("gather, remat_policy moe", dict(moe_dispatch="gather",
+                                          remat_policy="moe"))]
+    layers = cfg.llm.num_layers
+    per_step = {"flash_fwd": layers + teacher_cfg.llm.num_layers,
+                "flash_dq": layers, "flash_dkv": layers}
+    out = {}
+    with swapped_head(student.llm, head8):
+        mask = apply_trainable_mask(student, tcfg_d)
+        params = [p for n, p in student.named_parameters() if mask[n]]
+        fingerprint = [p.float().sum().item() for p in params]
+        _reset_launch_counts()
+        for name, kw in modes:
+            cfg_m = cfg.replace(llm=cfg.llm.replace(
+                moe_gating_group_size=TRAIN_T, **kw))
+            step = make_align_step(cfg_m, teacher_cfg, tcfg_d)
+
+            def one():
+                _, m = step(TrainState.create(student, tcfg_d), teacher8,
+                            batch)
+                return {k: v.item() for k, v in m.items()}
+
+            before = _launch_counts()
+            first = one()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            wall, rows = profile_window(one)
+            got = {k: n - before[k] for k, n in _launch_counts().items()}
+            prof = summarize_profile(f"[moe dispatch] {name} profiled step",
+                                     wall, rows, ms)
+            ops = dispatch_op_ms(rows)
+            out[name] = dict(first=first, step_ms=ms, peak_gib=peak,
+                             dispatch_ops_ms=ops, profile=prof,
+                             launches=got)
+            log(f"[moe dispatch] {name}: step {ms:.1f} ms, peak "
+                f"{peak:.2f} GiB, loss {first['loss']:.6f} grad_norm "
+                f"{first['grad_norm']:.6f}; device ms of the dispatch "
+                f"kernels: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         ops.items()) + f"; launches {got} "
+                f"over 3 steps; on {card}")
+            if not all(np.isfinite(v) for v in first.values()):
+                raise AssertionError(f"{name}: non-finite metrics {first}")
+            if got != {k: 3 * v for k, v in per_step.items()}:
+                raise AssertionError(f"{name} launched {got} over 3 steps, "
+                                     f"expected {per_step} a step")
+        launches = _launch_counts()
+        moved = [i for i, p in enumerate(params)
+                 if p.float().sum().item() != fingerprint[i]]
+    if moved:
+        raise AssertionError(f"[moe dispatch] {len(moved)} trainable tensors "
+                             f"moved: the steps did not start from the same "
+                             f"weights")
+    base = out["gather"]["first"]
+    for name in out:
+        rel = {k: abs(out[name]["first"][k] - base[k]) / abs(base[k])
+               for k in ("loss", "grad_norm")}
+        out[name]["rel_to_gather"] = rel
+        log(f"[moe dispatch] {name} vs gather: loss rel {rel['loss']:.3e} "
+            f"(tol {DISPATCH_LOSS_REL_TOL}), grad_norm rel "
+            f"{rel['grad_norm']:.3e} (tol {DISPATCH_GRAD_NORM_REL_TOL})")
+        if not (rel["loss"] <= DISPATCH_LOSS_REL_TOL
+                and rel["grad_norm"] <= DISPATCH_GRAD_NORM_REL_TOL):
+            raise AssertionError(f"{name} disagrees with gather dispatch: "
+                                 f"{rel}")
+    return dict(modes=out, launches=launches)
 
 
 def body_quant_steps(cfg, student, teacher_cfg, teacher8, tcfg, batch,
@@ -1483,6 +1833,11 @@ def write_stage_data(root: str, n_img: int) -> dict:
         paths[kind] = os.path.join(root, f"{kind}.json")
         with open(paths[kind], "w") as f:
             json.dump(records, f)
+        if kind == "align":
+            # every batch alike, for the fused run's resume check
+            paths["align_same"] = os.path.join(root, "align_same.json")
+            with open(paths["align_same"], "w") as f:
+                json.dump([dict(records[0], id=i) for i in range(n)], f)
     log("[stages] data: " + ", ".join(
         f"{k} {len(v)} sequences of {min(v)}-{max(v)} real tokens"
         for k, v in lengths.items()) + f" ({STAGE_IMAGES} seeded PNGs)")
@@ -1522,8 +1877,10 @@ def write_stage_models(root: str, dev) -> dict:
           "teacher": 2 * _param_count(teacher_cfg, vision=False) / 1e9,
           "moe": 2 * _param_count(moe_cfg) / 1e9}
     # on disk at once, at most: the inputs with the outputs of stages 1 and
-    # 2 (the dense model and stage 1's output go before stage 3)
-    need = gb["dense"] * 2 + gb["teacher"] + gb["moe"] + 1.0
+    # 2, or (the dense model gone) stage 1's output, the teacher, stage 2's
+    # output and the fused stage 2's checkpoint and final model
+    need = max(gb["dense"] * 2 + gb["teacher"] + gb["moe"],
+               gb["dense"] + gb["teacher"] + gb["moe"] * 3) + 1.0
     free = shutil.disk_usage(root).free / 1e9
     log(f"[stages] checkpoints in {root}: dense {gb['dense']:.2f} GB, teacher "
         f"{gb['teacher']:.2f} GB, MoE student {gb['moe']:.2f} GB (bf16); at "
@@ -1550,12 +1907,15 @@ def write_stage_models(root: str, dev) -> dict:
 @contextlib.contextmanager
 def counted_steps(records: list):
     """Within the block, the step functions that `run_stage` makes record,
-    for each microbatch, its K1/K3/K4 launches and its time (the card
-    synchronised before and after)."""
-    from llavamod_tpu_torch.train import steps
+    for each microbatch, its K1/K3/K4 launches, its time (the card
+    synchronised before and after) and its peak device memory (the
+    stage's whole-run peak may instead be set while the models load)."""
+    from llavamod_tpu_torch.train import fused_steps, steps
 
-    names = ("make_pretrain_step", "make_align_step", "make_dpo_step")
-    originals = {n: getattr(steps, n) for n in names}
+    makers = [(steps, n) for n in ("make_pretrain_step", "make_align_step",
+                                   "make_dpo_step")]
+    makers.append((fused_steps, "make_fused_align_step"))
+    originals = {(mod, n): getattr(mod, n) for mod, n in makers}
 
     def wrap(make):
         def maker(*a, **k):
@@ -1564,24 +1924,27 @@ def counted_steps(records: list):
             def counted(*sa, **sk):
                 before = _launch_counts()
                 torch.cuda.synchronize()
+                prior = torch.cuda.max_memory_allocated() / 2**30
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 out = step(*sa, **sk)
                 torch.cuda.synchronize()
                 records.append(dict(
-                    ms=(time.perf_counter() - t0) * 1e3,
+                    ms=(time.perf_counter() - t0) * 1e3, prior_peak_gib=prior,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                     launches={k: n - before[k]
                               for k, n in _launch_counts().items()}))
                 return out
             return counted
         return maker
 
-    for n, make in originals.items():
-        setattr(steps, n, wrap(make))
+    for (mod, n), make in originals.items():
+        setattr(mod, n, wrap(make))
     try:
         yield records
     finally:
-        for n, make in originals.items():
-            setattr(steps, n, make)
+        for (mod, n), make in originals.items():
+            setattr(mod, n, make)
 
 
 def parse_stage(stage: str, config: str, argv: list):
@@ -1604,10 +1967,14 @@ def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
     """The stage's first microbatch through plain attention: the step that
     `run_stage` makes, on models loaded from the same directories and the
     loader's first batch, from a fresh state (with accumulation, the first
-    microbatch updates nothing)."""
-    from llavamod_tpu_torch.train import run, steps
+    microbatch updates nothing).  With --fused_update: the first update,
+    on the loader's first `accum` batches folded."""
+    from llavamod_tpu_torch.train import fused_steps, run, steps
     from llavamod_tpu_torch.train.args import train_config_from_args
-    from llavamod_tpu_torch.train.loader import infinite_batches
+    from llavamod_tpu_torch.train.loader import (
+        fold_microbatches,
+        infinite_batches,
+    )
     from llavamod_tpu_torch.train.optim import TrainState
 
     salign = extra if stage == "align" else None
@@ -1616,6 +1983,10 @@ def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
         stage, margs, targs, salign, sdpo, dev)
     batches = infinite_batches(run.build_data_module(stage, margs, dargs,
                                                      targs, tok, cfg))
+    if targs.fused_update:
+        batches = fold_microbatches(
+            batches, targs.gradient_accumulation_steps,
+            rows_per_sample=cfg.max_images * cfg.num_image_tokens)
     arrays = next(batches)
     batches.close()
     mods = run.translate_train_modules(margs.train_modules)
@@ -1626,18 +1997,23 @@ def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
     if teacher is not None and steps._can_share_tower(tcfg, cfg, teacher_cfg):
         del teacher.vision
     run.quantize_stage_models(tcfg, extra, model, teacher)
-    state = TrainState.create(model, tcfg)
-    if stage == "align":
+    if targs.fused_update:
+        _, m = fused_steps.make_fused_align_step(cfg, teacher_cfg, tcfg)(
+            fused_steps.init_fused_state(model, cfg, tcfg), teacher,
+            steps.batch_from_arrays(arrays, device=dev))
+    elif stage == "align":
         _, m = steps.make_align_step(cfg, teacher_cfg, tcfg)(
-            state, teacher, steps.batch_from_arrays(arrays, device=dev))
+            TrainState.create(model, tcfg), teacher,
+            steps.batch_from_arrays(arrays, device=dev))
     elif stage == "dpo":
-        _, m = steps.make_dpo_step(cfg, teacher_cfg, tcfg)(state, teacher,
-                                                           arrays)
+        _, m = steps.make_dpo_step(cfg, teacher_cfg, tcfg)(
+            TrainState.create(model, tcfg), teacher, arrays)
     else:
         _, m = steps.make_pretrain_step(cfg, tcfg)(
-            state, steps.batch_from_arrays(arrays, device=dev))
+            TrainState.create(model, tcfg),
+            steps.batch_from_arrays(arrays, device=dev))
     out = {k: v.item() for k, v in m.items()}
-    del state, model, teacher, m
+    del model, teacher, m
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -1689,20 +2065,30 @@ def recorded_quantization(record: dict):
         run.quantize_stage_models = original
 
 
-def drive_stage(stage, config, argv, tok, dev, card):
+def drive_stage(stage, config, argv, tok, dev, card, tag=None):
     """One stage through `run_stage` (counts set to 0 just before, read just
     after), with the plain-attention first microbatch beside it; returns
-    the stage's numbers after checking them."""
+    the stage's numbers after checking them.  With --fused_update a step is
+    one update over `accum` folded microbatches: MoE with global gating
+    (the stage configs set no gating groups) runs the student forward and
+    backward folded, the dense teacher in 1-row chunks."""
     from llavamod_tpu_torch.train.run import run_stage
 
     margs, dargs, targs, extra = parse_stage(stage, config, argv)
+    tag = tag or stage
     policy = (extra.policy_model_name_or_path if extra is not None
               else margs.model_name_or_path)
     layers = _num_layers(policy)
     teacher_layers = (_num_layers(extra.ref_model_name_or_path)
                       if extra is not None else 0)
+    accum = targs.gradient_accumulation_steps
+    fused = targs.fused_update
     per_mb = {"flash_fwd": layers * (2 if targs.remat else 1) + teacher_layers,
               "flash_dq": layers, "flash_dkv": layers}
+    if fused:
+        per_mb["flash_fwd"] = 2 * layers + teacher_layers * (
+            targs.per_device_train_batch_size * accum)
+    n_steps = targs.max_steps // accum if fused else targs.max_steps
 
     t0 = time.perf_counter()
     plain = plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev)
@@ -1718,7 +2104,10 @@ def drive_stage(stage, config, argv, tok, dev, card):
                          device=dev, **kw)
         launches = _launch_counts()
     wall_s = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the whole run's peak: the steps reset the counter (counted_steps)
+    peak_gib = max([torch.cuda.max_memory_allocated() / 2**30]
+                   + [max(r["prior_peak_gib"], r["peak_gib"])
+                      for r in records])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1729,7 +2118,7 @@ def drive_stage(stage, config, argv, tok, dev, card):
     first = {k: v for k, v in lines[0].items()
              if k not in ("step", "sec_per_step")}
     finite = all(np.isfinite(v) for ln in lines for v in ln.values())
-    updates = targs.max_steps // targs.gradient_accumulation_steps
+    updates = targs.max_steps // accum
     rel_keys = ["loss"] + (["logps/chosen", "logps/rejected"]
                            if stage == "dpo" else [])
     rel = {k: abs(first[k] - plain[k]) / abs(plain[k]) for k in rel_keys}
@@ -1737,37 +2126,43 @@ def drive_stage(stage, config, argv, tok, dev, card):
                         / abs(plain["grad_norm"]))
     ms = [r["ms"] for r in records]
     med = statistics.median(ms[1:])
+    step_peak = max(r["peak_gib"] for r in records)
     rows = targs.per_device_train_batch_size * (2 if stage == "dpo" else 1)
+    rows *= accum if fused else 1
     tokens = rows * targs.model_max_length
-    log(f"[stages] {stage}: {len(lines)} logged microbatches, all finite: "
+    unit = "update" if fused else "microbatch"
+    log(f"[stages] {tag}: {len(lines)} logged {unit}s, all finite: "
         f"{finite}; optimizer updates {info['optimizer_updates']} (need "
-        f"{updates}); launches per microbatch "
+        f"{updates}); launches per {unit} "
         f"{[r['launches'] for r in records]} (need {per_mb} each)")
-    log(f"[stages] {stage}: first microbatch, kernel path vs plain "
+    log(f"[stages] {tag}: first {unit}, kernel path vs plain "
         f"attention: " + ", ".join(
             f"{k} {first[k]:.6f} vs {plain[k]:.6f} (rel {rel[k]:.3e})"
             for k in rel) + f"; tol loss/logps {LOSS_REL_TOL}, grad_norm "
         f"{GRAD_NORM_REL_TOL}")
-    log(f"[stages] {stage}: microbatch ms {' / '.join(f'{t:.1f}' for t in ms)}"
-        f" (median after the first {med:.1f}), {tokens / med * 1e3:.1f} "
+    log(f"[stages] {tag}: {unit} ms {' / '.join(f'{t:.1f}' for t in ms)}"
+        f" (median after the first {med:.1f}"
+        + (f", {med / accum:.1f} a microbatch" if fused else "")
+        + f"), {tokens / med * 1e3:.1f} "
         f"tokens/s ({rows} x {targs.model_max_length} padded), peak device "
-        f"memory {peak_gib:.2f} GiB; checkpoints: load and build "
+        f"memory {peak_gib:.2f} GiB (of the steps {step_peak:.2f}); "
+        f"checkpoints: load and build "
         f"{info['build_and_load_s']:.1f} s, save {info['save_s']:.1f} s; "
         f"run_stage {wall_s:.1f} s, plain reference {plain_s:.1f} s; on "
         f"{card}")
-    if not (finite and len(lines) == targs.max_steps
+    if not (finite and len(lines) == n_steps
             and info["optimizer_updates"] == updates
             and info["microbatches"] == targs.max_steps):
-        raise AssertionError(f"{stage}: metrics {lines} run {info}")
-    if len(records) != targs.max_steps or any(r["launches"] != per_mb
-                                              for r in records):
-        raise AssertionError(f"{stage}: launches {records}, need {per_mb}")
+        raise AssertionError(f"{tag}: metrics {lines} run {info}")
+    if len(records) != n_steps or any(r["launches"] != per_mb
+                                      for r in records):
+        raise AssertionError(f"{tag}: launches {records}, need {per_mb}")
     if not (all(rel[k] <= LOSS_REL_TOL for k in rel_keys)
             and rel["grad_norm"] <= GRAD_NORM_REL_TOL):
-        raise AssertionError(f"{stage}: the kernel path disagrees with plain "
+        raise AssertionError(f"{tag}: the kernel path disagrees with plain "
                              f"attention: {rel}")
     if quant.get("ref_quant"):
-        log(f"[stages] {stage}: --ref_quant {quant['ref_quant']} from the "
+        log(f"[stages] {tag}: --ref_quant {quant['ref_quant']} from the "
             f"config: teacher LLM {quant['teacher_gib_before']:.2f} GiB -> "
             f"{quant['teacher_gib_after']:.2f} GiB on the device, float "
             f"matrices left besides the embedding: "
@@ -1778,12 +2173,103 @@ def drive_stage(stage, config, argv, tok, dev, card):
                 < quant["teacher_gib_before"]):
             raise AssertionError(f"{stage}: the int8 options did not take: "
                                  f"{quant}")
-    return dict(microbatch_ms=ms, median_ms=med, tokens_per_s=tokens / med * 1e3,
-                peak_gib=peak_gib, load_s=info["build_and_load_s"],
+    return dict(step_ms=ms, median_ms=med, tokens_per_s=tokens / med * 1e3,
+                peak_gib=peak_gib, step_peak_gib=step_peak,
+                load_s=info["build_and_load_s"],
                 save_s=info["save_s"], run_stage_s=wall_s,
                 updates=info["optimizer_updates"], launches=launches,
                 launches_per_microbatch=per_mb, first=first, plain_first=plain,
                 rel=rel, last=last, quantization=quant)
+
+
+def _trainable_state(out: str, keys) -> dict:
+    state = torch.load(os.path.join(out, "model.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    return {k: state[k] for k in keys}
+
+
+def fused_stage(config, argv, data, root, tok, dev, card, adamw) -> dict:
+    """[stages fused]: stage 2 again from its config as written, plus
+    `--optimizer adafactor --fused_update`, accumulation 2 and 4
+    microbatches (2 updates), on the repeated-sample dataset, with a
+    checkpoint after update 1.  Global gating (the config sets no gating
+    groups) gives the warning and the folded backward.  Then a second run
+    auto-resumes from that checkpoint alone and must reach the same
+    second update as the uninterrupted one."""
+    import warnings
+
+    from llavamod_tpu_torch.train.run import run_stage
+
+    whole = os.path.join(root, "out_align_fused")
+    cut = os.path.join(root, "out_align_fused_resumed")
+    extra = ["--data_path", data["align_same"], "--optimizer", "adafactor",
+             "--fused_update", "true", "--save_steps", "1"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = drive_stage("align", config, argv + extra
+                          + ["--output_dir", whole], tok, dev, card,
+                          tag="align fused")
+    warned = any("global gating" in str(w.message) for w in caught)
+    log(f"[stages] align fused: global-gating warning given: {warned}; peak "
+        f"of the steps {res['step_peak_gib']:.2f} GiB vs "
+        f"{adamw['step_peak_gib']:.2f} with AdamW (the run's peaks "
+        f"{res['peak_gib']:.2f} vs {adamw['peak_gib']:.2f}); "
+        f"update median {res['median_ms']:.1f} ms, AdamW microbatch median "
+        f"{adamw['median_ms']:.1f} ms; on {card}")
+    if not warned:
+        raise AssertionError("the fused stage with global gating did not "
+                             "warn")
+
+    # auto-resume: only the checkpoint after update 1 survives; the
+    # uninterrupted run's trained tensors wait on the card
+    ckpt = os.path.join(whole, "checkpoint-1")
+    os.makedirs(cut)
+    os.rename(ckpt, os.path.join(cut, "checkpoint-1"))
+    margs, dargs, targs, salign = parse_stage(
+        "align", config, argv + extra + ["--output_dir", cut])
+    saved = torch.load(os.path.join(cut, "checkpoint-1", "state.pt"),
+                       map_location="cpu", weights_only=True, mmap=True)
+    keys = [k for k in saved["opt"]["default"]["state"]]
+    keys += [k for k in saved["opt"]["projector"]["state"]]
+    after1 = {k: saved["model"][k] for k in keys}
+    w_whole = {k: v.to(dev) for k, v in _trainable_state(whole, keys).items()}
+    a = _read_json_lines(os.path.join(whole, "metrics.jsonl"))[-1]
+    shutil.rmtree(whole)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        run_stage("align", margs, dargs, targs, salign=salign, tokenizer=tok,
+                  device=dev)
+        resume_s = time.perf_counter() - t0
+    with open(os.path.join(cut, "run_info.json")) as f:
+        info = json.load(f)
+    b = _read_json_lines(os.path.join(cut, "metrics.jsonl"))[-1]
+    w_cut = _trainable_state(cut, keys)
+    same = sum((w_whole[k] == w_cut[k].to(dev)).sum().item() for k in keys)
+    total = sum(w_whole[k].numel() for k in keys)
+    rel = {"loss": abs(b["loss"] - a["loss"]) / abs(a["loss"]),
+           "grad_norm": abs(b["grad_norm"] - a["grad_norm"])
+           / abs(a["grad_norm"]),
+           "params": math.sqrt(_sq_dist(w_cut, w_whole, dev))
+           / math.sqrt(_sq_dist(w_whole, after1, dev))}
+    log(f"[stages] align fused resume: from {info['resumed_from']} "
+        f"({info['microbatches']} microbatches, {resume_s:.1f} s): update 2 "
+        f"loss {b['loss']:.6f} vs {a['loss']:.6f} (rel {rel['loss']:.2e}, "
+        f"tol {RESUME_LOSS_REL_TOL}), grad_norm rel {rel['grad_norm']:.2e} "
+        f"(tol {RESUME_GRAD_NORM_REL_TOL}); weights after it "
+        f"||w_resumed - w_whole|| / ||w_whole - w_update1|| "
+        f"{rel['params']:.3e} (tol {RESUME_PARAM_REL_TOL}), {same} of "
+        f"{total} trainable entries bitwise equal")
+    if not (info["resumed_from"] and info["optimizer_updates"] == 2
+            and info["microbatches"] == 2
+            and rel["loss"] <= RESUME_LOSS_REL_TOL
+            and rel["grad_norm"] <= RESUME_GRAD_NORM_REL_TOL
+            and rel["params"] <= RESUME_PARAM_REL_TOL):
+        raise AssertionError(f"the resumed fused run differs: {rel} {info}")
+    del saved, after1, w_whole, w_cut
+    shutil.rmtree(cut)
+    return dict(res, resume=dict(rel=rel, bitwise_equal=same / total,
+                                 seconds=resume_s), warned=warned)
 
 
 def check_stage1_outputs(dense_dir: str, out: str) -> None:
@@ -2245,6 +2731,9 @@ def stages_phase(card: str, dev):
                         and moe["moe_layers"] == every_2nd):
                     raise AssertionError(f"stage 2 wrote {moe}")
                 shutil.rmtree(dirs["dense"])
+                results["align_fused"] = fused_stage(
+                    os.path.join(here, config), argvs["align"] + common,
+                    data, root, tok, dev, card, results["align"])
                 shutil.rmtree(outs["pretrain"])
             if stage == "dpo":
                 moe = _moe_config(outs["dpo"])
@@ -2326,9 +2815,12 @@ def main() -> int:
     train_n = trained["launches"]
     serve_n = served["launches"]
     stage_n = {path: stages[stage]["launches"] for stage, path in (
-        ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"))}
+        ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"),
+        ("align_fused", "align_fused"))}
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
+    stage_n["train_fused"] = trained["fused"]["launches"]
+    stage_n["moe_dispatch"] = trained["dispatch"]["launches"]
     for path, run in (("eval", "bf16"), ("eval_int8", "int8"),
                       ("eval_int8_cache", "int8_cache")):
         stage_n[path] = stages["eval"][run]["launches"]

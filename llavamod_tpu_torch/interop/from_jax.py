@@ -8,7 +8,11 @@ flat numpy state (`numpy_from_state_dict`) for leaf-for-leaf comparisons.
 A quantized JAX tree (its {'w_int8', 'scale'} dicts) loads the same way
 into a module quantized with the same flags
 (models/llm/decoder.py `quantize_decoder_int8`), whose `Int8Weight`
-buffers carry those paths.
+buffers carry those paths.  A pre-stacked JAX layer tree
+({'stacked': [...]}) is unstacked with the JAX package's
+`decoder.unstack_layers` first.  `adafactor_state_from_jax` reads optax's
+factored Adafactor statistics into the port's per-parameter state
+(train/adafactor.py).
 """
 
 from __future__ import annotations
@@ -55,3 +59,21 @@ def numpy_from_state_dict(module: nn.Module) -> Dict[str, np.ndarray]:
     arrays are copies: later in-place updates of the module leave them."""
     return {k: v.detach().float().cpu().numpy().copy()
             for k, v in module.state_dict().items()}
+
+
+def adafactor_state_from_jax(factored: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+    """optax's FactoredState (its v_row / v_col / v trees, after
+    `jax.device_get`) -> {state_dict key: {'v_row', 'v_col'} or {'v'}}, f32,
+    the layout of train/adafactor.py `init_leaf`.  optax fills the fields a
+    leaf does not use with (1,) placeholders: a factored leaf's v_row has
+    the parameter's shape less one axis, never (1,).  Leaves that optax
+    masked out (frozen parameters) carry no arrays and get no entry."""
+    rows, cols, vs = (state_dict_from_numpy(t) for t in
+                      (factored.v_row, factored.v_col, factored.v))
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for k, v in vs.items():
+        if tuple(rows[k].shape) != (1,):
+            out[k] = {"v_row": rows[k].float(), "v_col": cols[k].float()}
+        else:
+            out[k] = {"v": v.float()}
+    return out

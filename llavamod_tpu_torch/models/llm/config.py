@@ -5,7 +5,7 @@ package.  Fields, defaults and derived properties are identical;
 tests/test_torch_config.py holds them to the JAX dataclass field by field.
 The parallelism and compile-strategy fields are kept for config-file
 compatibility (llavamod_config.json) and are ignored by the eager PyTorch
-forward.
+forward, `remat_policy` excepted (models/llm/decoder.py).
 """
 
 from __future__ import annotations
@@ -66,8 +66,8 @@ class DecoderConfig:
     moe_layers: Tuple[int, ...] = ()
     moe_use_residual: bool = False
     router_aux_loss_coef: float = 0.01
-    moe_gating_group_size: int = 0
-    moe_dispatch: str = "gather"
+    moe_gating_group_size: int = 0           # 0 = gate all tokens at once
+    moe_dispatch: str = "gather"             # gather | ragged | einsum
 
     # --- parallelism / compile strategy (JAX-only; kept for config I/O) ---
     seq_shard_activations: bool = False
@@ -75,7 +75,7 @@ class DecoderConfig:
     scan_layers: bool = True
     scan_layers_decode: bool = False
     scan_unroll: int = 1
-    remat_policy: str = "none"
+    remat_policy: str = "none"               # none | dots | moe
 
     def __post_init__(self):
         if self.head_dim is None:

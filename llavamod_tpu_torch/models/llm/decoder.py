@@ -11,10 +11,17 @@ keep the JAX names and take the parameter group as `p`:
     through kernel K1 on the card) and the single-token cached path
     (kernel K2 on the card), plus the plain branches the JAX package keeps
     for prefix-LM, sliding-window and ALiBi attention;
-  * `mlp_forward`, `moe_block_forward` (gather dispatch, no gating groups),
-    `layer_forward`, and `forward` as a Python loop over layers; with
-    `remat=True` each layer is recomputed in the backward
-    (`torch.utils.checkpoint`, the JAX per-layer `jax.checkpoint`).
+  * `mlp_forward`, `moe_block_forward`, `layer_forward`, and `forward` as
+    a Python loop over layers.  The MoE block gates all tokens at once or,
+    with `moe_gating_group_size`, fixed-size token groups independently
+    (padded to a group multiple with invalid tokens), and dispatches by
+    `moe_dispatch`: 'gather', 'ragged' (only the kept rows, one product per
+    expert over its contiguous row block) or 'einsum' (one-hot
+    contractions);
+  * recomputation in the backward (`torch.utils.checkpoint`, the JAX
+    `jax.checkpoint`): `remat=True` recomputes each layer, keeping only
+    the layer boundaries, or with `remat_policy='dots'` keeping the matmul
+    outputs too; `remat_policy='moe'` recomputes only the sparse-FFN block.
 
 Parameters are built trainable; which of them train is the caller's
 choice (llavamod_tpu_torch/train/optim.py `apply_trainable_mask`), and
@@ -39,7 +46,11 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
 from llavamod_tpu_torch.models.params import Initializer, Int8Weight, ParamGroup
@@ -49,7 +60,12 @@ from llavamod_tpu_torch.ops.int8 import act_quant_rows, int8_matmul
 from llavamod_tpu_torch.ops.matmul import matmul_f32_out
 from llavamod_tpu_torch.ops.moe import (
     GatingConfig,
+    moe_ffn,
     moe_ffn_gather,
+    moe_ffn_gather_grouped,
+    moe_ffn_ragged,
+    moe_ffn_ragged_grouped,
+    top_k_gating,
     top_k_gating_compact,
 )
 from llavamod_tpu_torch.ops.norms import layer_norm, rms_norm
@@ -436,32 +452,224 @@ def _expert_mlp(cfg: DecoderConfig, experts: ParamGroup,
     return _expert_dense(h, experts.down)
 
 
+def _group_sizes(group_sizes) -> List[int]:
+    """Per-expert row counts on the host (one read of a device tensor)."""
+    if isinstance(group_sizes, torch.Tensor):
+        return group_sizes.tolist()
+    return [int(n) for n in group_sizes]
+
+
+def _ragged_products(x: torch.Tensor, w: torch.Tensor, sizes: List[int],
+                     transpose: bool = False) -> torch.Tensor:
+    """Rows of x grouped by expert (contiguous blocks of `sizes`) times
+    that expert's w [E, K, N] (or its transpose): one product per
+    non-empty block; rows past the blocks give zeros.  An int8 pair gives
+    the exact int32 product (`int8_matmul`)."""
+    int8 = x.dtype == torch.int8
+    parts, start = [], 0
+    for e, n in enumerate(sizes):
+        if n:
+            we = w[e].t() if transpose else w[e]
+            xe = x[start:start + n]
+            parts.append(int8_matmul(xe, we) if int8 else xe @ we)
+        start += n
+    n_out = w.shape[1] if transpose else w.shape[2]
+    tail = x.shape[0] - start
+    if tail or not parts:
+        parts.append(torch.zeros((tail, n_out), device=x.device,
+                                 dtype=torch.int32 if int8 else x.dtype))
+    return torch.cat(parts)
+
+
+def _row_expert_map(sizes: List[int], e: int, m: int, device) -> torch.Tensor:
+    """Row index -> expert id of the expert-major ragged layout (rows past
+    the blocks map to the last expert, as the JAX searchsorted clamp)."""
+    ids = torch.repeat_interleave(torch.arange(e, device=device),
+                                  torch.tensor(sizes, device=device))
+    return torch.cat([ids, torch.full((m - ids.shape[0],), e - 1,
+                                      device=device, dtype=ids.dtype)])
+
+
+class _RaggedDenseInt8(torch.autograd.Function):
+    """W8A8 ragged per-expert product with the straight-through dL/dx: per-
+    row activation scales, the weight scales gathered by the row -> expert
+    map, one int8 product per expert block (JAX `ragged_dense_int8`)."""
+
+    @staticmethod
+    def forward(ctx, xr, w_int8, scale, sizes):
+        row_expert = _row_expert_map(sizes, w_int8.shape[0], xr.shape[0],
+                                     xr.device)
+        xq, s_x = act_quant_rows(xr)
+        y = _ragged_products(xq, w_int8, sizes)
+        s_w = scale.float()[row_expert]
+        ctx.save_for_backward(w_int8, scale, row_expert)
+        ctx.sizes = sizes
+        return (y.float() * s_x * s_w).to(xr.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_int8, scale, row_expert = ctx.saved_tensors
+        gq, s_g = act_quant_rows(g.float() * scale.float()[row_expert])
+        dx = _ragged_products(gq, w_int8, ctx.sizes, transpose=True)
+        return (dx.float() * s_g).to(g.dtype), None, None, None
+
+
+def ragged_dense_int8(xr: torch.Tensor, w_int8: torch.Tensor,
+                      scale: torch.Tensor, group_sizes) -> torch.Tensor:
+    """W8A8 ragged per-expert matmul: xr [M, D] (rows grouped by expert,
+    `group_sizes` [E]) @ {w_int8 [E, D, F], scale [E, F]}, straight-through
+    dL/dx."""
+    return _RaggedDenseInt8.apply(xr, w_int8, scale, _group_sizes(group_sizes))
+
+
+def _ragged_dense(xr: torch.Tensor, w, group_sizes) -> torch.Tensor:
+    """Ragged per-expert matmul: xr [M, D] (rows grouped by expert,
+    group_sizes [E]) @ w [E, D, F] (float, or an Int8Weight) -> [M, F].
+    Only the sum(group_sizes) kept rows are computed.  The JAX package
+    uses `lax.ragged_dot`; here each expert's contiguous row block is one
+    matmul, so the counts are read on the host."""
+    sizes = _group_sizes(group_sizes)
+    if isinstance(w, Int8Weight):
+        return ragged_dense_int8(xr, w.w_int8, w.scale, sizes)
+    return _ragged_products(xr, w, sizes)
+
+
+def _expert_mlp_ragged(cfg: DecoderConfig, experts: ParamGroup,
+                       xr: torch.Tensor, group_sizes) -> torch.Tensor:
+    """Ragged-layout expert FFN: xr [M, D] -> [M, D] (ops/moe.py
+    `moe_ffn_ragged`); the counts are read on the host once for the
+    three products."""
+    sizes = _group_sizes(group_sizes)
+    up = _ragged_dense(xr, experts.up, sizes)
+    if cfg.gated_mlp:
+        h = _activation(cfg, _ragged_dense(xr, experts.gate, sizes)) * up
+    else:
+        h = _activation(cfg, up)
+    return _ragged_dense(h, experts.down, sizes)
+
+
+def _grouped_moe(cfg: DecoderConfig, gcfg: GatingConfig, xs: torch.Tensor,
+                 router_logits: torch.Tensor,
+                 tv: Optional[torch.Tensor], train: bool, expert_fn,
+                 group: int):
+    """Einsum dispatch over fixed-size token groups gated independently
+    (DeepSpeed's per-rank gating).  Returns (y, aux, probs)."""
+    s, d = xs.shape
+    e = cfg.moe_num_experts
+    g = s // group
+    xg = xs.reshape(g, group, d)
+    tvg = tv.reshape(g, group) if tv is not None else None
+    gate = top_k_gating(router_logits.reshape(g, group, e), gcfg,
+                        train=train, token_valid=tvg)
+    c = gate.dispatch.shape[-1]
+    xe = torch.einsum("gsec,gsd->gecd", gate.dispatch.to(xs.dtype), xg)
+    xe = xe.permute(1, 0, 2, 3).reshape(e, g * c, d)
+    ye = expert_fn(xe)
+    ye = ye.reshape(e, g, c, d).permute(1, 0, 2, 3)
+    y = torch.einsum("gsec,gecd->gsd", gate.combine.to(ye.dtype), ye)
+    return y.reshape(s, d), gate.aux_loss.mean(), gate.router_probs.reshape(s, e)
+
+
+_DISPATCH = ("gather", "ragged", "einsum")
+
+
 def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
                       train: bool, token_valid: Optional[torch.Tensor]):
-    """Sparse FFN: x [B, T, D] -> (y, aux_loss, router_probs)."""
-    if cfg.moe_dispatch != "gather" or cfg.moe_gating_group_size:
-        raise NotImplementedError(
-            "the port runs moe_dispatch='gather' without gating groups; "
-            f"got {cfg.moe_dispatch!r}, group {cfg.moe_gating_group_size}")
+    """Sparse FFN: x [B, T, D] -> (y, aux_loss, router_probs).
+
+    With `moe_gating_group_size` = G and B*T > G, every G consecutive
+    tokens are gated on their own (capacity from G, aux loss the mean over
+    groups); B*T off a multiple of G is padded with invalid tokens, which
+    the gate never routes, rather than falling back to global gating."""
+    if cfg.moe_dispatch not in _DISPATCH:
+        raise ValueError(f"moe_dispatch must be one of {_DISPATCH}; got "
+                         f"{cfg.moe_dispatch!r}")
     b, t, d = x.shape
-    xs = x.reshape(b * t, d)
+    n = b * t
+    xs = x.reshape(n, d)
+    e = cfg.moe_num_experts
     gcfg = GatingConfig(
-        num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+        num_experts=e, top_k=cfg.moe_top_k,
         capacity_factor=cfg.moe_capacity_factor,
         eval_capacity_factor=cfg.moe_eval_capacity_factor,
         min_capacity=cfg.moe_min_capacity)
     router_logits = xs.float() @ p.router.float()
-    tv = token_valid.reshape(b * t) if token_valid is not None else None
-    comp = top_k_gating_compact(router_logits, gcfg, train=train,
-                                token_valid=tv)
-    y = moe_ffn_gather(xs, comp, cfg.moe_num_experts,
-                       gcfg.capacity(b * t, train),
-                       lambda xe: _expert_mlp(cfg, p.experts, xe))
+    tv = token_valid.reshape(n) if token_valid is not None else None
+    expert_fn = lambda xe: _expert_mlp(cfg, p.experts, xe)  # noqa: E731
+    expert_fn_ragged = lambda xr, sizes: _expert_mlp_ragged(  # noqa: E731
+        cfg, p.experts, xr, sizes)
+    ragged = cfg.moe_dispatch == "ragged"
+    group = cfg.moe_gating_group_size
+    if group and n > group:
+        pad = -n % group
+        if pad:
+            xs = nn.functional.pad(xs, (0, 0, 0, pad))
+            router_logits = nn.functional.pad(router_logits, (0, 0, 0, pad))
+            tv = nn.functional.pad(
+                tv if tv is not None
+                else torch.ones((n,), dtype=torch.bool, device=x.device),
+                (0, pad))
+        s = xs.shape[0]
+        if cfg.moe_dispatch == "einsum":
+            y, aux, probs = _grouped_moe(cfg, gcfg, xs, router_logits, tv,
+                                         train, expert_fn, group)
+        else:
+            g = s // group
+            comp = top_k_gating_compact(
+                router_logits.reshape(g, group, e), gcfg, train=train,
+                token_valid=tv.reshape(g, group) if tv is not None else None)
+            cap = gcfg.capacity(group, train)
+            y = (moe_ffn_ragged_grouped(xs, comp, e, cap, group,
+                                        expert_fn_ragged) if ragged
+                 else moe_ffn_gather_grouped(xs, comp, e, cap, group,
+                                             expert_fn))
+            aux, probs = comp.aux_loss.mean(), comp.router_probs.reshape(s, e)
+        if pad:
+            y, probs, xs = y[:n], probs[:n], xs[:n]
+    elif cfg.moe_dispatch == "einsum":
+        gate = top_k_gating(router_logits, gcfg, train=train, token_valid=tv)
+        y = moe_ffn(xs, gate.dispatch, gate.combine, expert_fn)
+        aux, probs = gate.aux_loss, gate.router_probs
+    else:
+        comp = top_k_gating_compact(router_logits, gcfg, train=train,
+                                    token_valid=tv)
+        cap = gcfg.capacity(n, train)
+        y = (moe_ffn_ragged(xs, comp, e, cap, expert_fn_ragged) if ragged
+             else moe_ffn_gather(xs, comp, e, cap, expert_fn))
+        aux, probs = comp.aux_loss, comp.router_probs
     if cfg.moe_use_residual:
         res = mlp_forward(cfg, p.residual_mlp, xs)
         coef = torch.softmax((xs @ p.coef).float(), dim=-1)
         y = y * coef[:, :1].to(y.dtype) + res * coef[:, 1:].to(res.dtype)
-    return y.reshape(b, t, d), comp.aux_loss, comp.router_probs
+    return y.reshape(b, t, d), aux, probs
+
+
+# Recomputation policies (DecoderConfig.remat_policy).  'dots' keeps the
+# matmul outputs of a recomputed layer and recomputes the rest (the JAX
+# `dots_with_no_batch_dims_saveable`, here every mm / bmm / addmm / int8
+# product); 'moe' recomputes only the sparse-FFN block (gating, dispatch,
+# expert products: the dominant activations), whatever `remat` says.
+_SAVED_OPS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+              torch.ops.aten.addmm.default, torch.ops.aten._int_mm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def dots_saved_context():
+    """The `context_fn` of torch.utils.checkpoint that keeps matmul
+    outputs (remat_policy='dots', the fused step's 'save_dots')."""
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _moe_block(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor, train: bool,
+               token_valid: Optional[torch.Tensor]):
+    if cfg.remat_policy == "moe" and torch.is_grad_enabled():
+        return checkpoint(moe_block_forward, cfg, p, x, train, token_valid,
+                          use_reentrant=False)
+    return moe_block_forward(cfg, p, x, train, token_valid)
 
 
 def _alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
@@ -657,7 +865,7 @@ def layer_forward(cfg: DecoderConfig, p: DecoderLayer, x: torch.Tensor,
 
     if cfg.parallel_block:
         if p.is_moe:
-            mlp_out, aux, router_probs = moe_block_forward(
+            mlp_out, aux, router_probs = _moe_block(
                 cfg, p.mlp, normed, train, token_valid)
         else:
             mlp_out = mlp_forward(cfg, p.mlp, normed)
@@ -668,7 +876,7 @@ def layer_forward(cfg: DecoderConfig, p: DecoderLayer, x: torch.Tensor,
     x = x + (attn_out if rs is None else attn_out * rs)
     normed2 = _norm(cfg, p.post_attn_input_norm, x)
     if p.is_moe:
-        mlp_out, aux, router_probs = moe_block_forward(
+        mlp_out, aux, router_probs = _moe_block(
             cfg, p.mlp, normed2, train, token_valid)
     else:
         mlp_out = mlp_forward(cfg, p.mlp, normed2)
@@ -724,7 +932,8 @@ def forward(
     positions: [B, T] absolute positions (defaults to arange, or
     cache.length offset during decode).  segment_ids: [B, T] (0 = padding).
     remat: recompute each layer in the backward, keeping only the layer
-    boundaries (no-cache path only, as in the JAX package).
+    boundaries, or also the matmul outputs with remat_policy='dots'
+    (no-cache path only, as in the JAX package).
     """
     if inputs_embeds is None:
         inputs_embeds = embed(model, cfg, input_ids)
@@ -753,8 +962,10 @@ def forward(
         args = (cfg, layer, x, positions, segment_ids, i, cache, train,
                 attn_impl, prefix_mask)
         if rematted:
+            ctx = ({"context_fn": dots_saved_context}
+                   if cfg.remat_policy == "dots" else {})
             x, aux, probs = checkpoint(layer_forward, *args,
-                                       use_reentrant=False)
+                                       use_reentrant=False, **ctx)
         else:
             x, aux, probs = layer_forward(*args)
         aux_total = aux_total + aux

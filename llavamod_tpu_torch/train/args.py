@@ -91,8 +91,10 @@ class TrainArgs:
     max_steps: int = -1                 # -1 = derive from epochs
     learning_rate: float = 2e-5
     mm_projector_lr: Optional[float] = None
-    optimizer: str = "adamw"            # adafactor: ROADMAP Queue 1, item 4
-    fused_update: bool = False          # ROADMAP Queue 1, item 4
+    optimizer: str = "adamw"            # adamw | adafactor
+    # align stage + adafactor: the fused backward+update step
+    # (train/fused_steps.py); accumulation is folded into the batch axis
+    fused_update: bool = False
     # pretrain/SFT: split the batch into N row chunks inside the step and
     # sum token-weighted per-chunk gradients (exact full-batch gradients,
     # activations held for one chunk).  0/1 = off; must divide the batch.

@@ -2,9 +2,8 @@
 
 Re-declared with the same fields and defaults as the JAX dataclass
 (tests/test_torch_config.py holds them field by field), so a recipe reads
-the same in both packages.  Fields of JAX-only mechanisms (the fused
-backward step, Adafactor) are kept for that reason; the port's steps raise
-on the ones they do not run yet.
+the same in both packages.  `param_dtype` is kept for that reason only:
+the port's models carry their dtype themselves.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ class TrainConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True                         # per-layer recompute
-    fused_remat: str = "repeat"                # fused step (not ported yet)
+    fused_remat: str = "repeat"                # repeat | save_dots | save_all
     fused_teacher_chunks: int = -1
     fused_bwd_microbatches: int = -1
     fused_fwd_chunks: int = -1

@@ -1,12 +1,11 @@
 """Host data loading: dataset + sampler + collator -> batch iterator.
 
 The port's own copy of llavamod_tpu/train/loader.py (`DataLoader`,
-`infinite_batches`): batches are assembled by a thread pool (PIL decode and
-tokenization release the GIL through numpy/PIL) and prefetched into a
-bounded queue, in the sampler's order whatever the worker count.  It stands
-in for the reference's torch DataLoader with worker processes
-(dataloader_num_workers 8, shells/train/qwen/pretrain.sh:55).
-`fold_microbatches` comes with the fused update (ROADMAP Queue 1, item 4).
+`infinite_batches`, `fold_microbatches`): batches are assembled by a thread
+pool (PIL decode and tokenization release the GIL through numpy/PIL) and
+prefetched into a bounded queue, in the sampler's order whatever the worker
+count.  It stands in for the reference's torch DataLoader with worker
+processes (dataloader_num_workers 8, shells/train/qwen/pretrain.sh:55).
 """
 
 from __future__ import annotations
@@ -127,3 +126,51 @@ def infinite_batches(loader: DataLoader) -> Iterator[Dict[str, Any]]:
             raise RuntimeError("DataLoader yielded no batches "
                                "(dataset smaller than one batch?)")
 
+
+
+def fold_microbatches(batches: Iterator[Dict[str, Any]], m: int,
+                      rows_per_sample: int) -> Iterator[Dict[str, Any]]:
+    """Concatenate every m consecutive batches along the batch axis.
+
+    Feeds the fused align step's in-batch gradient accumulation
+    (train/fused_steps.py): one folded batch = one optimizer update over
+    m microbatches, with per-microbatch loss normalization done inside
+    the step.  Array values are concatenated on axis 0.
+
+    `image_pos` keys are GLOBAL row indices into the batch-flattened media
+    table (data/collator.py adds `sample_row * rows_per_sample`), so each
+    microbatch's entries are re-offset by the samples folded before it;
+    rows_per_sample must match the collator's
+    (max_images * num_image_tokens)."""
+    import numpy as np
+
+    if m <= 1:
+        yield from batches
+        return
+    while True:
+        group = []
+        for _ in range(m):
+            try:
+                group.append(next(batches))
+            except StopIteration:
+                if group:
+                    raise RuntimeError(
+                        f"{len(group)} dangling microbatch(es) at the end "
+                        f"of the stream (not a multiple of m={m})")
+                return
+        out: Dict[str, Any] = {}
+        for k, v0 in group[0].items():
+            if not isinstance(v0, np.ndarray):
+                if not all(g[k] is v0 or g[k] == v0 for g in group):
+                    raise ValueError(f"non-array batch key '{k}' differs "
+                                     f"across microbatches")
+                out[k] = v0
+            elif k.endswith("image_pos"):
+                parts, row0 = [], 0
+                for g in group:
+                    parts.append(g[k] + row0 * rows_per_sample)
+                    row0 += g[k].shape[0]
+                out[k] = np.concatenate(parts, axis=0)
+            else:
+                out[k] = np.concatenate([g[k] for g in group], axis=0)
+        yield out

@@ -1,4 +1,4 @@
-"""Trainable sets, learning-rate schedules and AdamW (port of
+"""Trainable sets, learning-rate schedules, AdamW and Adafactor (port of
 llavamod_tpu/train/optim.py).
 
 The JAX package decides per leaf of the param tree, by its '/'-joined path,
@@ -17,7 +17,15 @@ lr = 0 on the first update), a separate schedule for the projector when
 Gradient accumulation follows optax.MultiSteps (`MultiSteps`): a running
 mean of the microbatch gradients, the inner update (clip, then AdamW per
 label) on every k-th call only, so the schedule advances once per optimizer
-step.  Adafactor is not ported yet (ROADMAP Queue 1, item 4).
+step.
+
+Adafactor (`optimizer='adafactor'`) follows the JAX `_adafactor`: optax's
+adafactor with decay rate 0.8, parameter scale, update clipping at 1.0 in
+place of the global-norm clip, no momentum, `weight_decay_rate =
+weight_decay or None`, per label as AdamW.  Its rule is
+train/adafactor.py's, whose blocks are single parameter tensors (see
+there); its factored state is a few MB where AdamW's moments are twice the
+trainable bytes.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Callable, Dict, NamedTuple
 import torch
 from torch import nn
 
+from llavamod_tpu_torch.train import adafactor
 from llavamod_tpu_torch.train.config import TrainConfig
 
 
@@ -158,6 +167,52 @@ class AdamW:
         self.count = int(state["count"])
 
 
+class Adafactor:
+    """optax.adafactor (the JAX `_adafactor` settings) over one label group
+    of parameters, with train/adafactor.py's per-tensor rule.
+
+    `update_leaf` updates one parameter at the current count without
+    advancing it, and `advance` ends the update: the fused step applies
+    the rule layer by layer inside its backward; `update` does both for a
+    whole gradient dict."""
+
+    def __init__(self, params: Dict[str, nn.Parameter], cfg: TrainConfig,
+                 lr: float):
+        self.params = params
+        self.schedule = make_lr_schedule(cfg, lr)
+        self.state = {n: adafactor.init_leaf(p) for n, p in params.items()}
+        self.count = 0
+        self.weight_decay_rate = cfg.weight_decay or None
+
+    @torch.no_grad()
+    def update_leaf(self, name: str, grad: torch.Tensor) -> None:
+        p = self.params[name]
+        new_p, self.state[name] = adafactor.update_leaf(
+            p, grad, self.state[name], self.count, self.schedule(self.count),
+            weight_decay_rate=self.weight_decay_rate)
+        p.copy_(new_p)
+
+    def advance(self) -> None:
+        self.count += 1
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor]) -> None:
+        for n in self.params:
+            self.update_leaf(n, grads[n])
+        self.advance()
+
+    def state_dict(self) -> dict:
+        return {"state": self.state, "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        if self.state.keys() != state["state"].keys():
+            raise ValueError("state keys differ: " + str(sorted(
+                self.state.keys() ^ state["state"].keys())[:4]))
+        for n, s in self.state.items():
+            _copy_into(s, state["state"][n])
+        self.count = int(state["count"])
+
+
 @torch.no_grad()
 def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
     if dst.keys() != src.keys():
@@ -166,23 +221,26 @@ def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
         t.copy_(src[n])
 
 
+_GROUP_CLASSES = {"adamw": AdamW, "adafactor": Adafactor}
+
+
 class Optimizer:
-    """clip_by_global_norm, then AdamW per label; frozen parameters are
-    left as they are (optax.set_to_zero)."""
+    """clip_by_global_norm (AdamW only), then AdamW or Adafactor per label;
+    frozen parameters are left as they are (optax.set_to_zero)."""
 
     def __init__(self, model: nn.Module, cfg: TrainConfig):
-        if cfg.optimizer != "adamw":
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r} is not ported yet (Adafactor: "
-                f"ROADMAP Queue 1, item 4)")
+        if cfg.optimizer not in _GROUP_CLASSES:
+            raise ValueError(f"optimizer must be one of "
+                             f"{sorted(_GROUP_CLASSES)}; got {cfg.optimizer!r}")
         self.cfg = cfg
         labels = param_labels(model, cfg)
         named = dict(model.named_parameters())
         lrs = {"default": cfg.learning_rate,
                "projector": cfg.mm_projector_lr or cfg.learning_rate}
+        group_cls = _GROUP_CLASSES[cfg.optimizer]
         self.groups = {
-            lab: AdamW({n: named[n] for n, lb in labels.items() if lb == lab},
-                       cfg, lr)
+            lab: group_cls({n: named[n] for n, lb in labels.items()
+                            if lb == lab}, cfg, lr)
             for lab, lr in lrs.items()}
 
     @property
@@ -192,10 +250,11 @@ class Optimizer:
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """One update from {key: gradient} of every trainable parameter.
-        The gradients are clipped in place; returns their global norm
-        before clipping."""
+        With AdamW the gradients are clipped in place; returns their global
+        norm before clipping."""
         norm = global_norm(grads.values())
-        if self.cfg.max_grad_norm and norm >= self.cfg.max_grad_norm:
+        if (self.cfg.optimizer == "adamw" and self.cfg.max_grad_norm
+                and norm >= self.cfg.max_grad_norm):
             for g in grads.values():
                 g.div_(norm.to(g.dtype)).mul_(self.cfg.max_grad_norm)
         for group in self.groups.values():
@@ -206,6 +265,19 @@ class Optimizer:
     def updates(self) -> int:
         """Optimizer updates applied so far."""
         return next(iter(self.groups.values())).count
+
+    def update_leaf(self, name: str, grad: torch.Tensor) -> None:
+        """Adafactor: update one parameter, in its label's group, at the
+        current count (the fused step; `advance` ends the update)."""
+        for group in self.groups.values():
+            if name in group.params:
+                group.update_leaf(name, grad)
+                return
+        raise KeyError(f"{name} is not a trainable parameter")
+
+    def advance(self) -> None:
+        for group in self.groups.values():
+            group.advance()
 
     def state_dict(self) -> dict:
         return {lab: g.state_dict() for lab, g in self.groups.items()}
@@ -219,7 +291,7 @@ class MultiSteps:
     """optax.MultiSteps(Optimizer, k): every call folds the microbatch
     gradients into a running mean, (g + n * acc) / (n + 1), kept in the
     gradient's dtype; the k-th call hands the mean to the inner optimizer
-    (clip, then AdamW) and starts a new mean."""
+    (clip and AdamW, or Adafactor) and starts a new mean."""
 
     def __init__(self, inner: Optimizer, k: int):
         self.inner, self.k = inner, k

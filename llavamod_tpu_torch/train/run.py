@@ -19,14 +19,19 @@ checkpoint directories:
 
 (or the thin wrappers train.py / align_train.py / dpo_train.py).  Everything
 runs on the card unless the caller passes `device="cpu"` to `run_stage` or
-`main`.  Every branch of the JAX engine that the port does not run yet
-raises NotImplementedError naming the ROADMAP Queue 1 item that ports it.
+`main`.  `--optimizer adafactor` runs on every stage; `--fused_update`
+(align stage, Adafactor) takes the fused backward+update step
+(train/fused_steps.py), with the loader folding each `accum` microbatches
+into one batch.  Every branch of the JAX engine that the port does not run
+yet raises NotImplementedError naming the ROADMAP Queue 1 item that ports
+it.
 
 Per run the output directory gets `metrics.jsonl` (one line per
-`logging_steps` microbatches), `run_info.json` (seconds spent building and
-loading the models, in the loop and saving; microbatches and optimizer
-updates), periodic `checkpoint-<step>/`, the final model
-(`llavamod_config.json` + `model.pt`) and, for stage 1, `mm_projector.bin`.
+`logging_steps` steps: microbatches, or fused updates), `run_info.json`
+(seconds spent building and loading the models, in the loop and saving;
+microbatches and optimizer updates), periodic `checkpoint-<step>/` (<step>
+counts loop steps), the final model (`llavamod_config.json` + `model.pt`)
+and, for stage 1, `mm_projector.bin`.
 """
 
 from __future__ import annotations
@@ -91,10 +96,6 @@ def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
         raise not_ported("LoRA (--lora_enable)", 6)
     if margs.video_tower or margs.s2:
         raise not_ported("video frames and S2 (--video_tower, --s2)", 6)
-    if targs.fused_update:
-        raise not_ported("--fused_update", 4)
-    if targs.optimizer != "adamw":
-        raise not_ported(f"--optimizer {targs.optimizer}", 4)
     if (max(targs.data_parallel, targs.expert_parallel, targs.tensor_parallel,
             targs.pipeline_parallel) > 1 or targs.sequence_parallel):
         raise not_ported("data, expert, tensor, sequence and pipeline "
@@ -457,7 +458,14 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     metrics."""
     from llavamod_tpu_torch.runtime.prefetch import DevicePrefetcher
     from llavamod_tpu_torch.train.checkpoint import maybe_auto_resume
-    from llavamod_tpu_torch.train.loader import infinite_batches
+    from llavamod_tpu_torch.train.fused_steps import (
+        init_fused_state,
+        make_fused_align_step,
+    )
+    from llavamod_tpu_torch.train.loader import (
+        fold_microbatches,
+        infinite_batches,
+    )
     from llavamod_tpu_torch.train.optim import TrainState
     from llavamod_tpu_torch.train.steps import (
         _can_share_tower,
@@ -498,7 +506,24 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     # trees for its lax.scan layer loop, a TPU workaround the port does not
     # carry)
 
-    state = TrainState.create(model, tcfg)
+    # loop budget: total_steps is in MICROBATCHES.  A fused step is one
+    # optimizer update over `accum` folded microbatches, so its call budget
+    # is total / accum: both paths see the same data and apply the same
+    # number of updates.
+    accum = max(1, tcfg.grad_accum_steps)
+    fused = targs.fused_update
+    loop_total = max(1, total_steps // accum) if fused else total_steps
+    if fused:
+        if stage != "align":
+            raise ValueError("--fused_update is align-stage only")
+        if accum > 1:
+            rank0_print(f"[fused] in-batch gradient accumulation: {accum} "
+                        f"microbatches folded per update; running "
+                        f"{loop_total} update steps (= {total_steps} "
+                        f"microbatches)")
+        state = init_fused_state(model, cfg, tcfg)
+    else:
+        state = TrainState.create(model, tcfg)
     state, resumed = maybe_auto_resume(targs.output_dir, state)
     if resumed:
         rank0_print(f"[ckpt] auto-resumed from {resumed}")
@@ -506,7 +531,8 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     build_s = time.perf_counter() - t_build
 
     if stage == "align":
-        step_fn = make_align_step(cfg, teacher_cfg, tcfg)
+        step_fn = (make_fused_align_step(cfg, teacher_cfg, tcfg) if fused
+                   else make_align_step(cfg, teacher_cfg, tcfg))
         call = lambda st, b: step_fn(  # noqa: E731
             st, teacher, batch_from_arrays(b, device=device))
     elif stage == "dpo":
@@ -517,7 +543,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
         call = lambda st, b: step_fn(  # noqa: E731
             st, batch_from_arrays(b, device=device))
 
-    logger = MetricLogger(targs, total_steps)
+    logger = MetricLogger(targs, loop_total)
     os.makedirs(targs.output_dir, exist_ok=True)
     last_metrics: Dict[str, float] = {}
     step_no = start_step
@@ -536,12 +562,14 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
         prev_handler = None
 
     host_batches = infinite_batches(loader)
+    batches = (fold_microbatches(host_batches, accum, rows_per_sample=(
+        cfg.max_images * cfg.num_image_tokens)) if fused else host_batches)
     profiler = None
     save_s = 0.0
     t_loop = time.perf_counter()
     try:
-        for batch in DevicePrefetcher(host_batches, device=device):
-            if step_no >= total_steps or stop_requested:
+        for batch in DevicePrefetcher(batches, device=device):
+            if step_no >= loop_total or stop_requested:
                 break
             if targs.profile_steps and step_no == start_step + 1:
                 profiler = _start_profiler(device)
@@ -555,7 +583,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
                 profiler = None
             if stop_requested or (
                     targs.save_steps and step_no % targs.save_steps == 0
-                    and step_no < total_steps):
+                    and step_no < loop_total):
                 t_save = time.perf_counter()
                 _save_periodic(targs.output_dir, step_no, state, tcfg, cfg,
                                targs.save_total_limit)
@@ -574,7 +602,8 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     final_save(targs.output_dir, cfg, state, tcfg)
     save_s += time.perf_counter() - t_save
     info = {"stage": stage, "build_and_load_s": build_s, "loop_s": loop_s,
-            "save_s": save_s, "microbatches": step_no - start_step,
+            "save_s": save_s,
+            "microbatches": (step_no - start_step) * (accum if fused else 1),
             "step": step_no, "optimizer_updates": state.opt.updates,
             "resumed_from": resumed}
     with open(os.path.join(targs.output_dir, "run_info.json"), "w") as f:

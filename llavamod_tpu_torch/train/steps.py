@@ -255,8 +255,9 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
     chunks, each forward + backward in turn, so activations are held for
     one chunk only; each chunk's CE is weighted by its token share and the
     aux loss by coef / n, so the summed gradients are the one-shot ones.
-    An MoE decoder keeps one chunk unless gating groups tile the chunk (the
-    port has no gating groups, so it always does)."""
+    An MoE decoder keeps one chunk unless gating groups
+    (`moe_gating_group_size`) tile the chunk: global gating pools capacity
+    over the whole batch, which chunks would not reproduce."""
     moe_on = cfg.llm.is_moe and tcfg.moe_loss_enable
     coef = cfg.llm.router_aux_loss_coef if moe_on else 0.0
     rows_per_sample = cfg.max_images * cfg.num_image_tokens

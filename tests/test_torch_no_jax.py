@@ -74,4 +74,5 @@ def test_importing_the_port_loads_no_jax():
         "train.loader", "train.train", "train.align_train", "train.dpo_train",
         "data.preprocess", "data.dataset", "data.collator",
         "runtime.prefetch", "utils.logging", "utils.misc",
-        "ops.int8")} <= set(_modules())
+        "ops.int8", "ops.moe", "train.adafactor", "train.fused_steps",
+        "train.optim", "models.llm.decoder")} <= set(_modules())

@@ -98,12 +98,10 @@ def _unflatten(tree, flat, prefix=""):
 
 
 def test_adafactor_and_accumulation_wait():
-    """Adafactor still waits (ROADMAP Queue 1, item 4); accumulation is
-    ported: it wraps the optimizer in MultiSteps (held against
-    optax.MultiSteps in tests/test_torch_pretrain_dpo_step.py)."""
+    """Accumulation wraps the optimizer in MultiSteps (held against
+    optax.MultiSteps in tests/test_torch_pretrain_dpo_step.py; Adafactor,
+    ported since, in tests/test_torch_adafactor.py)."""
     model = matched_llava(tiny_llava_config())[2]
-    with pytest.raises(NotImplementedError):
-        toptim.TrainState.create(model, TrainConfig(optimizer="adafactor"))
     state = toptim.TrainState.create(model, TrainConfig(grad_accum_steps=2))
     assert isinstance(state.opt, toptim.MultiSteps) and state.opt.k == 2
     assert set(state.opt.acc) == set(state.opt.params)

@@ -13,7 +13,14 @@ checkpoint}.py) on the CPU, at tiny sizes:
     equal arrays, and the files are byte for byte the same;
   * `main([...], device="cpu")` runs with an HF tokenizer directory;
   * the port's and the JAX package's `run_stage("pretrain")`, from one
-    checkpoint and one dataset, log the same first losses (rel 1e-4);
+    checkpoint and one dataset, log the same first losses (rel 1e-4), with
+    AdamW on the projector and with `--optimizer adafactor` on the whole
+    LLM (the JAX trainer with `prestack_layers=False`: the port's
+    Adafactor blocks are single matrices);
+  * `--fused_update` runs the align stage with accumulation 2: one update
+    per 2 folded microbatches, the global-gating warning, and a run
+    stopped at a checkpoint and auto-resumed ends with the parameters of
+    an uninterrupted one;
   * every option the port does not run yet raises NotImplementedError
     naming its ROADMAP item."""
 
@@ -342,19 +349,100 @@ def test_pretrain_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
             np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
 
 
+def test_adafactor_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
+    kw = dict(max_steps=3, gradient_accumulation_steps=1,
+              optimizer="adafactor", learning_rate=1e-2)
+    margs = dict(version="plain", tune_mm_mlp_adapter=False)
+    data = dict(data_path=[dirs["sft"]], image_folder=dirs["imgs"])
+    trun.run_stage("pretrain", ModelArgs(model_name_or_path=dirs["port"],
+                                         **margs),
+                   DataArgs(**data), _targs(tmp_path / "port", **kw),
+                   tokenizer=StubTok(), device="cpu")
+    jrun.run_stage("pretrain", jargs.ModelArgs(model_name_or_path=dirs["jax"],
+                                               **margs),
+                   jargs.DataArgs(**data),
+                   jargs.TrainArgs(**dict(vars(_targs(tmp_path / "jax", **kw)),
+                                          prestack_layers=False)),
+                   tokenizer=StubTok())
+    got, want = _lines(tmp_path / "port"), _lines(tmp_path / "jax")
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for k in ("loss", "loss/lm", "num_tokens", "grad_norm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+    assert got[2]["loss"] != got[0]["loss"]      # the updates moved it
+    before, after = _state(dirs["port"]), _state(tmp_path / "port")
+    assert not torch.equal(before["llm.layers.0.mlp.up"],
+                           after["llm.layers.0.mlp.up"])
+
+
+def _fused_align(out, dirs, sft, imgs, **kw):
+    base = dict(max_steps=4, gradient_accumulation_steps=2,
+                optimizer="adafactor", fused_update=True,
+                model_max_length=256, learning_rate=1e-2)
+    base.update(kw)
+    return trun.run_stage(
+        "align", ModelArgs(version="qwen", moe_enable=True,
+                           train_modules=["mlp.gate_proj", "mlp.up_proj",
+                                          "mlp.down_proj", "wg"]),
+        DataArgs(data_path=[sft], image_folder=imgs), _targs(out, **base),
+        salign=AlignArgs(policy_model_name_or_path=dirs["port"],
+                         ref_model_name_or_path=dirs["port"],
+                         loss_type="kd_lm", moe_loss_enable=True),
+        tokenizer=StubTok(), device="cpu")
+
+
+def test_fused_update_runs_the_align_stage(tmp_path, dirs):
+    out = tmp_path / "fused"
+    with pytest.warns(UserWarning, match="global gating"):
+        last = _fused_align(out, dirs, dirs["sft"], dirs["imgs"])
+    lines = _lines(out)
+    assert [ln["step"] for ln in lines] == [1, 2]
+    assert all(np.isfinite(v) for ln in lines for v in ln.values())
+    assert last["num_tokens"] > 1 and "loss/moe_balance" in last
+    info = _info(out)
+    assert (info["microbatches"], info["optimizer_updates"]) == (4, 2)
+    cfg, model = tbuilder.load_model(str(out), device="cpu")
+    assert cfg.llm.is_moe
+    assert trun.refuse_unported(ModelArgs(), _targs(out, fused_update=True,
+                                                    optimizer="adafactor")) \
+        is None
+
+
+def test_fused_auto_resume_matches_an_uninterrupted_run(tmp_path, dirs):
+    sft, _, imgs = _write_data(tmp_path, n=4, same=True)   # every batch alike
+    kw = dict(save_steps=1, save_total_limit=1)
+    whole, cut = tmp_path / "whole", tmp_path / "cut"
+    with pytest.warns(UserWarning, match="global gating"):
+        _fused_align(whole, dirs, sft, imgs, **kw)
+    saved = torch.load(whole / "checkpoint-1" / "state.pt", weights_only=True)
+    assert saved["step"] == 1
+    assert saved["opt"]["default"]["count"] == 1
+    cut.mkdir()
+    os.rename(whole / "checkpoint-1", cut / "checkpoint-1")
+    with pytest.warns(UserWarning, match="global gating"):
+        _fused_align(cut, dirs, sft, imgs, **kw)
+    assert _info(cut)["resumed_from"] == str(cut / "checkpoint-1")
+    assert _info(cut)["microbatches"] == 2
+    assert _info(cut)["optimizer_updates"] == _info(whole)[
+        "optimizer_updates"] == 2
+    a, b = _state(whole), _state(cut)
+    for k in a:
+        np.testing.assert_allclose(b[k].numpy(), a[k].numpy(), rtol=0,
+                                   atol=1e-7, err_msg=k)
+    assert _lines(cut)[-1]["loss"] == _lines(whole)[-1]["loss"]
+
+
 @pytest.mark.parametrize("option,item", [
     (dict(margs=dict(lora_enable=True)), 6),
     (dict(margs=dict(s2=True)), 6),
     (dict(margs=dict(video_tower="frames")), 6),
-    (dict(targs=dict(fused_update=True)), 4),
-    (dict(targs=dict(optimizer="adafactor")), 4),
     (dict(targs=dict(data_parallel=2)), 9),
     (dict(targs=dict(expert_parallel=2)), 9),
     (dict(targs=dict(sequence_parallel=True)), 9),
     (dict(model="hf_dir"), 7),
     (dict(model="tiktoken_dir"), 7),
-], ids=["lora", "s2", "video", "fused_update", "adafactor", "data_parallel",
-        "expert_parallel", "sequence_parallel", "hf_dir", "tiktoken"])
+], ids=["lora", "s2", "video", "data_parallel", "expert_parallel",
+        "sequence_parallel", "hf_dir", "tiktoken"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item):
     model = dirs["port"]
