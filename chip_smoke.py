@@ -70,10 +70,18 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
   6. stages: the trainer entry point (`train/run.py::run_stage`) through
      the paper's three stages at full width, from the repository's stage
      configs as written, chained through checkpoint directories in a
-     temporary directory (removed at the end whatever happens): a seeded
-     dense LLaVA-Qwen1.5-1.8B and a Qwen1.5-7B teacher without a tower,
-     written in bf16 with `save_model`; seeded 336x336 PNGs and three JSON
-     datasets in the reference formats, read through a stand-in tokenizer;
+     temporary directory (removed at the end whatever happens).  The stages
+     start from Hugging Face checkpoint directories, as the recipes do
+     ([hf]): a seeded Qwen1.5-1.8B written as its public release lays it
+     out (config.json, 2 bf16 safetensors shards and their index; stage 1
+     fills the projector and the tower from its seed) and a seeded
+     LLaVA-Qwen1.5-7B teacher without a tower written by the port's
+     `export_hf_llava` (pytorch_model.bin); each is built by
+     `build_llava`'s HF branch on the card, its llm.* and projector.*
+     entries bitwise the seeded source, with the seconds to write and to
+     load and the host's peak resident memory of the load.  Seeded
+     336x336 PNGs and three JSON datasets in the reference formats, read
+     through a stand-in tokenizer;
      stage 1 (projector only, B=8, accumulation 2) -> stage 2 (upcycled to
      4 experts top-2 inside the stage, kd_lm against the teacher in W8A8
      with an int8 head, the student head pre-quantized, record train set,
@@ -106,7 +114,16 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      pope; then `run_llava.single_query` and the chat CLI, streamed and
      not, whose greedy replies must be equal.  Each run prints
      questions/s, the host ms of batch building, prefill ms, decode
-     ms/step and peak device memory.
+     ms/step and peak device memory;
+  8. [hf] round trip: stage 3's student written by `export_hf_llava`
+     (DeepSpeed MoE keys, the embedded moe block) and its tower as an HF
+     CLIP directory (held by a round trip on the card); the eval CLI with
+     `--vision-path` (`load_pretrained_model(hf_dir, vision_path=...)`)
+     answers the 20 questions again, every row token for token and the
+     first batch's prefill logits bitwise the native bf16 run's, with K1 /
+     K2 launches as expected and no plain attention; tools/import_hf, tools/consolidate and
+     tools/extract_mm_projector on the HF directory must give stage 3's
+     llm.* and projector.* bit for bit.
 
 Prints the kernels' JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -1851,14 +1868,171 @@ def _param_count(cfg, vision: bool = True) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def write_safetensors(path: str, state: dict) -> int:
+    """Scaffolding, not a port feature: one .safetensors file in the
+    documented layout (8-byte little-endian header length, the JSON header
+    of dtype / shape / data_offsets padded to 8 bytes, the raw bytes).
+    Returns the bytes written."""
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, offset, cpu = {}, 0, {}
+    for k, v in state.items():
+        cpu[k] = v.detach().to("cpu").contiguous()
+        n = cpu[k].numel() * cpu[k].element_size()
+        header[k] = {"dtype": names[cpu[k].dtype],
+                     "shape": list(cpu[k].shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little") + raw)
+        for k, v in cpu.items():
+            f.write(memoryview(v.view(-1).view(torch.uint8).numpy()))
+    return 8 + len(raw) + offset
+
+
+def write_hf_llm(out_dir: str, llm, state: dict, shards: int = 2) -> int:
+    """A text-only LLM directory as the public Qwen/Qwen1.5-1.8B release
+    lays it out: config.json (model_type qwen2) and the weights in
+    `shards` bf16 safetensors files of about equal size with
+    model.safetensors.index.json.  Returns the bytes of the weights."""
+    from llavamod_tpu_torch.interop.hf import decoder_params_to_hf
+
+    os.makedirs(out_dir)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+            "vocab_size": llm.vocab_size, "hidden_size": llm.hidden_size,
+            "intermediate_size": llm.intermediate_size,
+            "num_hidden_layers": llm.num_layers,
+            "num_attention_heads": llm.num_heads,
+            "num_key_value_heads": llm.num_kv_heads,
+            "max_position_embeddings": llm.max_position_embeddings,
+            "rope_theta": llm.rope_theta, "rms_norm_eps": llm.rms_norm_eps,
+            "tie_word_embeddings": llm.tie_word_embeddings,
+            "hidden_act": "silu", "torch_dtype": "bfloat16",
+            "use_sliding_window": False,
+            "sliding_window": llm.max_position_embeddings}, f, indent=2)
+    hf_state = decoder_params_to_hf(state, llm)
+    total = sum(v.numel() * v.element_size() for v in hf_state.values())
+    parts, size = [[]], 0
+    for k, v in hf_state.items():
+        if size >= total * len(parts) / shards and len(parts) < shards:
+            parts.append([])
+        parts[-1].append(k)
+        size += v.numel() * v.element_size()
+    weight_map, written = {}, 0
+    for i, keys in enumerate(parts):
+        name = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        written += write_safetensors(os.path.join(out_dir, name),
+                                     {k: hf_state[k] for k in keys})
+        weight_map.update({k: name for k in keys})
+    with open(os.path.join(out_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2)
+    return written
+
+
+def vision_params_to_hf(state: dict, cfg) -> dict:
+    """Scaffolding: the inverse of interop/hf.py `vision_params_from_hf`, an
+    HF CLIPVisionModel state dict ('vision_model.*' keys, [out, in] weights,
+    the [D, C, p, p] patch convolution without a bias, as HF CLIP has
+    none; the tower's patch bias must be zero)."""
+    p = "vision_model."
+    d = cfg.hidden_size
+    if "patch_embed.bias" in state and bool(state["patch_embed.bias"].any()):
+        raise AssertionError("an HF CLIP tower has no patch bias")
+    out = {p + "embeddings.patch_embedding.weight":
+           state["patch_embed.kernel"].t().reshape(
+               d, 3, cfg.patch_size, cfg.patch_size).contiguous(),
+           p + "embeddings.position_embedding.weight": state["pos_embed"],
+           p + "embeddings.class_embedding": state["class_token"]}
+    for ours, hf_name in (("pre_ln", "pre_layrnorm"),
+                          ("post_ln", "post_layernorm")):
+        for leaf in ("weight", "bias"):
+            out[f"{p}{hf_name}.{leaf}"] = state[f"{ours}.{leaf}"]
+    for i in range(cfg.num_layers):
+        q, h = f"layers.{i}.", f"{p}encoder.layers.{i}."
+        for ours, hf_name in (("ln1", "layer_norm1"), ("ln2", "layer_norm2")):
+            for leaf in ("weight", "bias"):
+                out[f"{h}{hf_name}.{leaf}"] = state[f"{q}{ours}.{leaf}"]
+        for ours, hf_name in (("attn.q", "self_attn.q_proj"),
+                              ("attn.k", "self_attn.k_proj"),
+                              ("attn.v", "self_attn.v_proj"),
+                              ("attn.o", "self_attn.out_proj"),
+                              ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+            out[f"{h}{hf_name}.weight"] = state[f"{q}{ours}.kernel"].t() \
+                .contiguous()
+            out[f"{h}{hf_name}.bias"] = state[f"{q}{ours}.bias"]
+    return out
+
+
+class HostPeak:
+    """The host's peak resident memory over a block: VmRSS sampled every
+    20 ms (a process may not be allowed to reset its kernel high-water
+    mark through /proc/self/clear_refs), or `getrusage` ru_maxrss where the
+    block set a new peak of the process (then it is the block's peak), and
+    the VmRSS before the block."""
+
+    @staticmethod
+    def _rss_gib() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 2**30
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    @staticmethod
+    def _maxrss_gib() -> float:
+        import resource
+
+        return resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024 / 2**30
+
+    def __enter__(self):
+        self.before_gib = self._rss_gib()
+        self.maxrss_before = self._maxrss_gib()
+        self.samples, self.stop = [self.before_gib], threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def _sample(self):
+        while not self.stop.wait(0.02):
+            self.samples.append(self._rss_gib())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.samples.append(self._rss_gib())
+        self.rusage_gib = self._maxrss_gib()
+        self.gib = max(self.samples + ([self.rusage_gib] if self.rusage_gib
+                                       > self.maxrss_before else []))
+        return False
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
 def write_stage_models(root: str, dev) -> dict:
-    """The seeded dense LLaVA (Qwen1.5-1.8B, CLIP-ViT-L/336, mlp2x_gelu) and
-    the Qwen1.5-7B teacher without a tower, bf16, written with `save_model`
-    as a user brings checkpoints.  Fails, with the numbers, when the disk
-    cannot hold them and the stages' outputs."""
+    """The stages' starting models as Hugging Face checkpoint directories,
+    from seeded bf16 weights, as the recipes start from them: the
+    text-only Qwen1.5-1.8B LLM laid out as its public release (2
+    safetensors shards with an index; stage 1 fills the projector and the
+    tower from its seed, exactly what the reference's stage 1 starts from)
+    and the HF LLaVA-Qwen1.5-7B teacher written by the port's
+    `export_hf_llava` (pytorch_model.bin, no tower).  Each directory is then
+    built by `build_llava`'s HF branch on the card, and its llm.* and
+    projector.* entries must equal the seeded source bit for bit.  Fails,
+    with the numbers, when the disk cannot hold them and the stages'
+    outputs."""
+    from llavamod_tpu_torch.interop.hf import export_hf_llava
     from llavamod_tpu_torch.models import llava
-    from llavamod_tpu_torch.models.builder import save_model
     from llavamod_tpu_torch.models.llava import LlavaConfig
+    from llavamod_tpu_torch.models.llm import decoder
     from llavamod_tpu_torch.models.llm.config import (
         QWEN1_5_1_8B,
         QWEN1_5_7B,
@@ -1878,7 +2052,8 @@ def write_stage_models(root: str, dev) -> dict:
           "moe": 2 * _param_count(moe_cfg) / 1e9}
     # on disk at once, at most: the inputs with the outputs of stages 1 and
     # 2, or (the dense model gone) stage 1's output, the teacher, stage 2's
-    # output and the fused stage 2's checkpoint and final model
+    # output and the fused stage 2's checkpoint and final model; the HF
+    # round trip after the eval holds 3 MoE students and a tower at most
     need = max(gb["dense"] * 2 + gb["teacher"] + gb["moe"],
                gb["dense"] + gb["teacher"] + gb["moe"] * 3) + 1.0
     free = shutil.disk_usage(root).free / 1e9
@@ -1888,20 +2063,89 @@ def write_stage_models(root: str, dev) -> dict:
     if free < need:
         raise AssertionError(f"the stages need {need:.1f} GB of disk in "
                              f"{root}, {free:.1f} GB are free")
-    dirs, t0 = {}, time.perf_counter()
+    dirs, stats = {}, {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for name, cfg, vision in (("dense", dense_cfg, True),
-                              ("teacher", teacher_cfg, False)):
-        with torch.no_grad():
-            model = llava.init(cfg, gen, device=dev, dtype=torch.bfloat16,
-                               vision=vision)
-        dirs[name] = save_model(os.path.join(root, name), model)
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-    log(f"[stages] built and wrote the dense LLaVA and the teacher in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return dirs
+    with torch.no_grad():
+        llm = decoder.init(dense_cfg.llm, gen, device=dev,
+                           dtype=torch.bfloat16)
+    dirs["dense"] = os.path.join(root, "Qwen1.5-1.8B")
+    source = {"llm." + k: v for k, v in llm.state_dict().items()}
+    t0 = time.perf_counter()
+    write_hf_llm(dirs["dense"], dense_cfg.llm, llm.state_dict())
+    stats["dense"] = dict(write_s=time.perf_counter() - t0,
+                          bytes=dir_bytes(dirs["dense"]))
+    log(f"[hf] dense: wrote {stats['dense']['bytes'] / 1e9:.3f} GB (2 bf16 "
+        f"safetensors shards) in {stats['dense']['write_s']:.1f} s")
+    del llm
+    stats["dense"].update(check_hf_build("dense", dirs["dense"], source,
+                                         "pretrain", dev))
+    del source
+    with torch.no_grad():
+        model = llava.init(teacher_cfg, gen, device=dev, dtype=torch.bfloat16,
+                           vision=False)
+    dirs["teacher"] = os.path.join(root, "llava-qwen1.5-7b")
+    t0 = time.perf_counter()
+    export_hf_llava(dirs["teacher"], teacher_cfg, model.state_dict())
+    stats["teacher"] = dict(write_s=time.perf_counter() - t0,
+                            bytes=dir_bytes(dirs["teacher"]))
+    log(f"[hf] teacher: wrote {stats['teacher']['bytes'] / 1e9:.3f} GB "
+        f"(pytorch_model.bin) in {stats['teacher']['write_s']:.1f} s")
+    source = model.state_dict()
+    stats["teacher"].update(check_hf_build("teacher", dirs["teacher"], source,
+                                           "align", dev))
+    del model, source
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dirs, stats
+
+
+def stage_seed(stage: str) -> tuple:
+    """(margs, the seed `build_stage_models` gives the stage's policy and its
+    teacher) from the stage's config as written."""
+    config = dict(STAGE_CONFIGS)[stage]
+    margs, _, targs, _ = parse_stage(stage, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), config), [])
+    return margs, targs.seed, targs.seed + 7
+
+
+def check_hf_build(name: str, path: str, source: dict, stage: str, dev
+                   ) -> dict:
+    """`build_llava`'s HF branch on `path` onto the card, as `stage` builds
+    it (a policy with the stage's seed, a teacher with the teacher's):
+    seconds, the host's peak resident memory, and every llm.* and
+    projector.* entry of `source` bitwise in the built model."""
+    from llavamod_tpu_torch.train.run import build_llava
+
+    margs, seed, teacher_seed = stage_seed(stage)
+    torch.cuda.synchronize()
+    with HostPeak() as peak:
+        t0 = time.perf_counter()
+        cfg, model = build_llava(path, margs, seed=teacher_seed
+                                 if name == "teacher" else seed, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    built = model.state_dict()
+    keys = [k for k in source if k.split(".")[0] in ("llm", "projector")]
+    equal = sum(bool(torch.equal(built[k], source[k].to(dev))) for k in keys)
+    file_gib = dir_bytes(path) / 2**30
+    rise = peak.gib - peak.before_gib
+    log(f"[hf] {name}: build_llava from {os.path.basename(path)} onto the "
+        f"card in {load_s:.2f} s, {cfg.llm.name} {cfg.llm.num_layers} layers "
+        f"{built['llm.embed.embedding'].dtype}; host peak RSS {peak.gib:.2f} "
+        f"GiB ({peak.gib / file_gib:.2f}x the "
+        f"{file_gib:.2f} GiB of files), {peak.before_gib:.2f} GiB before the "
+        f"load, so the load "
+        f"added {rise:.2f} GiB ({rise / file_gib:.2f}x); getrusage ru_maxrss "
+        f"{peak.rusage_gib:.2f} GiB; {equal} of {len(keys)} llm.* / "
+        f"projector.* entries bitwise the seeded source")
+    if equal != len(keys) or not keys or set(keys) - set(built):
+        raise AssertionError(f"{name}: the HF build differs from its source")
+    del model, built
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(load_s=load_s, peak_rss_gib=peak.gib,
+                rss_before_gib=peak.before_gib,
+                rusage_maxrss_gib=peak.rusage_gib, entries_equal=equal)
 
 
 @contextlib.contextmanager
@@ -2027,6 +2271,9 @@ def _read_json_lines(path):
 def _num_layers(model_dir: str) -> int:
     from llavamod_tpu_torch.models.builder import CONFIG_NAME
 
+    if not os.path.exists(os.path.join(model_dir, CONFIG_NAME)):
+        with open(os.path.join(model_dir, "config.json")) as f:
+            return json.load(f)["num_hidden_layers"]
     with open(os.path.join(model_dir, CONFIG_NAME)) as f:
         return json.load(f)["llm"]["num_layers"]
 
@@ -2272,18 +2519,22 @@ def fused_stage(config, argv, data, root, tok, dev, card, adamw) -> dict:
                                  seconds=resume_s), warned=warned)
 
 
-def check_stage1_outputs(dense_dir: str, out: str) -> None:
-    """Stage 1 moved the projector only, and its mm_projector.bin loads."""
+def check_stage1_outputs(dense_dir: str, out: str, dev) -> None:
+    """Stage 1 moved the projector only, and its mm_projector.bin loads:
+    the starting model is `build_llava` of the HF directory with the
+    stage's seed (the tower and projector it fills), built again here."""
     from llavamod_tpu_torch.train.checkpoint import load_mm_projector
+    from llavamod_tpu_torch.train.run import build_llava
 
-    def state(d):
-        return torch.load(os.path.join(d, "model.pt"), map_location="cpu",
-                          weights_only=True, mmap=True)
-
-    before, after = state(dense_dir), state(out)
+    margs, seed, _ = stage_seed("pretrain")
+    before = build_llava(dense_dir, margs, seed=seed, device=dev)[1] \
+        .state_dict()
+    after = torch.load(os.path.join(out, "model.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
     if before.keys() != after.keys():
         raise AssertionError("stage 1 changed the model's keys")
-    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    moved = sorted(k for k in before
+                   if not torch.equal(before[k], after[k].to(dev)))
     frozen_moved = [k for k in moved if not k.startswith("projector.")]
     proj = load_mm_projector(os.path.join(out, "mm_projector.bin"),
                              "mlp2x_gelu")
@@ -2293,6 +2544,9 @@ def check_stage1_outputs(dense_dir: str, out: str) -> None:
         f"{not frozen_moved}), {len(before) - len(moved)} decoder and tower "
         f"tensors bitwise unchanged; mm_projector.bin loads and equals the "
         f"saved projector: {proj_ok}")
+    del before
+    gc.collect()
+    torch.cuda.empty_cache()
     if frozen_moved or not moved or not proj_ok:
         raise AssertionError(f"stage 1 outputs: moved {frozen_moved[:4]}, "
                              f"projector file ok {proj_ok}")
@@ -2586,8 +2840,9 @@ def eval_phase(model_dir: str, image_dir: str, root: str, tok, card: str):
     images = [runner._load_image(q, image_dir)[1] for q in first]
     batch = runner._encode_batch(
         [runner.build_prompt(q["text"], True) for q in first], images)
-    _, out["logits_rel"] = prefill_logits_vs_plain(runner.cfg, runner.model,
-                                                   batch, "[eval] first batch:")
+    first_logits, out["logits_rel"] = prefill_logits_vs_plain(
+        runner.cfg, runner.model, batch, "[eval] first batch:")
+    out["bf16_first_logits"] = first_logits.cpu()
     del runner, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2604,6 +2859,7 @@ def eval_phase(model_dir: str, image_dir: str, root: str, tok, card: str):
     lead = [int(np.argmin(np.append(a == b, False)))
             for a, b in zip(ids8, ids16)]
     later = float((ids16[:, 1:] == ids8[:, 1:]).mean())
+    out["bf16_rows"] = ids16
     out["int8_cache"].update(first_token_rows_equal=first_equal,
                              leading_tokens_equal=lead,
                              later_positions_equal=later)
@@ -2693,12 +2949,183 @@ def eval_phase(model_dir: str, image_dir: str, root: str, tok, card: str):
     return out
 
 
+def hf_roundtrip_phase(student_dir: str, image_dir: str, root: str, tok,
+                       card: str, native_ids, native_logits, dev) -> dict:
+    """[hf]: stage 3's MoE student through Hugging Face directories and the
+    checkpoint tools.  `export_hf_llava` writes it (DeepSpeed MoE keys, the
+    embedded moe block); its tower becomes an HF CLIP directory
+    (`vision_model.*`) through the smoke's inverse of
+    `vision_params_from_hf`, held by a round trip on the card;
+    the eval CLI with `--model-path hf_dir --vision-path clip_dir`
+    (`load_pretrained_model(hf_dir, vision_path=clip_dir)`) builds the
+    student on the card and answers the 20 questions again: every row
+    token for token the native bf16 run's and the first batch's prefill
+    logits bitwise its logits, K1 / K2 launches as expected and no plain
+    attention.  Then tools/import_hf, tools/consolidate and
+    tools/extract_mm_projector on the HF directory: llm.* and projector.*
+    bitwise stage 3's."""
+    from llavamod_tpu_torch.interop.hf import (
+        export_hf_llava,
+        vision_params_from_hf,
+    )
+    from llavamod_tpu_torch.models import builder
+    from llavamod_tpu_torch.tools import consolidate, extract_mm_projector
+    from llavamod_tpu_torch.tools import import_hf
+    from llavamod_tpu_torch.train.checkpoint import load_mm_projector
+
+    out = {}
+    cfg, model = builder.load_model(student_dir, device=dev)
+    state = model.state_dict()
+    hf_dir = os.path.join(root, "llava-mod-2b-hf")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    export_hf_llava(hf_dir, cfg, state)
+    out["export"] = dict(write_s=time.perf_counter() - t0,
+                         bytes=dir_bytes(hf_dir))
+    with open(os.path.join(hf_dir, "config.json")) as f:
+        moe_block = json.load(f).get("moe", {})
+    keys = torch.load(os.path.join(hf_dir, "pytorch_model.bin"),
+                      map_location="cpu", weights_only=True, mmap=True).keys()
+    layer0 = "model.layers.0.mlp.deepspeed_moe."
+    naming = (layer0 + "gate.wg.weight" in keys
+              and layer0 + "experts.deepspeed_experts.3.up_proj.weight" in keys
+              and "model.layers.1.mlp.up_proj.weight" in keys)
+    log(f"[hf] export_hf_llava of stage 3's student: "
+        f"{out['export']['bytes'] / 1e9:.3f} GB in "
+        f"{out['export']['write_s']:.1f} s, {len(keys)} keys, DeepSpeed MoE "
+        f"naming {naming}, moe block layers {moe_block.get('moe_layers_idx')}"
+        f" experts {moe_block.get('num_experts', [None])[0]}")
+    if not (naming and moe_block.get("moe_enable")
+            and moe_block["moe_layers_idx"] == list(cfg.llm.moe_layers)):
+        raise AssertionError("the HF export lacks the MoE layout")
+
+    tower = {k[len("vision."):]: v for k, v in state.items()
+             if k.startswith("vision.")}
+    clip_dir = os.path.join(root, "clip-vit-l-336")
+    hf_tower = vision_params_to_hf(tower, cfg.vision)
+    back = vision_params_from_hf(hf_tower, cfg.vision)
+    tower_equal = back.keys() == tower.keys() and all(
+        torch.equal(back[k], tower[k]) for k in tower)
+    os.makedirs(clip_dir)
+    v = cfg.vision
+    with open(os.path.join(clip_dir, "config.json"), "w") as f:
+        json.dump({"architectures": ["CLIPVisionModel"],
+                   "model_type": "clip_vision_model",
+                   "hidden_size": v.hidden_size,
+                   "intermediate_size": v.intermediate_size,
+                   "num_hidden_layers": v.num_layers,
+                   "num_attention_heads": v.num_heads,
+                   "image_size": v.image_size, "patch_size": v.patch_size,
+                   "hidden_act": v.activation,
+                   "layer_norm_eps": v.layer_norm_eps,
+                   "torch_dtype": "bfloat16"}, f, indent=2)
+    t0 = time.perf_counter()
+    write_safetensors(os.path.join(clip_dir, "model.safetensors"), hf_tower)
+    out["clip"] = dict(write_s=time.perf_counter() - t0,
+                       bytes=dir_bytes(clip_dir), roundtrip_equal=tower_equal)
+    log(f"[hf] stage 3's tower as an HF CLIP directory: "
+        f"{out['clip']['bytes'] / 1e9:.3f} GB in {out['clip']['write_s']:.2f}"
+        f" s; vision_params_from_hf of it bitwise the tower on the card: "
+        f"{tower_equal}")
+    if not tower_equal:
+        raise AssertionError("the CLIP layout does not round-trip")
+    student = {k: v for k, v in state.items()
+               if k.split(".")[0] in ("llm", "projector")}
+    del model, state, back, hf_tower, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the eval CLI from the HF directory, the tower from vision_path
+    qfile = os.path.join(root, "eval_questions.jsonl")
+    answers = os.path.join(root, "answers_hf.jsonl")
+    argv = ["--model-path", hf_dir, "--vision-path", clip_dir,
+            "--question-file", qfile, "--image-folder", image_dir,
+            "--conv-mode", EVAL_TEMPLATE, "--batch-size", str(MAX_BATCH),
+            "--max-new-tokens", str(NEW_TOKENS), "--answers-file", answers]
+    runner, rec, out["eval"] = drive_eval(
+        "[hf eval]", argv, tok, card, cfg.llm.num_layers, int8_cache=False)
+    vision_name = runner.cfg.vision.name
+    first = _read_json_lines(qfile)[:MAX_BATCH]
+    batch = runner._encode_batch(
+        [runner.build_prompt(q["text"], True) for q in first],
+        [runner._load_image(q, image_dir)[1] for q in first])
+    logits, _ = prefill_logits_vs_plain(runner.cfg, runner.model, batch,
+                                        "[hf eval] first batch:")
+    logits_equal = torch.equal(logits.cpu(), native_logits)
+    del runner, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    real = [min(MAX_BATCH, EVAL_QUESTIONS - i)
+            for i in range(0, EVAL_QUESTIONS, MAX_BATCH)]
+    ids = np.concatenate([g[:n] for g, n in zip(rec["ids"], real)])
+    rows_equal = int((ids == native_ids).all(axis=1).sum())
+    texts = [r["text"] for r in _read_json_lines(answers)]
+    native = [r["text"] for r in _read_json_lines(
+        os.path.join(root, "answers_bf16.jsonl"))]
+    out["eval"].update(rows_equal=rows_equal, texts_equal=texts == native,
+                       first_logits_equal=logits_equal, tower=vision_name)
+    log(f"[hf eval] eval.cli generate --model-path <HF dir> --vision-path "
+        f"<CLIP dir> "
+        f"(tower config {vision_name}): generated rows token for token the "
+        f"native bf16 run's in {rows_equal} of {len(native_ids)}; answer "
+        f"texts equal {texts == native}; the first batch's prefill "
+        f"last-position logits bitwise the native run's: {logits_equal}")
+    if rows_equal != len(native_ids) or texts != native or not logits_equal:
+        raise AssertionError("the HF-loaded student answers differently")
+
+    # the tools on the HF directory
+    def check_native(tag, path, seconds):
+        loaded = torch.load(os.path.join(path, builder.WEIGHTS_NAME),
+                            map_location="cpu", weights_only=True, mmap=True)
+        equal = sum(bool(torch.equal(loaded[k].to(dev), v))
+                    for k, v in student.items())
+        size = dir_bytes(path)
+        log(f"[hf tools] {tag}: {size / 1e9:.3f} GB in {seconds:.1f} s; "
+            f"{equal} of {len(student)} llm.* / projector.* entries bitwise "
+            f"stage 3's")
+        if equal != len(student):
+            raise AssertionError(f"{tag}: the native copy differs")
+        return dict(seconds=seconds, bytes=size, entries_equal=equal)
+
+    native1 = os.path.join(root, "student_import_hf")
+    t0 = time.perf_counter()
+    import_hf.main(["--hf-path", hf_dir, "--output", native1])
+    out["import_hf"] = check_native("import_hf", native1,
+                                    time.perf_counter() - t0)
+    shutil.rmtree(native1)
+    native2 = os.path.join(root, "student_consolidated")
+    t0 = time.perf_counter()
+    consolidate.main(["--src", hf_dir, "--dst", native2])
+    out["consolidate"] = check_native("consolidate", native2,
+                                      time.perf_counter() - t0)
+    shutil.rmtree(native2)
+    proj_bin = os.path.join(root, "extracted", "mm_projector.bin")
+    t0 = time.perf_counter()
+    extract_mm_projector.main(["--model-path", hf_dir, "--output", proj_bin])
+    seconds = time.perf_counter() - t0
+    proj = load_mm_projector(proj_bin, cfg.projector_type)
+    proj_equal = proj.keys() == {k[len("projector."):] for k in student
+                                 if k.startswith("projector.")} and all(
+        torch.equal(v.to(dev), student["projector." + k].float())
+        for k, v in proj.items())
+    out["extract_mm_projector"] = dict(seconds=seconds,
+                                       bytes=os.path.getsize(proj_bin),
+                                       equal=proj_equal)
+    log(f"[hf tools] extract_mm_projector: {len(proj)} tensors in "
+        f"{seconds:.2f} s, loads through train/checkpoint.py and equals "
+        f"stage 3's projector (widened to f32): {proj_equal}")
+    if not proj_equal:
+        raise AssertionError("the extracted projector differs")
+    shutil.rmtree(hf_dir)
+    return out
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
     try:
         t0 = time.perf_counter()
-        dirs = write_stage_models(root, dev)
+        dirs, hf_stats = write_stage_models(root, dev)
         write_s = time.perf_counter() - t0
         data = write_stage_data(root, n_img=576)
         tok = StandInTokenizer()
@@ -2720,7 +3147,7 @@ def stages_phase(card: str, dev):
             results[stage] = drive_stage(stage, os.path.join(here, config),
                                          argv, tok, dev, card)
             if stage == "pretrain":
-                check_stage1_outputs(dirs["dense"], outs["pretrain"])
+                check_stage1_outputs(dirs["dense"], outs["pretrain"], dev)
             if stage == "align":
                 check_float_head(outs["pretrain"], outs["align"])
                 moe = _moe_config(outs["align"])
@@ -2747,6 +3174,14 @@ def stages_phase(card: str, dev):
                 torch.cuda.empty_cache()
                 results["eval"] = eval_phase(outs["dpo"], data["images"],
                                              root, tok, card)
+                # the round trip needs the room of the teacher and stage 2
+                shutil.rmtree(dirs["teacher"])
+                shutil.rmtree(outs["align"])
+                results["hf"] = hf_roundtrip_phase(
+                    outs["dpo"], data["images"], root, tok, card,
+                    results["eval"].pop("bf16_rows"),
+                    results["eval"].pop("bf16_first_logits"), dev)
+                results["hf"]["starts"] = hf_stats
         return dict(results, write_models_s=write_s)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2824,6 +3259,7 @@ def main() -> int:
     for path, run in (("eval", "bf16"), ("eval_int8", "int8"),
                       ("eval_int8_cache", "int8_cache")):
         stage_n[path] = stages["eval"][run]["launches"]
+    stage_n["eval_hf"] = stages["hf"]["eval"]["launches"]
 
     def by_path(name, **first):
         return dict(first, **{p: n[name] for p, n in stage_n.items()

@@ -73,7 +73,7 @@ def cmd_generate(args) -> None:
 
     tokenizer, model, cfg, pp, _ = load_pretrained_model(
         args.model_path, args.model_base, device=args.device,
-        tokenizer=args.tokenizer)
+        tokenizer=args.tokenizer, vision_path=args.vision_path)
     if args.quant == "int8":
         from llavamod_tpu_torch.models.builder import quantize_for_serving
 
@@ -239,6 +239,9 @@ def build_parser(device: str = "cuda") -> argparse.ArgumentParser:
                             "qbench"])
     g.add_argument("--model-path", required=True)
     g.add_argument("--model-base", default=None)
+    g.add_argument("--vision-path", default=None,
+                   help="an HF CLIP or SigLIP directory: the tower of an HF "
+                        "checkpoint directory, which holds none")
     g.add_argument("--question-file", required=True)
     g.add_argument("--image-folder", default="")
     g.add_argument("--answers-file", required=True)

@@ -267,6 +267,9 @@ def main(argv=None, tokenizer=None, device="cuda"):
     ap = argparse.ArgumentParser(description="batched VQA answer generation")
     ap.add_argument("--model-path", required=True)
     ap.add_argument("--model-base", default=None)
+    ap.add_argument("--vision-path", default=None,
+                    help="an HF CLIP or SigLIP directory: the tower of an HF "
+                         "checkpoint directory, which holds none")
     ap.add_argument("--question-file", required=True)
     ap.add_argument("--image-folder", default="")
     ap.add_argument("--answers-file", required=True)
@@ -287,7 +290,7 @@ def main(argv=None, tokenizer=None, device="cuda"):
 
     tokenizer, model, cfg, pp, _ = load_pretrained_model(
         args.model_path, args.model_base, device=args.device,
-        tokenizer=tokenizer)
+        tokenizer=tokenizer, vision_path=args.vision_path)
     template = args.conv_mode or conv_lib.infer_template_name(args.model_path)
     questions = split_chunk(load_questions(args.question_file),
                             args.num_chunks, args.chunk_idx)

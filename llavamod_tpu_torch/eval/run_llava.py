@@ -22,13 +22,15 @@ from typing import Optional
 
 def load_runner(model_path: str, model_base: Optional[str] = None,
                 conv_mode: Optional[str] = None, batch_size: int = 1,
-                tokenizer=None, device="cuda"):
+                tokenizer=None, device="cuda",
+                vision_path: Optional[str] = None):
     from llavamod_tpu_torch import conversation as conv_lib
     from llavamod_tpu_torch.eval.generate import VQARunner
     from llavamod_tpu_torch.models.builder import load_pretrained_model
 
     tokenizer, model, cfg, pp, _ = load_pretrained_model(
-        model_path, model_base, device=device, tokenizer=tokenizer)
+        model_path, model_base, device=device, tokenizer=tokenizer,
+        vision_path=vision_path)
     template = conv_mode or conv_lib.infer_template_name(model_path)
     return VQARunner(model, tokenizer, pp, template_name=template,
                      batch_size=batch_size)
@@ -38,7 +40,8 @@ def single_query(model_path: str, image_file: Optional[str], query: str,
                  *, model_base: Optional[str] = None,
                  conv_mode: Optional[str] = None,
                  temperature: float = 0.0, max_new_tokens: int = 512,
-                 runner=None, tokenizer=None, device="cuda") -> str:
+                 runner=None, tokenizer=None, device="cuda",
+                 vision_path: Optional[str] = None) -> str:
     """Answer one question about one (optional) image; returns the text.
     Pass a preloaded `runner` (from load_runner) to amortize model loading."""
     import os
@@ -46,7 +49,8 @@ def single_query(model_path: str, image_file: Optional[str], query: str,
     from llavamod_tpu_torch.generation import GenerationConfig
 
     runner = runner or load_runner(model_path, model_base, conv_mode,
-                                   tokenizer=tokenizer, device=device)
+                                   tokenizer=tokenizer, device=device,
+                                   vision_path=vision_path)
     eos_ids, stop_seqs = runner.stopping(())
     gcfg = GenerationConfig(
         max_new_tokens=max_new_tokens, temperature=temperature,
@@ -65,6 +69,9 @@ def main(argv=None, tokenizer=None, device="cuda") -> None:
     ap = argparse.ArgumentParser(prog="llavamod_tpu_torch.eval.run_llava")
     ap.add_argument("--model-path", required=True)
     ap.add_argument("--model-base", default=None)
+    ap.add_argument("--vision-path", default=None,
+                    help="an HF CLIP or SigLIP directory: the tower of an HF "
+                         "checkpoint directory, which holds none")
     ap.add_argument("--image-file", default=None)
     ap.add_argument("--query", required=True)
     ap.add_argument("--conv-mode", default=None)
@@ -77,7 +84,8 @@ def main(argv=None, tokenizer=None, device="cuda") -> None:
                        model_base=args.model_base, conv_mode=args.conv_mode,
                        temperature=args.temperature,
                        max_new_tokens=args.max_new_tokens,
-                       tokenizer=tokenizer, device=args.device))
+                       tokenizer=tokenizer, device=args.device,
+                       vision_path=args.vision_path))
 
 
 if __name__ == "__main__":

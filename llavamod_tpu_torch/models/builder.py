@@ -1,11 +1,19 @@
 """Model save/load for the port (counterpart of llavamod_tpu/models/builder.py).
 
-A native checkpoint directory holds `llavamod_config.json` (the LlavaConfig
-as JSON, the same file the JAX package writes) and `model.pt`, the flat
-state dict saved with torch.save and loaded with weights_only=True.
-`quantize_for_serving` turns a loaded model into its int8 W8A8 serving form.
-HF checkpoint import and LoRA merges are not ported yet:
-`load_pretrained_model` refuses them.
+Two formats:
+  * native — a directory with `llavamod_config.json` (the LlavaConfig as
+    JSON, the same file the JAX package writes) and `model.pt`, the flat
+    state dict saved with torch.save and loaded with weights_only=True;
+  * HF import — a directory with an HF `config.json` and the weights in
+    `*.safetensors` (sharded or not) or `pytorch_model*.bin`, converted
+    through interop/hf.py (`import_hf_llava`).  The files are
+    memory-mapped and each tensor is transposed on its way to the device,
+    in the file's dtype: no f32 copy of the checkpoint is made on the host.
+
+`load_pretrained_model(path)` returns (tokenizer, model, cfg,
+image_preprocessor, context_len) like the reference API; it refuses a LoRA
+merge (`model_base`), not ported yet.  `quantize_for_serving` turns a
+loaded model into its int8 W8A8 serving form.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from llavamod_tpu_torch.interop.safetensors_io import read_safetensors
 from llavamod_tpu_torch.mm_utils import (
     CLIP_IMAGE_MEAN,
     CLIP_IMAGE_STD,
@@ -61,6 +70,51 @@ def save_model(output_dir: str, model: Llava) -> str:
 GROUPS = ("vision", "projector", "llm")
 
 
+def from_state(cfg: LlavaConfig, state: dict, source: str, device, dtype,
+               fill_missing_seed: Optional[int], drop_missing: bool = False
+               ) -> Llava:
+    """The Llava of `cfg` on `device`, in `dtype` if given (else the dtype of
+    the embedding in `state`), holding the flat `state`.  Groups ('vision',
+    'projector', 'llm') that `state` lacks entirely are initialized fresh
+    from `fill_missing_seed`, directly on `device`; without a seed they
+    make loading fail, or with `drop_missing` are left off the model for
+    the caller to judge.  `state` may also lack what an HF modeling does
+    not have: LayerNorm biases (MPT) and an untied head (then the embedding
+    serves as the head, as in the JAX tree)."""
+    dt = dtype or state.get("llm.embed.embedding",
+                            next(iter(state.values()))).dtype
+    missing = [g for g in GROUPS
+               if not any(k.startswith(g + ".") for k in state)]
+    if missing and fill_missing_seed is None and not drop_missing:
+        raise KeyError(f"{source} holds no {missing} weights")
+    # build on the meta device (no init cost), then adopt the loaded tensors
+    model = llava.init(cfg, None, device="meta", dtype=dt)
+    keys = model.load_state_dict(state, strict=False, assign=True)
+    absent = [k for k in keys.missing_keys if k.split(".")[0] not in missing]
+    if any(k.startswith("llm.lm_head.") for k in absent):
+        del model.llm.lm_head
+    for k in absent:
+        if k.endswith("norm.bias"):
+            delattr(model.get_submodule(k.rsplit(".", 1)[0]), "bias")
+    absent = [k for k in absent if not k.startswith("llm.lm_head.")
+              and not k.endswith("norm.bias")]
+    if keys.unexpected_keys or absent:
+        raise KeyError(f"{source}: unexpected {keys.unexpected_keys[:4]}, "
+                       f"missing {absent[:4]}")
+    if missing and fill_missing_seed is not None:
+        gen = torch.Generator(device=device).manual_seed(fill_missing_seed)
+        build = {"vision": lambda: vit.init(cfg.vision, gen, device, dt),
+                 "projector": lambda: cfg.build_projector().init(gen, device,
+                                                                 dt),
+                 "llm": lambda: decoder.init(cfg.llm, gen, device, dt)}
+        for g in missing:
+            setattr(model, g, build[g]())
+    else:
+        for g in missing:
+            delattr(model, g)
+    return model.to(device=device, dtype=dt)
+
+
 def load_model(model_dir: str, device="cuda", dtype=None,
                fill_missing_seed: Optional[int] = None
                ) -> Tuple[LlavaConfig, Llava]:
@@ -77,30 +131,90 @@ def load_model(model_dir: str, device="cuda", dtype=None,
     state = torch.load(os.path.join(model_dir, WEIGHTS_NAME),
                        map_location="cpu", weights_only=True,
                        mmap=torch.device(device).type != "cpu")
-    dt = dtype or next(iter(state.values())).dtype
-    missing = [g for g in GROUPS
-               if not any(k.startswith(g + ".") for k in state)]
-    if missing and fill_missing_seed is None:
-        raise KeyError(f"{model_dir} holds no {missing} weights")
-    # build on the meta device (no init cost), then adopt the loaded tensors
-    model = llava.init(cfg, None, device="meta", dtype=dt)
-    keys = model.load_state_dict(state, strict=False, assign=True)
-    if keys.unexpected_keys or any(k.split(".")[0] not in missing
-                                   for k in keys.missing_keys):
-        raise KeyError(f"{model_dir}: unexpected {keys.unexpected_keys[:4]}, "
-                       f"missing {keys.missing_keys[:4]}")
-    fresh = {}
-    if missing:
-        gen = torch.Generator(device=device).manual_seed(fill_missing_seed)
-        build = {"vision": lambda: vit.init(cfg.vision, gen, device, dt),
-                 "projector": lambda: cfg.build_projector().init(gen, device,
-                                                                 dt),
-                 "llm": lambda: decoder.init(cfg.llm, gen, device, dt)}
-        fresh = {g: build[g]() for g in missing}
-    for g, module in fresh.items():
-        setattr(model, g, module)
-    model = model.to(device=device, dtype=dt)
-    return cfg, model
+    return cfg, from_state(cfg, state, model_dir, device, dtype,
+                       fill_missing_seed)
+
+
+# ---------------------------------------------------------------------------
+# HF import
+# ---------------------------------------------------------------------------
+
+def _load_torch_state(model_path: str) -> dict:
+    """All weights of an HF checkpoint directory, memory-mapped on the host
+    in the file's dtypes: every `*.safetensors` file (the shards that
+    `model.safetensors.index.json` names, when it is there), else every
+    `*.bin` but optimizer states, as the JAX builder chooses."""
+    names = sorted(os.listdir(model_path))
+    st_files = [n for n in names if n.endswith(".safetensors")]
+    bin_files = [n for n in names if n.endswith(".bin")
+                 and "optimizer" not in n]
+    state = {}
+    if st_files:
+        index = os.path.join(model_path, "model.safetensors.index.json")
+        weight_map = {}
+        if os.path.exists(index):
+            with open(index) as f:
+                weight_map = json.load(f)["weight_map"]
+            st_files = sorted(set(weight_map.values()))
+        for fname in st_files:
+            state.update(read_safetensors(os.path.join(model_path, fname)))
+        lost = sorted(set(weight_map) - set(state))
+        if lost:
+            raise KeyError(f"{model_path}: the index names {lost[:4]}, which "
+                           f"no shard holds")
+    elif bin_files:
+        for fname in bin_files:
+            state.update(torch.load(os.path.join(model_path, fname),
+                                    map_location="cpu", weights_only=True,
+                                    mmap=True))
+    else:
+        raise FileNotFoundError(f"no weights found in {model_path}")
+    return state
+
+
+def import_hf_llava(model_path: str, vision_path: Optional[str] = None,
+                    projector_type: str = "mlp2x_gelu",
+                    image_aspect_ratio: str = "pad", select_layer: int = -2,
+                    device="cuda", dtype=None,
+                    fill_missing_seed: Optional[int] = None
+                    ) -> Tuple[LlavaConfig, Llava]:
+    """Import an HF-format LLaVA-style (or text-only LLM) checkpoint
+    directory onto `device`, in the file's dtype unless `dtype` is given.
+    The config's `mm_*` fields win over the arguments, as in the JAX
+    builder.  The tower comes from `vision_path` (an HF CLIP or SigLIP
+    directory) when given: an HF LLaVA directory holds none.  Groups the
+    checkpoints lack are initialized from `fill_missing_seed`, or else left
+    off the model."""
+    from llavamod_tpu_torch.interop import hf
+
+    hf_cfg = hf.load_hf_config(model_path)
+    llm_cfg = hf.decoder_config_from_hf(hf_cfg)
+    tower_name = vision_path or getattr(
+        hf_cfg, "mm_image_tower", getattr(hf_cfg, "mm_vision_tower",
+                                          "clip-vit-l-336"))
+    vis_cfg = vit.vision_configs.get(
+        vit.vision_configs.match_substring(tower_name) or "clip-vit-l-336")
+    cfg = LlavaConfig(
+        llm=llm_cfg, vision=vis_cfg,
+        projector_type=getattr(hf_cfg, "mm_projector_type", projector_type),
+        select_layer=getattr(hf_cfg, "mm_vision_select_layer", select_layer),
+        image_aspect_ratio=getattr(hf_cfg, "image_aspect_ratio",
+                                   image_aspect_ratio))
+
+    state = _load_torch_state(model_path)
+    out = hf.prefixed("llm", hf.decoder_params_from_hf(
+        state, llm_cfg, device=device, dtype=dtype))
+    proj = {k: v for k, v in state.items() if "mm_projector" in k}
+    if proj:
+        out.update(hf.prefixed("projector", hf.projector_params_from_hf(
+            proj, cfg.projector_type, device=device, dtype=dtype)))
+    del state, proj
+    if vision_path and os.path.isdir(vision_path):
+        out.update(hf.prefixed("vision", hf.vision_params_from_hf(
+            _load_torch_state(vision_path), vis_cfg, device=device,
+            dtype=dtype)))
+    return cfg, from_state(cfg, out, model_path, device, dtype,
+                           fill_missing_seed, drop_missing=True)
 
 
 def make_image_preprocessor(cfg: LlavaConfig) -> ImagePreprocessor:
@@ -121,26 +235,44 @@ def not_ported(what: str, item: int) -> NotImplementedError:
 
 def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
                           device="cuda", dtype=None, tokenizer_path=None,
-                          context_len: int = 2048, tokenizer=None):
+                          context_len: int = 2048, tokenizer=None,
+                          vision_path: Optional[str] = None):
     """Reference-shaped loader: returns (tokenizer, model, cfg,
-    image_preprocessor, context_len) for a native checkpoint directory.
+    image_preprocessor, context_len) for a native checkpoint directory or
+    an HF one (`import_hf_llava`; its tower from `vision_path`, an HF CLIP
+    or SigLIP directory, since an HF LLaVA directory holds none).
 
-    The tokenizer is `tokenizer` when given, else the HF tokenizer files in
-    `tokenizer_path` or the checkpoint directory (AutoTokenizer).  A LoRA
-    merge (`model_base`) and an HF checkpoint directory (no
-    llavamod_config.json) are refused: neither is ported yet."""
+    The tokenizer is `tokenizer` when given, else the tiktoken vocabulary
+    (qwen-1.0, arcade100k) or the HF tokenizer files in `tokenizer_path` or
+    the checkpoint directory; transformers is imported only then.  A LoRA
+    merge (`model_base`) is refused: it is not ported yet."""
     if model_base is not None:
         raise not_ported(f"merging LoRA weights onto --model-base "
                          f"{model_base}", 6)
-    if not os.path.exists(os.path.join(model_path, CONFIG_NAME)):
-        raise not_ported(f"loading the HF checkpoint directory {model_path}",
-                         7)
-    cfg, model = load_model(model_path, device=device, dtype=dtype)
+    if os.path.exists(os.path.join(model_path, CONFIG_NAME)):
+        cfg, model = load_model(model_path, device=device, dtype=dtype)
+    else:
+        cfg, model = import_hf_llava(model_path, vision_path=vision_path,
+                                     device=device, dtype=dtype)
+        missing = [g for g in GROUPS if not hasattr(model, g)]
+        if missing:
+            hint = (" (an HF LLaVA directory holds no vision tower: pass "
+                    "vision_path, an HF CLIP or SigLIP directory)"
+                    if "vision" in missing else "")
+            raise ValueError(f"{model_path} holds no {missing} weights"
+                             f"{hint}")
     if tokenizer is None:
-        import transformers  # the tokenizer is the only user of transformers
+        from llavamod_tpu_torch.interop.tiktoken_tokenizers import (
+            load_tiktoken_tokenizer,
+        )
 
-        tokenizer = transformers.AutoTokenizer.from_pretrained(
-            tokenizer_path or model_path)
+        tok_path = tokenizer_path or model_path
+        # qwen-1.0 / stablelm checkpoints carry a *.tiktoken vocab
+        tokenizer = load_tiktoken_tokenizer(tok_path)
+        if tokenizer is None:
+            import transformers
+
+            tokenizer = transformers.AutoTokenizer.from_pretrained(tok_path)
     return tokenizer, model, cfg, make_image_preprocessor(cfg), context_len
 
 

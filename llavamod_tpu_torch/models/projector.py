@@ -1,6 +1,9 @@
 """Multimodal projectors: vision features -> LLM embedding space (port of
-llavamod_tpu/models/projector.py for 'linear', 'mlp{N}x_gelu' and
-'identity'; 'mlp2x_gelu' is the configuration of record).
+llavamod_tpu/models/projector.py for 'linear', 'mlp{N}x_gelu',
+'pool_mlp{N}x_gelu' and 'identity'; 'mlp2x_gelu' is the configuration of
+record).  The pooling variant averages 2x2 cells of the square token grid
+(24x24 -> 12x12 for CLIP-L/336) before the MLP, as the reference's
+Pool_Block (pool_block.py:8-27).
 
 `build_projector(spec, vision_dim, llm_dim)` returns a Projector whose
 `init(generator, device, dtype)` builds the parameter module (state_dict
@@ -11,6 +14,7 @@ the MLP) and whose `apply(module, x)` runs it.  The GELU is exact
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Callable, NamedTuple
 
@@ -53,6 +57,16 @@ def _mlp_apply(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _pool2x2(x: torch.Tensor) -> torch.Tensor:
+    """[B, N, D] with N a square grid -> 2x2 average pool -> [B, N/4, D]."""
+    b, n, d = x.shape
+    g = math.isqrt(n)
+    if g * g != n:
+        raise ValueError(f"pool projector needs a square token grid, got {n}")
+    xg = x.reshape(b, g // 2, 2, g // 2, 2, d)
+    return xg.mean(dim=(2, 4)).reshape(b, (g // 2) ** 2, d)
+
+
 def build_projector(spec: str, vision_dim: int, llm_dim: int) -> Projector:
     """Parse a projector spec string and return (init, apply)."""
     if spec == "identity":
@@ -70,4 +84,9 @@ def build_projector(spec: str, vision_dim: int, llm_dim: int) -> Projector:
     if m:
         return Projector(spec, _mlp_init(vision_dim, llm_dim, int(m.group(1))),
                          _mlp_apply, lambda n: n)
+    m = re.match(r"^pool_mlp(\d+)x_gelu$", spec)
+    if m:
+        return Projector(spec, _mlp_init(vision_dim, llm_dim, int(m.group(1))),
+                         lambda p, x: _mlp_apply(p, _pool2x2(x)),
+                         lambda n: n // 4)
     raise ValueError(f"Unknown or not yet ported projector type: {spec}")

@@ -34,6 +34,9 @@ def build_parser(device: str = "cuda") -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="llavamod_tpu_torch.serve.cli")
     ap.add_argument("--model-path", required=True)
     ap.add_argument("--model-base", default=None)
+    ap.add_argument("--vision-path", default=None,
+                    help="an HF CLIP or SigLIP directory: the tower of an HF "
+                         "checkpoint directory, which holds none")
     ap.add_argument("--image-file", required=True)
     ap.add_argument("--conv-mode", default=None)
     ap.add_argument("--temperature", type=float, default=0.2)
@@ -69,7 +72,7 @@ def main(argv=None, tokenizer=None, device="cuda"):
 
     tokenizer, model, cfg, pp, _ = load_pretrained_model(
         args.model_path, args.model_base, device=args.device,
-        tokenizer=tokenizer)
+        tokenizer=tokenizer, vision_path=args.vision_path)
     if args.quant == "int8":
         from llavamod_tpu_torch.models.builder import quantize_for_serving
 

@@ -273,9 +273,11 @@ def build_engine(model_path: str, *, device: str = "cuda",
                  conv_mode: str = "qwen", quant: str = "",
                  max_batch: int = 8, batch_window: float = 0.02,
                  max_prompt_len: int = 1024, temperature: float = 0.0,
-                 default_max_new: int = 128) -> BatchingEngine:
-    """A BatchingEngine over the native checkpoint at `model_path`;
-    quant='int8' serves its int8 W8A8 form."""
+                 default_max_new: int = 128,
+                 vision_path: Optional[str] = None) -> BatchingEngine:
+    """A BatchingEngine over the checkpoint at `model_path` (native, or an
+    HF directory with its tower from `vision_path`); quant='int8' serves
+    its int8 W8A8 form."""
     from llavamod_tpu_torch.eval.generate import VQARunner
     from llavamod_tpu_torch.models.builder import (
         load_pretrained_model,
@@ -285,7 +287,7 @@ def build_engine(model_path: str, *, device: str = "cuda",
     if quant not in ("", "int8"):
         raise ValueError(f"quant must be '' or 'int8', got {quant!r}")
     tokenizer, model, cfg, preproc, _ = load_pretrained_model(
-        model_path, device=device)
+        model_path, device=device, vision_path=vision_path)
     if quant == "int8":
         model = quantize_for_serving(model)
     runner = VQARunner(model=model, tokenizer=tokenizer,
@@ -380,6 +382,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Dynamic-batching inference server")
     ap.add_argument("--model-path", required=True)
+    ap.add_argument("--vision-path", default=None,
+                    help="an HF CLIP or SigLIP directory: the tower of an HF "
+                         "checkpoint directory, which holds none")
     ap.add_argument("--conv-mode", default="qwen")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
@@ -399,7 +404,7 @@ def main(argv=None):
         quant=args.quant,
         max_batch=args.max_batch, batch_window=args.batch_window,
         max_prompt_len=args.max_prompt_len, temperature=args.temperature,
-        default_max_new=args.max_new_tokens)
+        default_max_new=args.max_new_tokens, vision_path=args.vision_path)
     server = ThreadingHTTPServer((args.host, args.port),
                                  make_handler(engine, args.model_path))
     print(f"[serve] listening on http://{args.host}:{args.port} "

@@ -110,32 +110,6 @@ def save_mm_projector(path: str, projector: Dict[str, torch.Tensor],
     return path
 
 
-def projector_state_from_hf(state: Dict[str, torch.Tensor],
-                            projector_type: str) -> Dict[str, torch.Tensor]:
-    """The port's copy of the linear / mlp branch of the JAX package's
-    interop/hf.py::projector_params_from_hf: reference mm_projector keys
-    ('model.mm_projector.image_spatial_proj.0.weight', [out, in]) -> the
-    projector's state-dict keys ([in, out] kernels)."""
-    cleaned = {}
-    for k, v in state.items():
-        k = k.replace("model.mm_projector.", "").replace("mm_projector.", "")
-        cleaned[k.replace("image_spatial_proj.", "")] = v
-    if projector_type == "linear":
-        return {"kernel": cleaned["weight"].t().contiguous(),
-                "bias": cleaned["bias"]}
-    depth = _mlp_depth(projector_type)
-    if depth is None:
-        raise NotImplementedError(
-            f"mm_projector.bin import for '{projector_type}' is not ported "
-            f"yet (ROADMAP Queue 1, item 6)")
-    out = {}
-    for j in range(depth):
-        idx = j * 2  # reference nn.Sequential indices: 0, 2, 4 ... (GELU between)
-        out[f"layers.{j}.kernel"] = cleaned[f"{idx}.weight"].t().contiguous()
-        out[f"layers.{j}.bias"] = cleaned[f"{idx}.bias"]
-    return out
-
-
 def load_mm_projector(path: str, projector_type: str = "mlp2x_gelu",
                       template: Optional[Dict[str, torch.Tensor]] = None
                       ) -> Dict[str, torch.Tensor]:
@@ -146,7 +120,9 @@ def load_mm_projector(path: str, projector_type: str = "mlp2x_gelu",
     _check_ported(projector_type)
     state = torch.load(path, map_location="cpu", weights_only=True)
     if not any(k.startswith(_TREE_PREFIX) for k in state):
-        return projector_state_from_hf(state, projector_type)
+        from llavamod_tpu_torch.interop.hf import projector_params_from_hf
+
+        return projector_params_from_hf(state, projector_type)
     if template is None:
         raise ValueError(f"mm_projector.bin for '{projector_type}' uses the "
                          "tree layout; pass template= (the projector's "

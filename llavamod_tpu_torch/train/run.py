@@ -116,9 +116,11 @@ def build_llava(name_or_path: str, margs: ModelArgs, *, seed: int = 0,
     """Resolve a model spec to (LlavaConfig, Llava) on `device`.
 
     A native checkpoint directory (llavamod_config.json + model.pt) loads
-    in its stored dtype, with any missing group ('vision', 'projector',
-    'llm') initialized fresh from `seed`; a registered preset name
-    ('qwen1.5-0.5b', ...) is initialized from `seed` in float32."""
+    in its stored dtype, an HF checkpoint directory (config.json; a
+    released LLM or an HF LLaVA export) in its file's dtype, with any
+    missing group ('vision', 'projector', 'llm') initialized fresh from
+    `seed`; a registered preset name ('qwen1.5-0.5b', ...) is initialized
+    from `seed` in float32."""
     from llavamod_tpu_torch.models import builder as model_builder
     from llavamod_tpu_torch.models import llava as llava_mod
     from llavamod_tpu_torch.models.llava import LlavaConfig
@@ -126,13 +128,14 @@ def build_llava(name_or_path: str, margs: ModelArgs, *, seed: int = 0,
     from llavamod_tpu_torch.models.vision.vit import vision_configs
 
     if os.path.isdir(name_or_path):
-        if not os.path.exists(os.path.join(name_or_path,
-                                           model_builder.CONFIG_NAME)):
-            raise not_ported(f"loading the HF checkpoint directory "
-                             f"{name_or_path}", 7)
-        cfg, model = model_builder.load_model(name_or_path, device=device,
-                                              fill_missing_seed=seed)
-        return cfg, model
+        if os.path.exists(os.path.join(name_or_path,
+                                       model_builder.CONFIG_NAME)):
+            return model_builder.load_model(name_or_path, device=device,
+                                            fill_missing_seed=seed)
+        return model_builder.import_hf_llava(
+            name_or_path, projector_type=margs.image_projector_type,
+            select_layer=margs.mm_vision_select_layer, device=device,
+            fill_missing_seed=seed)
     cfg = LlavaConfig(
         llm=llm_configs.get(name_or_path),
         vision=vision_configs.get(margs.image_tower),
@@ -631,14 +634,17 @@ def _stop_profiler(prof, output_dir: str) -> None:
 
 
 def load_tokenizer(margs: ModelArgs):
-    """An HF tokenizer from the model directory (transformers, imported
-    here only)."""
+    """The model directory's tokenizer: its tiktoken vocabulary (qwen-1.0,
+    stablelm's arcade100k), else its HF tokenizer files (transformers,
+    imported here only)."""
+    from llavamod_tpu_torch.interop.tiktoken_tokenizers import (
+        load_tiktoken_tokenizer,
+    )
+
     path = margs.model_name_or_path
-    if os.path.isdir(path) and any(
-            os.path.exists(os.path.join(path, f))
-            for f in ("qwen.tiktoken", "arcade100k.tiktoken")):
-        raise not_ported("the tiktoken tokenizers (qwen-1.0, arcade100k)",
-                         7)
+    tok = load_tiktoken_tokenizer(path)
+    if tok is not None:
+        return tok
     import transformers
 
     tok = transformers.AutoTokenizer.from_pretrained(path)

@@ -7,7 +7,13 @@ char-level HF tokenizer in both.
 `generate` (float and `--quant int8 --kv-cache-dtype int8`) gives the same
 answer rows as JAX's but the random `answer_id`; `merge`, `convert` and
 `score` write the same bytes; `run_llava.single_query` and the chat loop
-give the same replies, streamed or not.  The JAX side decodes through its
+give the same replies, streamed or not.  From an HF LLaVA directory (the
+port's `export_hf_llava` of the same weights, the tokenizer files beside
+them) with the tower of an HF CLIP directory (the port's `--vision-path`;
+the JAX side through `load_pretrained_model(vision_path=...)`, which its
+CLIs do not expose), `generate` and `run_llava.single_query` give JAX's
+answers and the server's `build_engine` serves it; with no tower the load
+raises a ValueError naming vision_path.  The JAX side decodes through its
 XLA branch (LLAVAMOD_DECODE_ATTN=xla) and preprocesses images on its PIL
 path (the one the port copies; its optional C++ batch path resizes
 differently), which changes nothing in the JAX package."""
@@ -232,17 +238,101 @@ def test_chat_cli_int8_runs(ckpts, monkeypatch):
     assert len(replies) == 1 and isinstance(replies[0], str)
 
 
-@pytest.mark.parametrize("case,item", [("model_base", 6), ("hf_dir", 7)])
+@pytest.mark.parametrize("case,item", [("model_base", 6)])
 def test_unported_loads_raise(ckpts, tmp_path, case, item):
     argv = ["generate", "--question-file", ckpts["qfile"], "--answers-file",
-            str(tmp_path / "a.jsonl")]
-    if case == "model_base":
-        argv += ["--model-path", ckpts["torch"], "--model-base",
-                 ckpts["torch"]]
-    else:
-        hf = tmp_path / "hf"
-        hf.mkdir()
-        (hf / "config.json").write_text(json.dumps({"model_type": "llava"}))
-        argv += ["--model-path", str(hf)]
+            str(tmp_path / "a.jsonl"), "--model-path", ckpts["torch"],
+            "--model-base", ckpts["torch"]]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tcli.main(argv, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def hf_ckpt(ckpts):
+    """The port's checkpoint as an HF LLaVA directory (named 'ckpt' too, so
+    both CLIs write the same model_id; its config names the tiny tower,
+    registered here) and a tiny HF CLIP tower directory (its name selects
+    the registered tiny CLIP config without the patch bias that HF CLIP
+    lacks)."""
+    import torch
+    import transformers
+
+    from llavamod_tpu.models.vision import vit as jvit
+    from llavamod_tpu_torch.interop.hf import export_hf_llava
+    from llavamod_tpu_torch.models.builder import load_model
+    from llavamod_tpu_torch.models.vision import vit as tvit
+
+    for registry, make in ((tvit.vision_configs, tvit.tiny_vision_config),
+                           (jvit.vision_configs, jvit.tiny_vision_config)):
+        if "tiny-vit" not in registry:
+            registry.register("tiny-vit", make())
+        if "tiny-clip" not in registry:
+            registry.register("tiny-clip", make(name="tiny-clip",
+                                                patch_bias=False))
+    cfg, model = load_model(ckpts["torch"], device="cpu")
+    hf_dir = export_hf_llava(str(ckpts["root"] / "hf" / "ckpt"), cfg,
+                             model.state_dict())
+    make_tiny_tokenizer(hf_dir)
+    torch.manual_seed(7)
+    tower = str(ckpts["root"] / "tiny-clip")
+    transformers.CLIPVisionModel(transformers.CLIPVisionConfig(
+        hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, image_size=28, patch_size=14)
+    ).save_pretrained(tower)
+    return hf_dir, tower
+
+
+@pytest.fixture
+def jax_hf_tower(hf_ckpt, monkeypatch):
+    """The JAX loader handed the tower directory (its CLIs take none)."""
+    import functools
+
+    from llavamod_tpu.models import builder as jbuilder
+
+    monkeypatch.setattr(jbuilder, "load_pretrained_model", functools.partial(
+        jbuilder.load_pretrained_model, vision_path=hf_ckpt[1]))
+
+
+def test_generate_from_an_hf_directory_matches_jax(ckpts, hf_ckpt, jax_side,
+                                                   jax_hf_tower):
+    hf_dir, tower = hf_ckpt
+    root = ckpts["root"]
+    argv = ["generate", "--question-file", ckpts["qfile"], "--image-folder",
+            ckpts["imgs"], "--conv-mode", "qwen", "--batch-size", "2",
+            "--max-new-tokens", NEW, "--model-path", hf_dir]
+    jcli.main(argv + ["--answers-file", str(root / "j_hf.jsonl")])
+    runner = tcli.main(argv + ["--answers-file", str(root / "t_hf.jsonl"),
+                               "--vision-path", tower], device="cpu")
+    got, want = _rows(root / "t_hf.jsonl"), _rows(root / "j_hf.jsonl")
+    assert len(got) == 5 and got == want
+    assert runner.cfg.vision.name == "tiny-clip"
+
+
+def test_single_query_and_server_from_an_hf_directory(ckpts, hf_ckpt,
+                                                      jax_side, jax_hf_tower):
+    from llavamod_tpu_torch.serve.server import build_engine
+
+    hf_dir, tower = hf_ckpt
+    image = os.path.join(ckpts["imgs"], "1.png")
+    kw = dict(conv_mode="qwen", max_new_tokens=int(NEW))
+    want = jrun_llava.single_query(hf_dir, image, "What is it?", **kw)
+    got = trun_llava.single_query(hf_dir, image, "What is it?", **kw,
+                                  device="cpu", vision_path=tower)
+    assert got == want
+    engine = build_engine(hf_dir, device="cpu", vision_path=tower,
+                          max_prompt_len=48, default_max_new=3,
+                          batch_window=0.01)
+    try:
+        out = engine.submit(engine.runner.build_prompt("hello", False), None,
+                            3)
+        assert out["usage"]["completion_tokens"] <= 3
+        assert engine.runner.cfg.vision.name == "tiny-clip"
+    finally:
+        engine.shutdown()
+
+
+def test_hf_directory_without_a_tower_raises(ckpts, hf_ckpt, tmp_path):
+    argv = ["generate", "--question-file", ckpts["qfile"], "--answers-file",
+            str(tmp_path / "a.jsonl"), "--model-path", hf_ckpt[0]]
+    with pytest.raises(ValueError, match="vision_path"):
         tcli.main(argv, device="cpu")

@@ -68,11 +68,15 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
     assert len(_modules()) >= 20
-    # the trainer's modules and the W8A8 blocks are among those imported
+    # the trainer's modules, the W8A8 blocks and the HF interop and tools
+    # are among those imported
     assert {f"llavamod_tpu_torch.{m}" for m in (
         "train.run", "train.args", "train.checkpoint", "train.sampler",
         "train.loader", "train.train", "train.align_train", "train.dpo_train",
         "data.preprocess", "data.dataset", "data.collator",
         "runtime.prefetch", "utils.logging", "utils.misc",
         "ops.int8", "ops.moe", "train.adafactor", "train.fused_steps",
-        "train.optim", "models.llm.decoder")} <= set(_modules())
+        "train.optim", "models.llm.decoder", "interop.hf",
+        "interop.safetensors_io", "interop.tiktoken_tokenizers",
+        "tools.import_hf", "tools.consolidate", "tools.extract_mm_projector",
+        "tools.delta")} <= set(_modules())

@@ -12,6 +12,13 @@ checkpoint}.py) on the CPU, at tiny sizes:
   * mm_projector.bin written by either package loads into the other with
     equal arrays, and the files are byte for byte the same;
   * `main([...], device="cpu")` runs with an HF tokenizer directory;
+  * `run_stage` starts from an HF LLaVA directory (the port's
+    `export_hf_llava` of the tiny checkpoint; the tower filled from the
+    seed) and logs the first losses of the JAX package's run from the same
+    directory (rel 1e-4; the JAX fill is handed the port's seeded tower,
+    since the two packages draw different numbers from one seed); and from
+    a qwen-1.0 HF directory with its tiktoken vocabulary, whose tokenizer
+    `load_tokenizer` picks (eos and pad <|endoftext|>);
   * the port's and the JAX package's `run_stage("pretrain")`, from one
     checkpoint and one dataset, log the same first losses (rel 1e-4), with
     AdamW on the projector and with `--optimizer adafactor` on the whole
@@ -375,6 +382,129 @@ def test_adafactor_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
                            after["llm.layers.0.mlp.up"])
 
 
+def _unflatten(flat):
+    """{'a.0.b': x} -> {'a': [{'b': x}]} (the JAX tree of a state dict)."""
+    tree = {}
+    for k, v in flat.items():
+        node, parts = tree, k.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v.numpy()
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(tree)
+
+
+def test_run_stage_from_an_hf_directory_logs_the_losses_of_jax(
+        tmp_path, dirs, monkeypatch):
+    from llavamod_tpu.models.vision import vit as jvit
+    from llavamod_tpu_torch.interop.hf import export_hf_llava
+    from llavamod_tpu_torch.models.vision import vit as tvit
+
+    cfg, model = tbuilder.load_model(dirs["port"], device="cpu")
+    hf_dir = export_hf_llava(str(tmp_path / "hf"), cfg, model.state_dict())
+    for registry, tower in ((tvit.vision_configs, cfg.vision),
+                            (jvit.vision_configs, to_jax_llava(cfg).vision)):
+        if cfg.vision.name not in registry:   # the export names its tower
+            registry.register(cfg.vision.name, tower)
+    # the port fills the missing tower from the seed: hand JAX the same one
+    seed = TrainArgs().seed
+    seeded = tvit.init(cfg.vision, torch.Generator().manual_seed(seed), "cpu",
+                       torch.float32).state_dict()
+    fill = jrun._fill_missing
+
+    def jax_fill(cfg_, params, missing, seed, dtype):
+        assert missing == ["vision"] and seed == TrainArgs().seed
+        params = fill(cfg_, params, missing, seed, dtype)
+        params["vision"] = _unflatten(seeded)
+        return params
+    monkeypatch.setattr(jrun, "_fill_missing", jax_fill)
+
+    kw = dict(max_steps=2, gradient_accumulation_steps=1)
+    margs = dict(model_name_or_path=hf_dir, version="plain",
+                 tune_mm_mlp_adapter=True)
+    data = dict(data_path=[dirs["sft"]], image_folder=dirs["imgs"])
+    trun.run_stage("pretrain", ModelArgs(**margs), DataArgs(**data),
+                   _targs(tmp_path / "port", **kw), tokenizer=StubTok(),
+                   device="cpu")
+    jrun.run_stage("pretrain", jargs.ModelArgs(**margs),
+                   jargs.DataArgs(**data),
+                   jargs.TrainArgs(**vars(_targs(tmp_path / "jax", **kw))),
+                   tokenizer=StubTok())
+    got, want = _lines(tmp_path / "port"), _lines(tmp_path / "jax")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("loss", "loss/lm", "num_tokens", "grad_norm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+    out = _state(tmp_path / "port")          # the tower as the seed made it
+    assert all(torch.equal(out["vision." + k], v) for k, v in seeded.items())
+    assert not torch.equal(out["projector.layers.0.kernel"],
+                           model.state_dict()["projector.layers.0.kernel"])
+
+
+def test_run_stage_with_a_qwen_v1_tiktoken_directory(tmp_path, dirs,
+                                                      monkeypatch):
+    """A qwen-1.0 HF directory (fused c_attn; its config names the tiny
+    tower) with a qwen.tiktoken vocabulary and no tokenizer given: the
+    trainer reads the vocabulary with the port's tiktoken tokenizer, whose
+    pad id (<|endoftext|>, 151643) the collator pads with, so the model
+    carries the Qwen vocabulary of 151,936."""
+    import base64
+
+    from golden.hf_family_refs import TinyQwenV1
+    from safetensors.torch import save_file
+
+    from llavamod_tpu_torch.interop import tiktoken_tokenizers as ttt
+    from llavamod_tpu_torch.models.vision import vit as tvit
+
+    if "tiny-vit" not in tvit.vision_configs:
+        tvit.vision_configs.register("tiny-vit", tvit.tiny_vision_config())
+    d = tmp_path / "qwen"
+    d.mkdir()
+    torch.manual_seed(0)
+    oracle = TinyQwenV1(dict(vocab_size=151936, hidden_size=32,
+                             intermediate_size=48, num_layers=2, num_heads=4,
+                             rope_theta=10000.0, rms_norm_eps=1e-6))
+    save_file({k: v.detach().clone() for k, v in oracle.state_dict().items()},
+              str(d / "model.safetensors"))
+    (d / "config.json").write_text(json.dumps(dict(
+        model_type="qwen", vocab_size=151936, hidden_size=32,
+        intermediate_size=96, num_hidden_layers=2, num_attention_heads=4,
+        seq_length=64, rotary_emb_base=10000.0, layer_norm_epsilon=1e-6,
+        mm_image_tower="tiny-vit")))
+    (d / "qwen.tiktoken").write_text("".join(
+        base64.b64encode(bytes([b])).decode() + f" {b}\n"
+        for b in range(256)))
+    seen = []
+    load = trun.load_tokenizer
+    monkeypatch.setattr(trun, "load_tokenizer",
+                        lambda margs: seen.append(load(margs)) or seen[-1])
+    out = tmp_path / "out"
+    last = trun.run_stage(
+        "pretrain", ModelArgs(model_name_or_path=str(d), version="plain",
+                              tune_mm_mlp_adapter=True),
+        DataArgs(data_path=[dirs["sft"]], image_folder=dirs["imgs"]),
+        _targs(out, vocab_chunk=151936), device="cpu")
+    (tok,) = seen
+    assert isinstance(tok, ttt.QWenV1Tokenizer)
+    assert tok.pad_token_id == tok.eos_token_id == 151643
+    lines = _lines(out)
+    assert [ln["step"] for ln in lines] == [1, 2, 3, 4]
+    assert all(np.isfinite(v) for ln in lines for v in ln.values())
+    assert last["num_tokens"] > 1 and _info(out)["optimizer_updates"] == 2
+    cfg, model = tbuilder.load_model(str(out), device="cpu")
+    assert cfg.llm.name == "hf-qwen" and cfg.llm.use_logn_attn
+    assert torch.equal(model.llm.layers[0].attn.wq.detach(),
+                       oracle.state_dict()["transformer.h.0.attn.c_attn"
+                                           ".weight"][:32].t())
+
+
 def _fused_align(out, dirs, sft, imgs, **kw):
     base = dict(max_steps=4, gradient_accumulation_steps=2,
                 optimizer="adafactor", fused_update=True,
@@ -439,23 +569,15 @@ def test_fused_auto_resume_matches_an_uninterrupted_run(tmp_path, dirs):
     (dict(targs=dict(data_parallel=2)), 9),
     (dict(targs=dict(expert_parallel=2)), 9),
     (dict(targs=dict(sequence_parallel=True)), 9),
-    (dict(model="hf_dir"), 7),
-    (dict(model="tiktoken_dir"), 7),
 ], ids=["lora", "s2", "video", "data_parallel", "expert_parallel",
-        "sequence_parallel", "hf_dir", "tiktoken"])
+        "sequence_parallel"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item):
-    model = dirs["port"]
-    if option.get("model") == "hf_dir":
-        model = str(tmp_path)
-        (tmp_path / "config.json").write_text("{}")
-    if option.get("model") == "tiktoken_dir":
-        model = str(tmp_path)
-        (tmp_path / "qwen.tiktoken").write_text("")
-    margs = ModelArgs(model_name_or_path=model, **option.get("margs", {}))
+    margs = ModelArgs(model_name_or_path=dirs["port"],
+                      **option.get("margs", {}))
     salign = AlignArgs(ref_model_name_or_path=dirs["port"],
                        **option.get("salign", {}))
-    tok = None if option.get("model") == "tiktoken_dir" else StubTok()
+    tok = StubTok()
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}"):
         trun.run_stage("align", margs,
                        DataArgs(data_path=[dirs["sft"]],
