@@ -123,7 +123,29 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      first batch's prefill logits bitwise the native bf16 run's, with K1 /
      K2 launches as expected and no plain attention; tools/import_hf, tools/consolidate and
      tools/extract_mm_projector on the HF directory must give stage 3's
-     llm.* and projector.* bit for bit.
+     llm.* and projector.* bit for bit;
+  9. [lora] (after [stages fused], from stage 1's output): stage 2 from its
+     config as written plus `--lora_enable True` (r 128, alpha 256, FFN
+     adapters, per expert on the experts; the student head quantized per
+     step from the live weights), its microbatch time, tokens/s and peak
+     beside stage 2 without adapters, K1/K3/K4 every microbatch, the
+     plain-attention first microbatch; every adapted base weight bitwise
+     unchanged before the final save and every `b` moved; the upcycled base
+     built again from the seed and saved, `tools.merge_lora` onto it, each
+     adapted weight within one bf16 ulp (of the larger of the entry and
+     the rank-r product) of the stage's merged output; the
+     eval CLI with `--model-path out/adapter --model-base <base>` answers
+     the 20 questions token for token as the merged directory does (first
+     batch's prefill logits bitwise), K1/K2 on every layer;
+ 10. [projectors] (last): two stage-1 runs from the stage-1 config on the
+     preset Qwen1.5-1.8B, one with `--s2 True --s2_scales 336,672
+     --image_projector_type qformer2_64`, one with the video projector
+     (`--video_tower clip-vit-l-336 --video_projector_type simple_in1_out1`
+     and the three summaries; 8 seeded frames a video, 1,392 video tokens):
+     2 updates each, K1/K3/K4 every microbatch, the plain-attention first
+     microbatch, only projector.* / video_projector.* moved, mm_projector.bin
+     read back bitwise; then one batch of 8 questions through the eval CLI
+     on the Q-Former output.
 
 Prints the kernels' JSON line before the last and, as the last line,
 {"ok": true, "device": {...}}.  Any failed check raises (exit code 1).
@@ -2052,10 +2074,13 @@ def write_stage_models(root: str, dev) -> dict:
           "moe": 2 * _param_count(moe_cfg) / 1e9}
     # on disk at once, at most: the inputs with the outputs of stages 1 and
     # 2, or (the dense model gone) stage 1's output, the teacher, stage 2's
-    # output and the fused stage 2's checkpoint and final model; the HF
-    # round trip after the eval holds 3 MoE students and a tower at most
+    # output and the fused stage 2's checkpoint and final model, or ([lora],
+    # stage 1's output gone) the teacher, stage 2's output, the LoRA run's,
+    # its base and the merged model; the HF round trip after the eval holds
+    # 3 MoE students and a tower at most
     need = max(gb["dense"] * 2 + gb["teacher"] + gb["moe"],
-               gb["dense"] + gb["teacher"] + gb["moe"] * 3) + 1.0
+               gb["dense"] + gb["teacher"] + gb["moe"] * 3,
+               gb["teacher"] + gb["moe"] * 4) + 1.0
     free = shutil.disk_usage(root).free / 1e9
     log(f"[stages] checkpoints in {root}: dense {gb['dense']:.2f} GB, teacher "
         f"{gb['teacher']:.2f} GB, MoE student {gb['moe']:.2f} GB (bf16); at "
@@ -2230,7 +2255,8 @@ def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
     if targs.fused_update:
         batches = fold_microbatches(
             batches, targs.gradient_accumulation_steps,
-            rows_per_sample=cfg.max_images * cfg.num_image_tokens)
+            rows_per_sample=cfg.max_images * cfg.num_image_tokens
+            + cfg.num_video_tokens)
     arrays = next(batches)
     batches.close()
     mods = run.translate_train_modules(margs.train_modules)
@@ -2240,24 +2266,25 @@ def plain_first_microbatch(stage, margs, dargs, targs, extra, tok, dev):
         sdpo).replace(attn_impl="xla")
     if teacher is not None and steps._can_share_tower(tcfg, cfg, teacher_cfg):
         del teacher.vision
-    run.quantize_stage_models(tcfg, extra, model, teacher)
+    lora, lcfg = run.maybe_add_lora(model, margs, targs.seed)
+    run.quantize_stage_models(tcfg, extra, model, teacher, lcfg)
+    state = (None if targs.fused_update
+             else TrainState.create(model, tcfg, lcfg, lora))
     if targs.fused_update:
         _, m = fused_steps.make_fused_align_step(cfg, teacher_cfg, tcfg)(
             fused_steps.init_fused_state(model, cfg, tcfg), teacher,
             steps.batch_from_arrays(arrays, device=dev))
     elif stage == "align":
-        _, m = steps.make_align_step(cfg, teacher_cfg, tcfg)(
-            TrainState.create(model, tcfg), teacher,
-            steps.batch_from_arrays(arrays, device=dev))
+        _, m = steps.make_align_step(cfg, teacher_cfg, tcfg, lcfg)(
+            state, teacher, steps.batch_from_arrays(arrays, device=dev))
     elif stage == "dpo":
-        _, m = steps.make_dpo_step(cfg, teacher_cfg, tcfg)(
-            TrainState.create(model, tcfg), teacher, arrays)
+        _, m = steps.make_dpo_step(cfg, teacher_cfg, tcfg, lcfg)(
+            state, teacher, arrays)
     else:
-        _, m = steps.make_pretrain_step(cfg, tcfg)(
-            TrainState.create(model, tcfg),
-            steps.batch_from_arrays(arrays, device=dev))
+        _, m = steps.make_pretrain_step(cfg, tcfg, lcfg)(
+            state, steps.batch_from_arrays(arrays, device=dev))
     out = {k: v.item() for k, v in m.items()}
-    del model, teacher, m
+    del model, teacher, m, state, lora
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -2270,7 +2297,10 @@ def _read_json_lines(path):
 
 def _num_layers(model_dir: str) -> int:
     from llavamod_tpu_torch.models.builder import CONFIG_NAME
+    from llavamod_tpu_torch.models.llm.config import llm_configs
 
+    if not os.path.isdir(model_dir):            # a registered preset
+        return llm_configs.get(model_dir).num_layers
     if not os.path.exists(os.path.join(model_dir, CONFIG_NAME)):
         with open(os.path.join(model_dir, "config.json")) as f:
             return json.load(f)["num_hidden_layers"]
@@ -2288,10 +2318,11 @@ def recorded_quantization(record: dict):
 
     original = run.quantize_stage_models
 
-    def recording(tcfg, stage_args, model, teacher):
+    def recording(tcfg, stage_args, model, teacher, lora_cfg=None):
         before = module_gib(teacher.llm) if teacher is not None else 0.0
-        stash = original(tcfg, stage_args, model, teacher)
+        stash = original(tcfg, stage_args, model, teacher, lora_cfg)
         record.update(
+            lora=lora_cfg is not None,
             teacher_gib_before=before,
             teacher_gib_after=(module_gib(teacher.llm) if teacher is not None
                                else 0.0),
@@ -2409,13 +2440,16 @@ def drive_stage(stage, config, argv, tok, dev, card, tag=None):
         raise AssertionError(f"{tag}: the kernel path disagrees with plain "
                              f"attention: {rel}")
     if quant.get("ref_quant"):
+        # with LoRA the student head is quantized per step, not before
         log(f"[stages] {tag}: --ref_quant {quant['ref_quant']} from the "
             f"config: teacher LLM {quant['teacher_gib_before']:.2f} GiB -> "
             f"{quant['teacher_gib_after']:.2f} GiB on the device, float "
             f"matrices left besides the embedding: "
-            f"{quant['teacher_float_matrices']}; student head in int8: "
-            f"{quant['student_head_int8']}")
-        if (quant["teacher_float_matrices"] or not quant["student_head_int8"]
+            f"{quant['teacher_float_matrices']}; student head in int8 "
+            f"before the steps: {quant['student_head_int8']} (LoRA: "
+            f"{quant['lora']})")
+        if (quant["teacher_float_matrices"]
+                or quant["student_head_int8"] == quant["lora"]
                 or not quant["teacher_gib_after"]
                 < quant["teacher_gib_before"]):
             raise AssertionError(f"{stage}: the int8 options did not take: "
@@ -2519,37 +2553,48 @@ def fused_stage(config, argv, data, root, tok, dev, card, adamw) -> dict:
                                  seconds=resume_s), warned=warned)
 
 
-def check_stage1_outputs(dense_dir: str, out: str, dev) -> None:
-    """Stage 1 moved the projector only, and its mm_projector.bin loads:
-    the starting model is `build_llava` of the HF directory with the
-    stage's seed (the tower and projector it fills), built again here."""
+def check_stage1_outputs(policy: str, out: str, dev, margs=None,
+                         seed=None, tag: str = "pretrain") -> None:
+    """Stage 1 moved the projectors only (the image projector, and the
+    video projector where the model has one), and its mm_projector.bin
+    reads back bitwise: the starting model is `build_llava` of `policy`
+    (an HF directory or a preset) with the stage's arguments and seed, built
+    again here."""
     from llavamod_tpu_torch.train.checkpoint import load_mm_projector
     from llavamod_tpu_torch.train.run import build_llava
 
-    margs, seed, _ = stage_seed("pretrain")
-    before = build_llava(dense_dir, margs, seed=seed, device=dev)[1] \
-        .state_dict()
+    if margs is None:
+        margs, seed, _ = stage_seed("pretrain")
+    cfg, model = build_llava(policy, margs, seed=seed, device=dev)
+    before = model.state_dict()
     after = torch.load(os.path.join(out, "model.pt"), map_location="cpu",
                        weights_only=True, mmap=True)
     if before.keys() != after.keys():
-        raise AssertionError("stage 1 changed the model's keys")
+        raise AssertionError(f"{tag} changed the model's keys")
     moved = sorted(k for k in before
                    if not torch.equal(before[k], after[k].to(dev)))
-    frozen_moved = [k for k in moved if not k.startswith("projector.")]
+    frozen_moved = [k for k in moved if not k.startswith(
+        ("projector.", "video_projector."))]
+    video_moved = [k for k in moved if k.startswith("video_projector.")]
+    saved = {k[len("projector."):]: v for k, v in after.items()
+             if k.startswith("projector.")}
     proj = load_mm_projector(os.path.join(out, "mm_projector.bin"),
-                             "mlp2x_gelu")
-    proj_ok = all(torch.equal(v, after["projector." + k])
-                  for k, v in proj.items()) and len(proj) == 4
-    log(f"[stages] pretrain: {len(moved)} tensors moved (all projector: "
-        f"{not frozen_moved}), {len(before) - len(moved)} decoder and tower "
-        f"tensors bitwise unchanged; mm_projector.bin loads and equals the "
-        f"saved projector: {proj_ok}")
-    del before
+                             cfg.projector_type, template=saved)
+    proj_ok = proj.keys() == saved.keys() and all(
+        torch.equal(v, saved[k]) for k, v in proj.items())
+    log(f"[stages] {tag}: {len(moved)} tensors moved (all projector: "
+        f"{not frozen_moved}; video projector {len(video_moved)}), "
+        f"{len(before) - len(moved)} decoder and tower tensors bitwise "
+        f"unchanged; mm_projector.bin ({cfg.projector_type}, {len(proj)} "
+        f"entries) reads back bitwise the saved projector: {proj_ok}")
+    del before, model
     gc.collect()
     torch.cuda.empty_cache()
-    if frozen_moved or not moved or not proj_ok:
-        raise AssertionError(f"stage 1 outputs: moved {frozen_moved[:4]}, "
-                             f"projector file ok {proj_ok}")
+    if (frozen_moved or not moved or not proj_ok
+            or (cfg.video_projector_type is not None) != bool(video_moved)):
+        raise AssertionError(f"{tag} outputs: moved {frozen_moved[:4]}, "
+                             f"video {video_moved[:2]}, projector file ok "
+                             f"{proj_ok}")
 
 
 def check_float_head(before_dir: str, out: str) -> None:
@@ -2595,16 +2640,17 @@ ANSWER_KEYS = {"question_id", "prompt", "text", "answer_id", "model_id",
                "metadata"}
 
 
-def write_eval_data(root: str):
-    """20 POPE-format questions over the stage images (question_id, image,
+def write_eval_data(root: str, n: int = EVAL_QUESTIONS):
+    """n POPE-format questions over the stage images (question_id, image,
     text, category) and the POPE label files, one per category, with
     seeded yes / no labels."""
     rng = np.random.RandomState(SEED + 9)
+    os.makedirs(root, exist_ok=True)
     questions = [{"question_id": i, "image": f"{i % STAGE_IMAGES}.png",
                   "text": f"Is there a {EVAL_OBJECTS[i % len(EVAL_OBJECTS)]}"
                           f" in the image?",
                   "category": POPE_CATEGORIES[i % len(POPE_CATEGORIES)]}
-                 for i in range(EVAL_QUESTIONS)]
+                 for i in range(n)]
     qfile = os.path.join(root, "eval_questions.jsonl")
     with open(qfile, "w") as f:
         f.writelines(json.dumps(q) + "\n" for q in questions)
@@ -2705,7 +2751,7 @@ def recorded_eval(rec: dict):
 
 
 def drive_eval(tag: str, argv: list, tok, card: str, layers: int,
-               int8_cache: bool):
+               int8_cache: bool, questions: int = EVAL_QUESTIONS):
     """One `eval.cli generate` run (counts set to 0 just before, read just
     after); checks that every prefill and gating forward launched K1 on
     every layer, every decode step K2 on every layer (in its int8 mode with
@@ -2737,7 +2783,7 @@ def drive_eval(tag: str, argv: list, tok, card: str, layers: int,
     prefill_ms = statistics.median(r["ms"] for r in rec["prefill"])
     decode_ms = sum(r["ms"] for r in rec["decode"]) / max(steps, 1)
     stats = dict(
-        questions_per_s=EVAL_QUESTIONS / rec["run_s"], run_s=rec["run_s"],
+        questions_per_s=questions / rec["run_s"], run_s=rec["run_s"],
         load_s=wall_s - rec["run_s"], batches=batches, decode_steps=steps,
         image_ms_per_batch=runner.timings["image"] / batches * 1e3,
         encode_ms_per_batch=runner.timings["encode"] / batches * 1e3,
@@ -2747,7 +2793,7 @@ def drive_eval(tag: str, argv: list, tok, card: str, layers: int,
         gating_ms=[r["ms"] for r in rec["gating"]], peak_gib=peak_gib,
         launches=launches, expected_launches=expect,
         plain_attention_calls=rec["plain"], card=card)
-    log(f"{tag} {EVAL_QUESTIONS} questions in {batches} batches of "
+    log(f"{tag} {questions} questions in {batches} batches of "
         f"{runner.batch_size}: {stats['questions_per_s']:.3f} questions/s "
         f"(run {rec['run_s']:.2f} s; load {stats['load_s']:.2f} s); batch "
         f"building host ms per batch: image load + preprocess "
@@ -3120,6 +3166,304 @@ def hf_roundtrip_phase(student_dir: str, image_dir: str, root: str, tok,
     return out
 
 
+# ---------------------------------------------------------------------------
+# [lora]: stage 2 with LoRA adapters, tools.merge_lora, --model-base
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each entry of `x` (8 significand bits)."""
+    mag = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@contextlib.contextmanager
+def watched_lora(record: dict):
+    """Within the block, `run_stage`'s adapters are recorded as they are
+    added, with a host copy of every weight they target; before the final
+    save merges them in, every target is compared bitwise with that copy,
+    and the adapters' `b` entries that moved are counted."""
+    from llavamod_tpu_torch.train import run
+
+    add, save = run.maybe_add_lora, run.final_save
+
+    def adding(model, margs, seed):
+        lora, lcfg = add(model, margs, seed)
+        if lora is not None:
+            weights = dict(model.named_parameters())
+            record.update(targets=list(lora.targets), before={
+                t: weights[t].detach().to("cpu", copy=True)
+                for t in lora.targets})
+        return lora, lcfg
+
+    def saving(output_dir, cfg, state, tcfg, lora_cfg=None):
+        if state.lora is not None:
+            weights = dict(state.model.named_parameters())
+            record.update(
+                unchanged=sum(bool(torch.equal(weights[t], record["before"][t]
+                                               .to(weights[t].device)))
+                              for t in record["targets"]),
+                b_moved=sum(bool(state.lora.pair(t).b.any())
+                            for t in record["targets"]),
+                params=sum(p.numel() for p in state.lora.parameters()),
+                bytes=sum(p.numel() * p.element_size()
+                          for p in state.lora.parameters()),
+                dtype=str(next(state.lora.parameters()).dtype))
+        return save(output_dir, cfg, state, tcfg, lora_cfg)
+
+    run.maybe_add_lora, run.final_save = adding, saving
+    try:
+        yield record
+    finally:
+        run.maybe_add_lora, run.final_save = add, save
+
+
+def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
+               card: str, plain_stage2: dict) -> dict:
+    """[lora]: stage 2 from its config as written plus `--lora_enable True`
+    (r 128, alpha 256, FFN adapters, the experts' per expert) from stage
+    1's output: the numbers beside the same call's stage 2 without
+    adapters; every adapted base weight bitwise unchanged before the final
+    save and every `b` moved.  The upcycled base is built again as
+    `run_stage` builds it (same seed) and saved; `tools.merge_lora` merges
+    `out/adapter` onto it, and each adapted weight must equal the stage's
+    merged output within one bf16 ulp of the larger of the entry and the
+    rank-r product.  Then `eval.cli generate
+    --model-path out/adapter --model-base <base>` and the same on the
+    merged directory must answer the 20 questions token for token alike,
+    with the first batch's prefill logits bitwise equal."""
+    from llavamod_tpu_torch.models.builder import save_model
+    from llavamod_tpu_torch.models.lora import load_lora_adapter
+    from llavamod_tpu_torch.tools import merge_lora
+    from llavamod_tpu_torch.train import run
+
+    out = os.path.join(root, "out_align_lora")
+    argv = argv + ["--lora_enable", "True", "--output_dir", out]
+    record = {}
+    with watched_lora(record):
+        res = drive_stage("align", config, argv, tok, dev, card,
+                          tag="align lora")
+    n = len(record["targets"])
+    log(f"[lora] adapters: {n} targets (FFN; experts stacked), "
+        f"{record['params']:,} parameters, {record['bytes'] / 2**20:.1f} MiB "
+        f"({record['dtype']}) on the card; adapter_model.bin "
+        f"{dir_bytes(os.path.join(out, 'adapter')) / 2**20:.1f} MiB (f32); "
+        f"adapted base weights bitwise unchanged before the final save "
+        f"{record['unchanged']} of {n}; b adapters moved {record['b_moved']} "
+        f"of {n}")
+    log(f"[lora] microbatch median {res['median_ms']:.1f} ms vs "
+        f"{plain_stage2['median_ms']:.1f} without adapters; tokens/s "
+        f"{res['tokens_per_s']:.1f} vs {plain_stage2['tokens_per_s']:.1f}; "
+        f"peak {res['peak_gib']:.2f} GiB vs {plain_stage2['peak_gib']:.2f} "
+        f"(of the steps {res['step_peak_gib']:.2f} vs "
+        f"{plain_stage2['step_peak_gib']:.2f}); on {card}")
+    if record["unchanged"] != n or record["b_moved"] != n or not n:
+        raise AssertionError(f"[lora] adapted weights moved or adapters did "
+                             f"not: {record['unchanged']}, "
+                             f"{record['b_moved']} of {n}")
+
+    # the base as run_stage built it: stage 1's output, upcycled
+    margs, _, targs, salign = parse_stage("align", config, argv)
+    t0 = time.perf_counter()
+    cfg, model = run.build_llava(salign.policy_model_name_or_path, margs,
+                                 seed=targs.seed, device=dev)
+    cfg, model = run.maybe_upcycle(cfg, model, margs)
+    weights = dict(model.named_parameters())
+    rebuilt = sum(bool(torch.equal(weights[t], record["before"][t].to(dev)))
+                  for t in record["targets"])
+    base = save_model(os.path.join(root, "lora_base"), model)
+    base_s = time.perf_counter() - t0
+    del weights, record["before"]
+    shutil.rmtree(salign.policy_model_name_or_path)   # stage 1's output
+    t0 = time.perf_counter()
+    merged = merge_lora.main(["--model-path", os.path.join(out, "adapter"),
+                              "--model-base", base, "--save-path",
+                              os.path.join(root, "lora_merged")])
+    merge_s = time.perf_counter() - t0
+    # the stage merges its bf16 adapters with a bf16 product, the tool the
+    # f32 file's with an f32 one: the two differ by the rounding of the
+    # rank-r product, so a difference is held to one bf16 ulp of the
+    # larger of the merged entry and scaling * (a @ b) (the merged entry
+    # alone is the bound unless the two addends cancel)
+    lora, lcfg = load_lora_adapter(os.path.join(out, "adapter"), model)
+    a = torch.load(os.path.join(out, "model.pt"), map_location="cpu",
+                   weights_only=True, mmap=True)
+    b = torch.load(os.path.join(merged, "model.pt"), map_location="cpu",
+                   weights_only=True, mmap=True)
+    equal = within = within_result = 0
+    worst = 0.0
+    for t in record["targets"]:
+        x, y = a[t].to(dev).float(), b[t].to(dev).float()
+        pair = lora.pair(t)
+        prod = (lcfg.scaling * torch.matmul(pair.a, pair.b)).abs()
+        equal += bool(torch.equal(x, y))
+        diff = (x - y).abs()
+        result_ulp = _bf16_ulp(torch.maximum(x.abs(), y.abs()))
+        within_result += bool((diff <= result_ulp).all())
+        ulp = _bf16_ulp(torch.maximum(torch.maximum(x.abs(), y.abs()), prod))
+        within += bool((diff <= ulp).all())
+        worst = max(worst, float((diff / ulp).max()))
+        del x, y, prod, diff, ulp, result_ulp
+    log(f"[lora] base rebuilt from the seed ({rebuilt} of {n} adapted "
+        f"weights bitwise the run's) and saved in {base_s:.1f} s; "
+        f"tools.merge_lora onto it in {merge_s:.1f} s; adapted weights of "
+        f"the tool's merge vs the stage's merged output: {equal} of {n} "
+        f"bitwise, {within} of {n} within one bf16 ulp of the larger of the "
+        f"entry and scaling * (a @ b) (largest difference {worst:.3f} of "
+        f"that ulp), {within_result} of {n} within one ulp of the entry")
+    if rebuilt != n or within != n:
+        raise AssertionError(f"[lora] merge_lora differs: rebuilt {rebuilt}, "
+                             f"within an ulp {within} of {n}")
+    del a, b, lora, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.remove(os.path.join(out, "model.pt"))
+
+    questions, qfile, _ = write_eval_data(os.path.join(root, "lora_eval"))
+    common = ["--question-file", qfile, "--image-folder", data["images"],
+              "--conv-mode", EVAL_TEMPLATE, "--batch-size", str(MAX_BATCH),
+              "--max-new-tokens", str(NEW_TOKENS)]
+    runs = {}
+    for name, model_args in (
+            ("adapter", ["--model-path", os.path.join(out, "adapter"),
+                         "--model-base", base]),
+            ("merged", ["--model-path", merged])):
+        answers = os.path.join(root, f"answers_lora_{name}.jsonl")
+        runner, rec, stats = drive_eval(
+            f"[eval lora {name}]", model_args + common + ["--answers-file",
+                                                          answers],
+            tok, card, _num_layers(base), int8_cache=False)
+        check_answers(f"[eval lora {name}]", answers, questions)
+        # the rows alone prove little (the smoke's student answers with
+        # spaces): the first batch's prefill logits are compared too
+        first = questions[:MAX_BATCH]
+        batch = runner._encode_batch(
+            [runner.build_prompt(q["text"], True) for q in first],
+            [runner._load_image(q, data["images"])[1] for q in first])
+        logits, _ = prefill_logits_vs_plain(
+            runner.cfg, runner.model, batch, f"[eval lora {name}] first batch:")
+        del runner, batch
+        runs[name] = dict(stats, ids=np.concatenate(rec["ids"]),
+                          texts=[r["text"] for r in _read_json_lines(answers)],
+                          logits=logits.cpu())
+    same = bool(np.array_equal(runs["adapter"]["ids"], runs["merged"]["ids"])
+                and runs["adapter"]["texts"] == runs["merged"]["texts"])
+    same_logits = bool(torch.equal(runs["adapter"]["logits"],
+                                   runs["merged"]["logits"]))
+    log(f"[eval lora] --model-path out/adapter --model-base <base> vs the "
+        f"merged directory: answers token for token equal: {same}; first "
+        f"batch's prefill logits bitwise equal: {same_logits}")
+    if not (same and same_logits):
+        raise AssertionError("[lora] the adapter + base answers differ from "
+                             "the merged model's")
+    for d in (out, base, merged):
+        shutil.rmtree(d)
+    for r in runs.values():
+        del r["ids"], r["texts"], r["logits"]
+    return dict(res, adapter=dict(
+        targets=n, params=record["params"], bytes=record["bytes"],
+        unchanged=record["unchanged"], b_moved=record["b_moved"]),
+        base_s=base_s, merge_s=merge_s, merge_equal=equal,
+        merge_within_ulp=within, eval=runs)
+
+
+# ---------------------------------------------------------------------------
+# [projectors]: stage 1 with S2 + the Q-Former, and with the video projector
+# ---------------------------------------------------------------------------
+
+PROJECTOR_LLM = "qwen1.5-1.8b"   # a preset: --s2 and --video_tower build it
+VIDEO_FRAMES = 8
+PROJECTOR_EVAL_QUESTIONS = 8
+
+
+def write_video_data(root: str, images: str, n: int = 8) -> str:
+    """Video records in the reference format ('video': its frame files,
+    '<video>' in the first human turn; a conversation template, since the
+    plain one keeps only an <image>): each video the 8 seeded stage PNGs in
+    a seeded order, 100-600 characters of text."""
+    rng = np.random.RandomState(SEED + 11)
+    frames = sorted(os.listdir(images))
+    records = [{"id": i, "video": [frames[j] for j in rng.permutation(
+        len(frames))[:VIDEO_FRAMES]], "conversations": [
+        {"from": "human", "value": "<video>\n" + _words(rng, 60) + "?"},
+        {"from": "gpt", "value": _words(rng, rng.randint(100, 500))}]}
+        for i in range(n)]
+    path = os.path.join(root, "video.json")
+    with open(path, "w") as f:
+        json.dump(records, f)
+    return path
+
+
+def projectors_phase(data: dict, root: str, tok, dev, card: str) -> dict:
+    """[projectors]: two stage-1 runs through `run_stage` from the stage-1
+    config as written on the preset Qwen1.5-1.8B (seeded, f32 as the trainer
+    builds presets): `--s2 True --s2_scales 336,672 --image_projector_type
+    qformer2_64`, and `--video_tower clip-vit-l-336 --video_projector_type
+    simple_in1_out1` with the three summaries on video records (8 frames x
+    (100 + 2) + 576 = 1,392 video tokens).  Each: 2 updates, K1/K3/K4 every
+    microbatch, the plain-attention first microbatch, only projector.* /
+    video_projector.* moved, mm_projector.bin read back bitwise.  Then the
+    Q-Former output (cast to bf16, as the kernels take it) answers one
+    batch of 8 questions through the eval CLI."""
+    from llavamod_tpu_torch.models import builder
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, dict(STAGE_CONFIGS)["pretrain"])
+    common = ["--model_name_or_path", PROJECTOR_LLM, "--image_folder",
+              data["images"], "--max_steps", str(STAGE_MICROBATCHES),
+              "--gradient_accumulation_steps", str(STAGE_ACCUM)]
+    runs = {
+        "s2_qformer": ["--data_path", data["pretrain"], "--s2", "True",
+                       "--s2_scales", "336,672", "--image_projector_type",
+                       "qformer2_64"],
+        "video": ["--data_path", write_video_data(root, data["images"]),
+                  "--version", "qwen", "--video_tower", "clip-vit-l-336",
+                  "--video_projector_type", "simple_in1_out1",
+                  "--video_global_proj", "True", "--video_temproal_proj",
+                  "True", "--video_spatial_proj", "True"],
+    }
+    results = {}
+    for name, extra in runs.items():
+        out = os.path.join(root, f"out_{name}")
+        argv = common + extra + ["--output_dir", out]
+        tag = f"pretrain {name}"
+        results[name] = drive_stage("pretrain", config, argv, tok, dev, card,
+                                    tag=tag)
+        margs, _, targs, _ = parse_stage("pretrain", config, argv)
+        with open(os.path.join(out, builder.CONFIG_NAME)) as f:
+            cfg = builder.config_from_dict(json.load(f))
+        log(f"[projectors] {name}: {cfg.projector_type}, s2 {cfg.s2_scales}, "
+            f"video {cfg.video_projector_type}; {cfg.num_image_tokens} image "
+            f"+ {cfg.num_video_tokens} video tokens a sample; vision features "
+            f"{cfg.vision_feature_dim} wide")
+        check_stage1_outputs(PROJECTOR_LLM, out, dev, margs, targs.seed, tag)
+        if name == "s2_qformer":
+            _, model = builder.load_model(out, device=dev,
+                                          dtype=torch.bfloat16)
+            bf16 = builder.save_model(out + "_bf16", model)
+            del model
+            shutil.rmtree(out)
+            questions, qfile, _ = write_eval_data(
+                os.path.join(root, "projector_eval"), PROJECTOR_EVAL_QUESTIONS)
+            answers = os.path.join(root, "answers_qformer.jsonl")
+            runner, _, results["eval_qformer"] = drive_eval(
+                "[eval qformer]", ["--model-path", bf16, "--question-file",
+                                   qfile, "--image-folder", data["images"],
+                                   "--conv-mode", EVAL_TEMPLATE,
+                                   "--batch-size", str(MAX_BATCH),
+                                   "--max-new-tokens", str(NEW_TOKENS),
+                                   "--answers-file", answers],
+                tok, card, _num_layers(bf16), int8_cache=False,
+                questions=PROJECTOR_EVAL_QUESTIONS)
+            del runner
+            check_answers("[eval qformer]", answers, questions)
+            shutil.rmtree(bf16)
+        else:
+            shutil.rmtree(out)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3161,7 +3505,11 @@ def stages_phase(card: str, dev):
                 results["align_fused"] = fused_stage(
                     os.path.join(here, config), argvs["align"] + common,
                     data, root, tok, dev, card, results["align"])
-                shutil.rmtree(outs["pretrain"])
+                # (removes stage 1's output once it has rebuilt the base)
+                results["align_lora"] = lora_phase(
+                    os.path.join(here, config), argvs["align"] + common
+                    + ["--data_path", data["align"]], data, root, tok, dev,
+                    card, results["align"])
             if stage == "dpo":
                 moe = _moe_config(outs["dpo"])
                 if not ("loss/moe_balance" in results["dpo"]["last"]
@@ -3182,6 +3530,8 @@ def stages_phase(card: str, dev):
                     results["eval"].pop("bf16_rows"),
                     results["eval"].pop("bf16_first_logits"), dev)
                 results["hf"]["starts"] = hf_stats
+        shutil.rmtree(outs["dpo"])
+        results["projectors"] = projectors_phase(data, root, tok, dev, card)
         return dict(results, write_models_s=write_s)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3260,6 +3610,14 @@ def main() -> int:
                       ("eval_int8_cache", "int8_cache")):
         stage_n[path] = stages["eval"][run]["launches"]
     stage_n["eval_hf"] = stages["hf"]["eval"]["launches"]
+    lora = stages["align_lora"]
+    stage_n["align_lora"] = lora["launches"]
+    stage_n["eval_lora_adapter"] = lora["eval"]["adapter"]["launches"]
+    stage_n["eval_lora_merged"] = lora["eval"]["merged"]["launches"]
+    proj = stages["projectors"]
+    stage_n["pretrain_s2_qformer"] = proj["s2_qformer"]["launches"]
+    stage_n["pretrain_video"] = proj["video"]["launches"]
+    stage_n["eval_qformer"] = proj["eval_qformer"]["launches"]
 
     def by_path(name, **first):
         return dict(first, **{p: n[name] for p, n in stage_n.items()

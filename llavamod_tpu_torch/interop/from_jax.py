@@ -10,7 +10,10 @@ into a module quantized with the same flags
 (models/llm/decoder.py `quantize_decoder_int8`), whose `Int8Weight`
 buffers carry those paths.  A pre-stacked JAX layer tree
 ({'stacked': [...]}) is unstacked with the JAX package's
-`decoder.unstack_layers` first.  `adafactor_state_from_jax` reads optax's
+`decoder.unstack_layers` first.  A JAX LoRA tree (models/lora.py
+`init_lora`: {'a', 'b'} at the targets, None elsewhere) loads into the
+port's `LoraAdapters`, whose keys are the targets' paths plus '.a' /
+'.b'.  `adafactor_state_from_jax` reads optax's
 factored Adafactor statistics into the port's per-parameter state
 (train/adafactor.py).
 """
@@ -32,8 +35,15 @@ def _to_tensor(leaf: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def state_dict_from_numpy(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Nested dict/list of arrays -> flat {'a.b.0.c': tensor}."""
+def state_dict_from_numpy(tree: Any, prefix: str = "",
+                          python_leaves: bool = True
+                          ) -> Dict[str, torch.Tensor]:
+    """Nested dict/list of arrays -> flat {'a.b.0.c': tensor}.  `None`
+    leaves (the non-target entries of a LoRA tree) are skipped, and so are
+    Python bool / int leaves without `python_leaves` (the simple
+    projector's `same` and `heads`, module config in the port)."""
+    if tree is None or (not python_leaves and isinstance(tree, (bool, int))):
+        return {}
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
@@ -42,14 +52,16 @@ def state_dict_from_numpy(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor
         return {prefix: _to_tensor(tree)}
     out: Dict[str, torch.Tensor] = {}
     for k, v in items:
-        out.update(state_dict_from_numpy(v, f"{prefix}.{k}" if prefix else str(k)))
+        out.update(state_dict_from_numpy(
+            v, f"{prefix}.{k}" if prefix else str(k), python_leaves))
     return out
 
 
 def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy a JAX tree into `module` (strict: every key on both sides),
     casting to each parameter's device and dtype."""
-    module.load_state_dict(state_dict_from_numpy(tree), strict=True)
+    module.load_state_dict(state_dict_from_numpy(tree, python_leaves=False),
+                           strict=True)
     return module
 
 

@@ -552,19 +552,80 @@ def _decoder_params_to_hf_fused(state: Mapping[str, torch.Tensor],
     return out
 
 
-def _unported_projector(projector_type: str) -> None:
-    if re.match(r"^(cheap_)?(qformer\d+_\d+|simple_in\d+_out\d+)$",
-                projector_type):
-        from llavamod_tpu_torch.models.builder import not_ported
+# Blip2Model submodule key map (reference multimodal_projector/qformer.py:
+# 9-24 wraps transformers' Blip2QFormerModel as `qformer`, with proj_in /
+# proj_out nn.Sequentials and the query_tokens parameter): ours inside a
+# layer -> the HF key inside `qformer.encoder.layer.{i}.`
+_QF_DENSE_MAP = (
+    ("self_attn.q", "attention.attention.query"),
+    ("self_attn.k", "attention.attention.key"),
+    ("self_attn.v", "attention.attention.value"),
+    ("self_attn.o", "attention.output.dense"),
+    ("cross_attn.q", "crossattention.attention.query"),
+    ("cross_attn.k", "crossattention.attention.key"),
+    ("cross_attn.v", "crossattention.attention.value"),
+    ("cross_attn.o", "crossattention.output.dense"),
+    ("mlp.fc1", "intermediate_query.dense"),
+    ("mlp.fc2", "output_query.dense"),
+)
+_QF_LN_MAP = (
+    ("ln_self", "attention.output.LayerNorm"),
+    ("ln_cross", "crossattention.output.LayerNorm"),
+    ("ln_mlp", "output_query.LayerNorm"),
+)
+_QF_SEQ = (("fc1", 0), ("fc2", 2))     # nn.Sequential: Linear, GELU, Linear
 
-        raise not_ported(f"the {projector_type} projector's HF layout", 6)
+
+def _qformer_params_to_hf(state: Mapping[str, torch.Tensor],
+                          base: str) -> State:
+    out: State = {}
+    for name, idx in _QF_SEQ:
+        for side in ("proj_in", "proj_out"):
+            out[f"{base}{side}.{idx}.weight"] = _t(state[f"{side}.{name}.kernel"])
+            out[f"{base}{side}.{idx}.bias"] = state[f"{side}.{name}.bias"]
+    out[base + "query_tokens"] = state["queries"][None]       # [1, Q, W]
+    out[base + "qformer.layernorm.weight"] = state["ln_embed.weight"]
+    out[base + "qformer.layernorm.bias"] = state["ln_embed.bias"]
+    n_layers = len({k.split(".")[1] for k in state if k.startswith("layers.")})
+    for i in range(n_layers):
+        lp, q = f"{base}qformer.encoder.layer.{i}.", f"layers.{i}."
+        for ours, hf_key in _QF_DENSE_MAP:
+            out[lp + hf_key + ".weight"] = _t(state[q + ours + ".kernel"])
+            out[lp + hf_key + ".bias"] = state[q + ours + ".bias"]
+        for ours, hf_key in _QF_LN_MAP:
+            out[lp + hf_key + ".weight"] = state[q + ours + ".weight"]
+            out[lp + hf_key + ".bias"] = state[q + ours + ".bias"]
+    return out
+
+
+def _qformer_params_from_hf(g: "_Reader", num_layers: int) -> State:
+    out: State = {}
+    for name, idx in _QF_SEQ:
+        for side in ("proj_in", "proj_out"):
+            out[f"{side}.{name}.kernel"] = g.t(f"{side}.{idx}.weight")
+            out[f"{side}.{name}.bias"] = g(f"{side}.{idx}.bias")
+    out["queries"] = g("query_tokens")[0]
+    out["ln_embed.weight"] = g("qformer.layernorm.weight")
+    out["ln_embed.bias"] = g("qformer.layernorm.bias")
+    for i in range(num_layers):
+        lp, q = f"qformer.encoder.layer.{i}.", f"layers.{i}."
+        for ours, hf_key in _QF_DENSE_MAP:
+            out[q + ours + ".kernel"] = g.t(lp + hf_key + ".weight")
+            out[q + ours + ".bias"] = g(lp + hf_key + ".bias")
+        for ours, hf_key in _QF_LN_MAP:
+            out[q + ours + ".weight"] = g(lp + hf_key + ".weight")
+            out[q + ours + ".bias"] = g(lp + hf_key + ".bias")
+    return out
 
 
 def projector_params_to_hf(state: Mapping[str, torch.Tensor],
                            projector_type: str = "mlp2x_gelu",
                            prefix: str = "model.mm_projector.") -> State:
-    """Inverse of projector_params_from_hf (reference key layout)."""
-    _unported_projector(projector_type)
+    """Inverse of projector_params_from_hf (reference key layout).  The
+    simple projector has no reference layout: it raises, as in the JAX
+    package (its mm_projector.bin uses the tree layout)."""
+    if re.match(r"^(cheap_)?qformer\d+_\d+$", projector_type):
+        return _qformer_params_to_hf(state, prefix + "image_spatial_proj.")
     if projector_type == "linear":
         return {prefix + "image_spatial_proj.weight": _t(state["kernel"]),
                 prefix + "image_spatial_proj.bias": state["bias"]}
@@ -586,8 +647,8 @@ def projector_params_from_hf(state: Mapping[str, torch.Tensor],
                              projector_type: str = "mlp2x_gelu", device=None,
                              dtype=None) -> State:
     """Convert a reference mm_projector checkpoint (mm_projector.bin keys
-    like 'model.mm_projector.image_spatial_proj.0.weight')."""
-    _unported_projector(projector_type)
+    like 'model.mm_projector.image_spatial_proj.0.weight'; the Q-Former's
+    Blip2Model keys)."""
     cleaned = {}
     for k, v in state.items():
         k = k.replace("model.mm_projector.", "").replace("mm_projector.", "")
@@ -595,6 +656,9 @@ def projector_params_from_hf(state: Mapping[str, torch.Tensor],
     g = _Reader(cleaned, "", device, dtype)
     if projector_type == "linear":
         return {"kernel": g.t("weight"), "bias": g("bias")}
+    m = re.match(r"^(cheap_)?qformer(\d+)_\d+$", projector_type)
+    if m:
+        return _qformer_params_from_hf(g, int(m.group(2)))
     m = re.match(r"^(pool_)?mlp(\d+)x_gelu$", projector_type)
     if not m:
         raise NotImplementedError(

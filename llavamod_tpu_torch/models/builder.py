@@ -11,9 +11,10 @@ Two formats:
     in the file's dtype: no f32 copy of the checkpoint is made on the host.
 
 `load_pretrained_model(path)` returns (tokenizer, model, cfg,
-image_preprocessor, context_len) like the reference API; it refuses a LoRA
-merge (`model_base`), not ported yet.  `quantize_for_serving` turns a
-loaded model into its int8 W8A8 serving form.
+image_preprocessor, context_len) like the reference API; with `model_base`
+the path is a PEFT adapter directory, merged onto the base model read from
+`model_base` (models/lora.py).  `quantize_for_serving` turns a loaded model
+into its int8 W8A8 serving form.
 """
 
 from __future__ import annotations
@@ -83,7 +84,9 @@ def from_state(cfg: LlavaConfig, state: dict, source: str, device, dtype,
     serves as the head, as in the JAX tree)."""
     dt = dtype or state.get("llm.embed.embedding",
                             next(iter(state.values()))).dtype
-    missing = [g for g in GROUPS
+    groups = GROUPS + (("video_projector",) if cfg.video_projector_type
+                       else ())
+    missing = [g for g in groups
                if not any(k.startswith(g + ".") for k in state)]
     if missing and fill_missing_seed is None and not drop_missing:
         raise KeyError(f"{source} holds no {missing} weights")
@@ -106,7 +109,9 @@ def from_state(cfg: LlavaConfig, state: dict, source: str, device, dtype,
         build = {"vision": lambda: vit.init(cfg.vision, gen, device, dt),
                  "projector": lambda: cfg.build_projector().init(gen, device,
                                                                  dt),
-                 "llm": lambda: decoder.init(cfg.llm, gen, device, dt)}
+                 "llm": lambda: decoder.init(cfg.llm, gen, device, dt),
+                 "video_projector": lambda: cfg.build_video_projector().init(
+                     gen, device, dt)}
         for g in missing:
             setattr(model, g, build[g]())
     else:
@@ -226,6 +231,26 @@ def make_image_preprocessor(cfg: LlavaConfig) -> ImagePreprocessor:
         image_aspect_ratio=cfg.image_aspect_ratio)
 
 
+def load_any(path: str, device="cuda", dtype=None,
+             vision_path: Optional[str] = None, complete: bool = True
+             ) -> Tuple[LlavaConfig, Llava]:
+    """A native checkpoint directory (`load_model`) or an HF one
+    (`import_hf_llava`, its tower from `vision_path`).  With `complete`, an
+    HF model without one of the groups raises, naming `vision_path` for a
+    missing tower; the checkpoint tools take it as it is."""
+    if os.path.exists(os.path.join(path, CONFIG_NAME)):
+        return load_model(path, device=device, dtype=dtype)
+    cfg, model = import_hf_llava(path, vision_path=vision_path,
+                                 device=device, dtype=dtype)
+    missing = [g for g in GROUPS if not hasattr(model, g)]
+    if missing and complete:
+        hint = (" (an HF LLaVA directory holds no vision tower: pass "
+                "vision_path, an HF CLIP or SigLIP directory)"
+                if "vision" in missing else "")
+        raise ValueError(f"{path} holds no {missing} weights{hint}")
+    return cfg, model
+
+
 def not_ported(what: str, item: int) -> NotImplementedError:
     """The error for an option of the JAX package that the port does not run
     yet, naming its ROADMAP item."""
@@ -242,31 +267,31 @@ def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
     an HF one (`import_hf_llava`; its tower from `vision_path`, an HF CLIP
     or SigLIP directory, since an HF LLaVA directory holds none).
 
+    With `model_base`, `model_path` is a LoRA adapter directory (PEFT's
+    adapter_config.json + adapter_model.bin, and non_lora_trainables.bin
+    when the trainer saved one): the base's config and weights come from
+    `model_base`, native or HF, and the adapters are merged into them, as
+    the reference's builder (model/builder.py:82-155) and tools/merge_lora
+    read them.  (The JAX loader reads the base from the adapter directory
+    instead and fails there.)
+
     The tokenizer is `tokenizer` when given, else the tiktoken vocabulary
     (qwen-1.0, arcade100k) or the HF tokenizer files in `tokenizer_path` or
-    the checkpoint directory; transformers is imported only then.  A LoRA
-    merge (`model_base`) is refused: it is not ported yet."""
+    the checkpoint directory (the base's under `model_base`, as the
+    reference); transformers is imported only then."""
     if model_base is not None:
-        raise not_ported(f"merging LoRA weights onto --model-base "
-                         f"{model_base}", 6)
-    if os.path.exists(os.path.join(model_path, CONFIG_NAME)):
-        cfg, model = load_model(model_path, device=device, dtype=dtype)
+        from llavamod_tpu_torch.models.lora import merge_lora_checkpoint
+
+        cfg, model = merge_lora_checkpoint(
+            model_path, *load_any(model_base, device, dtype, vision_path))
     else:
-        cfg, model = import_hf_llava(model_path, vision_path=vision_path,
-                                     device=device, dtype=dtype)
-        missing = [g for g in GROUPS if not hasattr(model, g)]
-        if missing:
-            hint = (" (an HF LLaVA directory holds no vision tower: pass "
-                    "vision_path, an HF CLIP or SigLIP directory)"
-                    if "vision" in missing else "")
-            raise ValueError(f"{model_path} holds no {missing} weights"
-                             f"{hint}")
+        cfg, model = load_any(model_path, device, dtype, vision_path)
     if tokenizer is None:
         from llavamod_tpu_torch.interop.tiktoken_tokenizers import (
             load_tiktoken_tokenizer,
         )
 
-        tok_path = tokenizer_path or model_path
+        tok_path = tokenizer_path or model_base or model_path
         # qwen-1.0 / stablelm checkpoints carry a *.tiktoken vocab
         tokenizer = load_tiktoken_tokenizer(tok_path)
         if tokenizer is None:

@@ -1,5 +1,6 @@
 """LLaVA glue: vision tower + projector + decoder LLM (port of
-llavamod_tpu/models/llava.py, image path).
+llavamod_tpu/models/llava.py), with the S2 multi-scale tower
+(vision/s2.py) and the optional video projector (models/video.py).
 
 The data pipeline pre-expands every '<image>' placeholder into
 `num_image_tokens` reserved slots (llavamod_tpu/data/splice.py); the model
@@ -12,6 +13,10 @@ JAX paths ('vision.layers.0.attn.q.kernel', 'projector.layers.1.bias',
 'llm.layers.3.attn.wq', ...).  A distillation teacher may be built without
 its own tower (`vision=False`): it takes the student's frozen tower features
 through `tower_feats`, as the JAX teacher tree drops its 'vision' copy.
+With `video_projector_type` set the model also holds 'video_projector':
+video frames run through the same frozen tower (CLS kept) and the video
+projector, and their tokens follow the image rows in each sample's media
+table, the layout data/splice.py indexes.
 """
 
 from __future__ import annotations
@@ -39,12 +44,14 @@ class LlavaConfig:
     image_aspect_ratio: str = "pad"
     max_images: int = 1                  # static per-sample image budget
     freeze_vision: bool = True
-    s2_scales: Tuple[int, ...] = ()      # S2 multiscale: not ported yet
-    video_projector_type: Optional[str] = None   # video: not ported yet
+    s2_scales: Tuple[int, ...] = ()      # e.g. (336, 672) enables S2
+    # optional video projector bundle (reference multimodal_projector/
+    # builder.py:125-205); None = off
+    video_projector_type: Optional[str] = None
     video_global_proj: bool = False
     video_temporal_proj: bool = False
     video_spatial_proj: bool = False
-    num_video_frames: int = 8
+    num_video_frames: int = 8            # static per-video frame budget
 
     @property
     def vision_feature_dim(self) -> int:
@@ -58,6 +65,27 @@ class LlavaConfig:
     @property
     def num_image_tokens(self) -> int:
         return self.build_projector().num_output_tokens(self.vision.num_patches)
+
+    def build_video_projector(self):
+        from llavamod_tpu_torch.models.video import (
+            VideoProjectorConfig,
+            build_video_projector,
+        )
+
+        return build_video_projector(
+            VideoProjectorConfig(projector_type=self.video_projector_type,
+                                 global_proj=self.video_global_proj,
+                                 temporal_proj=self.video_temporal_proj,
+                                 spatial_proj=self.video_spatial_proj),
+            self.vision_feature_dim, self.llm.hidden_size)
+
+    @property
+    def num_video_tokens(self) -> int:
+        """Video-projector output tokens per video (0 when the path is off)."""
+        if self.video_projector_type is None:
+            return 0
+        return self.build_video_projector().num_output_tokens(
+            self.num_video_frames, self.vision.num_patches)
 
     def replace(self, **kw) -> "LlavaConfig":
         return dataclasses.replace(self, **kw)
@@ -73,20 +101,23 @@ class MultimodalBatch(NamedTuple):
     pixel_valid: torch.Tensor  # [B, M] bool
     labels: Optional[torch.Tensor] = None
     positions: Optional[torch.Tensor] = None
+    # video-projector mode only (LlavaConfig.video_projector_type set):
+    video_pixels: Optional[torch.Tensor] = None  # [B, F, 3, S, S]
+    video_valid: Optional[torch.Tensor] = None   # [B] bool
 
 
 class Llava(nn.Module):
     def __init__(self, cfg: LlavaConfig, *, generator: torch.Generator,
                  device=None, dtype=torch.float32, vision: bool = True):
         super().__init__()
-        if cfg.s2_scales or cfg.video_projector_type is not None:
-            raise NotImplementedError("S2 and the video projector are not "
-                                      "ported yet")
         self.cfg = cfg
         if vision:
             self.vision = vit.init(cfg.vision, generator, device, dtype)
         self.projector = cfg.build_projector().init(generator, device, dtype)
         self.llm = decoder.init(cfg.llm, generator, device, dtype)
+        if cfg.video_projector_type is not None:
+            self.video_projector = cfg.build_video_projector().init(
+                generator, device, dtype)
 
     def forward(self, batch: MultimodalBatch, **kw) -> "LlavaOutput":
         return forward(self, self.cfg, batch, **kw)
@@ -100,9 +131,18 @@ def init(cfg: LlavaConfig, generator: torch.Generator, device=None,
 
 def encode_tower(model: Llava, cfg: LlavaConfig,
                  pixels: torch.Tensor) -> torch.Tensor:
-    """pixels [N, 3, S, S] -> frozen tower features [N, patches, D_vis]."""
-    hidden = vit.forward(model.vision, cfg.vision, pixels, cfg.select_layer)
-    feats = vit.select_features(cfg.vision, hidden, cfg.select_feature)
+    """pixels [N, 3, S, S] -> frozen tower features [N, patches, D_vis]
+    (D_vis = hidden_size x len(s2_scales) under S2)."""
+    if cfg.s2_scales:
+        from llavamod_tpu_torch.models.vision.s2 import multiscale_forward
+
+        feats = multiscale_forward(model.vision, cfg.vision, pixels,
+                                   cfg.s2_scales, cfg.select_layer,
+                                   cfg.select_feature)
+    else:
+        hidden = vit.forward(model.vision, cfg.vision, pixels,
+                             cfg.select_layer)
+        feats = vit.select_features(cfg.vision, hidden, cfg.select_feature)
     return feats.detach() if cfg.freeze_vision else feats
 
 
@@ -122,10 +162,37 @@ def multimodal_embed(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch,
     pixels = batch.pixels.reshape((-1,) + tuple(batch.pixels.shape[2:]))
     feats = encode_images(model, cfg, pixels, tower_feats)   # [B*M, N, D]
     feats = torch.where(batch.pixel_valid.reshape(-1, 1, 1), feats, 0.0)
+    if cfg.video_projector_type is not None and batch.video_pixels is not None:
+        # per-sample media table = [image rows | video rows]
+        feats = feats.reshape(batch.video_pixels.shape[0], -1, feats.shape[-1])
+        vfeats = encode_video(model, cfg, batch.video_pixels,
+                              batch.video_valid)
+        feats = torch.cat([feats, vfeats.to(feats.dtype)], dim=1)
     flat = feats.reshape(-1, feats.shape[-1])
     gathered = flat[batch.image_pos.reshape(-1).long()]
     gathered = gathered.reshape(b, t, -1).to(emb.dtype)
     return torch.where(batch.image_mask[..., None], gathered, emb)
+
+
+def encode_video(model: Llava, cfg: LlavaConfig, video_pixels: torch.Tensor,
+                 video_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, F, 3, S, S] frames -> [B, num_video_tokens, D] through the frozen
+    tower (per frame, CLS kept) and the video projector."""
+    b, f = video_pixels.shape[:2]
+    px = video_pixels.reshape((-1,) + tuple(video_pixels.shape[2:]))
+    hidden = vit.forward(model.vision, cfg.vision, px, cfg.select_layer)
+    feats = vit.select_features(cfg.vision, hidden, "cls_patch")
+    if cfg.freeze_vision:
+        feats = feats.detach()
+    if not cfg.vision.use_class_token:
+        # the projector splits [CLS | patches]: a tower without a class
+        # token gets a zero CLS row
+        feats = torch.cat([torch.zeros_like(feats[:, :1]), feats], dim=1)
+    feats = feats.reshape(b, f, feats.shape[-2], feats.shape[-1])
+    out = cfg.build_video_projector().apply(model.video_projector, feats)
+    if video_valid is not None:
+        out = torch.where(video_valid.reshape(-1, 1, 1), out, 0.0)
+    return out
 
 
 class LlavaOutput(NamedTuple):

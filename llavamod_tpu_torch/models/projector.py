@@ -1,7 +1,8 @@
 """Multimodal projectors: vision features -> LLM embedding space (port of
-llavamod_tpu/models/projector.py for 'linear', 'mlp{N}x_gelu',
-'pool_mlp{N}x_gelu' and 'identity'; 'mlp2x_gelu' is the configuration of
-record).  The pooling variant averages 2x2 cells of the square token grid
+llavamod_tpu/models/projector.py: 'linear', 'mlp{N}x_gelu',
+'pool_mlp{N}x_gelu', 'identity', and from models/qformer.py
+'(cheap_)qformer{L}_{Q}' and '(cheap_)simple_in{I}_out{O}'; 'mlp2x_gelu' is
+the configuration of record).  The pooling variant averages 2x2 cells of the square token grid
 (24x24 -> 12x12 for CLIP-L/336) before the MLP, as the reference's
 Pool_Block (pool_block.py:8-27).
 
@@ -89,4 +90,18 @@ def build_projector(spec: str, vision_dim: int, llm_dim: int) -> Projector:
         return Projector(spec, _mlp_init(vision_dim, llm_dim, int(m.group(1))),
                          lambda p, x: _mlp_apply(p, _pool2x2(x)),
                          lambda n: n // 4)
-    raise ValueError(f"Unknown or not yet ported projector type: {spec}")
+    m = re.match(r"^(cheap_)?qformer(\d+)_(\d+)$", spec)
+    if m:
+        from llavamod_tpu_torch.models.qformer import build_qformer_projector
+
+        return build_qformer_projector(spec, vision_dim, llm_dim,
+                                       int(m.group(2)), int(m.group(3)),
+                                       cheap=m.group(1) is not None)
+    m = re.match(r"^(cheap_)?simple_in(\d+)_out(\d+)$", spec)
+    if m:
+        from llavamod_tpu_torch.models.qformer import build_simple_projector
+
+        return build_simple_projector(spec, vision_dim, llm_dim,
+                                      int(m.group(2)), int(m.group(3)),
+                                      cheap=m.group(1) is not None)
+    raise ValueError(f"Unknown projector type: {spec}")

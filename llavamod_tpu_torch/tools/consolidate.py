@@ -1,6 +1,9 @@
-"""Consolidate a loadable checkpoint (HF import or native) into one native
-directory (port of llavamod_tpu/tools/consolidate.py; reference
-model/consolidate.py:14-21).  A LoRA base (`--base`) is not ported yet.
+"""Consolidate a loadable checkpoint (HF import, LoRA adapter + base, or
+native) into one native directory (port of llavamod_tpu/tools/consolidate.py;
+reference model/consolidate.py:14-21).  With `--base`, `--src` is a LoRA
+adapter directory merged onto the base model read from `--base`, native
+or HF (a base without a tower included, as the JAX merge_lora tool takes
+it).
 
   python -m llavamod_tpu_torch.tools.consolidate --src PATH [--base BASE] \
       --dst OUT [--device cuda]
@@ -9,27 +12,20 @@ model/consolidate.py:14-21).  A LoRA base (`--base`) is not ported yet.
 from __future__ import annotations
 
 import argparse
-import os
 
 
 def consolidate_ckpt(src: str, dst: str, base: str = None,
                      device="cuda") -> str:
-    from llavamod_tpu_torch.models.builder import (
-        CONFIG_NAME,
-        import_hf_llava,
-        load_model,
-        not_ported,
-        save_model,
-    )
+    from llavamod_tpu_torch.models.builder import load_any, save_model
+    from llavamod_tpu_torch.models.lora import merge_lora_checkpoint
 
+    # an HF LLaVA directory holds no tower: the native copy has none
+    # either, as the JAX tool writes it
     if base is not None:
-        raise not_ported(f"merging LoRA weights onto --base {base}", 6)
-    if os.path.exists(os.path.join(src, CONFIG_NAME)):
-        _, model = load_model(src, device=device)
+        _, model = merge_lora_checkpoint(
+            src, *load_any(base, device, complete=False))
     else:
-        # an HF LLaVA directory holds no tower: the native copy has none
-        # either, as the JAX tool writes it
-        _, model = import_hf_llava(src, device=device)
+        _, model = load_any(src, device, complete=False)
     return save_model(dst, model)
 
 

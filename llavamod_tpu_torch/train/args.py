@@ -35,20 +35,19 @@ class ModelArgs:
     mm_vision_select_layer: int = -2
     mm_vision_select_feature: str = "patch"
     mm_use_im_start_end: bool = False
-    s2: bool = False                           # S2: ROADMAP Queue 1, item 6
+    s2: bool = False                           # S2 multi-scale tower
     s2_scales: str = "336,672"
     image_tower: str = "clip-vit-l-336"
     image_projector_type: str = "mlp2x_gelu"
 
-    # --- video projector (ROADMAP Queue 1, item 6); 'temproal' keeps the
-    # reference's CLI spelling ---
+    # --- video projector ('temproal' keeps the reference's CLI spelling) ---
     video_tower: Optional[str] = None
     video_projector_type: str = "linear"
     video_global_proj: bool = False
     video_temproal_proj: bool = False
     video_spatial_proj: bool = False
 
-    # --- LoRA (ROADMAP Queue 1, item 6) ---
+    # --- LoRA ---
     lora_enable: bool = False
     lora_r: int = 128
     lora_alpha: int = 256

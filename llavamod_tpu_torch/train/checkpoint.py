@@ -2,17 +2,20 @@
 
   * the full training state under `output_dir/checkpoint-<step>/state.pt`
     through torch.save (the JAX package writes it with orbax): the model's
-    state dict, both AdamW groups with their moments and update counts, the
-    MultiSteps accumulator and its position, and the step;
+    state dict, the LoRA adapters' when the state has them, both optimizer
+    groups with their moments and update counts, the MultiSteps
+    accumulator and its position, and the step;
   * auto-resume as the reference's train/train.py:527-530: when the output
     directory holds `checkpoint-*`, training restarts from the newest one;
   * the stage-1 `mm_projector.bin` in the reference's key layout: for
     `linear` and `mlp{N}x_gelu` the reference's nn.Sequential keys
     (`model.mm_projector.image_spatial_proj.<i>.{weight,bias}`, weights
     transposed to [out, in]), byte for byte what the JAX package writes;
-    for the other ported projectors the `model.mm_projector.tree.<path>`
-    flattening, read back against a template.  Q-Former layouts come with
-    the Q-Former port (ROADMAP Queue 1, item 6).
+    for the Q-Former the reference's Blip2Model keys (interop/hf.py); for
+    the pool and simple projectors the `model.mm_projector.tree.<path>`
+    flattening in the JAX tree's leaf order, read back against a template,
+    with the simple projector's Python leaves (`same`, `heads`) written as
+    the JAX package writes them, so the files interchange.
 """
 
 from __future__ import annotations
@@ -32,10 +35,11 @@ def save_checkpoint(output_dir: str, step: int, state) -> str:
     """Write the whole TrainState under output_dir/checkpoint-<step>."""
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{step}"))
     os.makedirs(path, exist_ok=True)
-    torch.save({"step": int(step),
-                "model": state.model.state_dict(),
-                "opt": state.opt.state_dict()},
-               os.path.join(path, STATE_NAME))
+    saved = {"step": int(step), "model": state.model.state_dict(),
+             "opt": state.opt.state_dict()}
+    if state.lora is not None:
+        saved["lora"] = state.lora.state_dict()
+    torch.save(saved, os.path.join(path, STATE_NAME))
     return path
 
 
@@ -58,6 +62,11 @@ def restore_checkpoint(path: str, state):
     saved = torch.load(os.path.join(path, STATE_NAME), map_location="cpu",
                        weights_only=True)
     state.model.load_state_dict(saved["model"], strict=True)
+    if (state.lora is None) != ("lora" not in saved):
+        raise ValueError(f"{path}: LoRA adapters in the checkpoint and in "
+                         "the run differ")
+    if state.lora is not None:
+        state.lora.load_state_dict(saved["lora"], strict=True)
     state.opt.load_state_dict(saved["opt"])
     return state._replace(step=int(saved["step"]))
 
@@ -78,11 +87,15 @@ def _mlp_depth(projector_type: str) -> Optional[int]:
     return int(m.group(1)) if m else None
 
 
-def _check_ported(projector_type: str) -> None:
-    if re.match(r"^(cheap_)?qformer\d+_\d+$", projector_type):
-        raise NotImplementedError(
-            f"mm_projector.bin for '{projector_type}' (Q-Former keys) is not "
-            f"ported yet (ROADMAP Queue 1, item 6)")
+def _is_qformer(projector_type: str) -> bool:
+    return re.match(r"^(cheap_)?qformer\d+_\d+$", projector_type) is not None
+
+
+def _tree_order(key: str):
+    """The JAX tree_flatten order of a leaf: dict keys sorted, list
+    entries by index."""
+    return [(0, int(p), "") if p.isdigit() else (1, 0, p)
+            for p in key.split(".")]
 
 
 def save_mm_projector(path: str, projector: Dict[str, torch.Tensor],
@@ -90,10 +103,14 @@ def save_mm_projector(path: str, projector: Dict[str, torch.Tensor],
     """Write an mm_projector.bin from the projector's state dict (keys as
     `Llava.projector.state_dict()`: 'kernel'/'bias' for linear,
     'layers.<j>.kernel'/'.bias' for the MLP), tensors in their own dtype."""
-    _check_ported(projector_type)
     t = {k: v.detach().cpu() for k, v in projector.items()}
     depth = _mlp_depth(projector_type)
-    if projector_type == "linear":
+    if _is_qformer(projector_type):
+        from llavamod_tpu_torch.interop.hf import projector_params_to_hf
+
+        state = {k: v.contiguous() for k, v in
+                 projector_params_to_hf(t, projector_type).items()}
+    elif projector_type == "linear":
         state = {_SEQ_PREFIX + "weight": t["kernel"].t().contiguous(),
                  _SEQ_PREFIX + "bias": t["bias"].clone()}
     elif depth is not None:
@@ -104,7 +121,11 @@ def save_mm_projector(path: str, projector: Dict[str, torch.Tensor],
                 t[f"layers.{j}.kernel"].t().contiguous()
             state[f"{_SEQ_PREFIX}{idx}.bias"] = t[f"layers.{j}.bias"].clone()
     else:
-        state = {_TREE_PREFIX + k: v.clone() for k, v in t.items()}
+        from llavamod_tpu_torch.models.qformer import tree_scalars
+
+        t.update(tree_scalars(projector_type, t))
+        state = {_TREE_PREFIX + k: t[k].clone()
+                 for k in sorted(t, key=_tree_order)}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(state, path)
     return path
@@ -116,8 +137,8 @@ def load_mm_projector(path: str, projector_type: str = "mlp2x_gelu",
     """Read an mm_projector.bin into the projector's state-dict keys (load
     it with `model.projector.load_state_dict`).  The tree layout needs
     `template`, the projector's current state dict, for its keys and
-    shapes."""
-    _check_ported(projector_type)
+    shapes (the Python leaves of the simple projector's entries are module
+    config here and are not read)."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if not any(k.startswith(_TREE_PREFIX) for k in state):
         from llavamod_tpu_torch.interop.hf import projector_params_from_hf

@@ -19,6 +19,11 @@ mean of the microbatch gradients, the inner update (clip, then AdamW per
 label) on every k-th call only, so the schedule advances once per optimizer
 step.
 
+With LoRA (models/lora.py) the optimizer takes the adapters as well,
+under 'lora.<target>.a' / '.b' keys: they always train, the targets they
+adapt are frozen (PEFT wraps and freezes them), everything else follows the
+usual rules, as the JAX mask over its {'base', 'lora'} tree.
+
 Adafactor (`optimizer='adafactor'`) follows the JAX `_adafactor`: optax's
 adafactor with decay rate 0.8, parameter scale, update clipping at 1.0 in
 place of the global-norm clip, no momentum, `weight_decay_rate =
@@ -55,11 +60,13 @@ def trainable_mask(model: nn.Module, cfg: TrainConfig,
     """{state_dict key: True where the parameter receives updates}: the
     vision tower never trains; stage 1 (tune_mm_mlp_adapter) trains only the
     projector; otherwise `train_modules` substrings (plus the projector
-    unless frozen) select the set, and an empty set trains everything."""
-    if lora_cfg is not None:
-        raise NotImplementedError("LoRA is not ported yet (ROADMAP Queue 1)")
+    unless frozen) select the set, and an empty set trains everything.  With
+    `lora_cfg`, the parameters its adapters target are frozen."""
+    from llavamod_tpu_torch.models.lora import is_target
 
     def decide(p: str) -> bool:
+        if lora_cfg is not None and is_target(p, lora_cfg):
+            return False
         if p.startswith("vision"):
             return False
         if cfg.tune_mm_mlp_adapter:
@@ -73,10 +80,11 @@ def trainable_mask(model: nn.Module, cfg: TrainConfig,
     return {n: decide(_path(n)) for n, _ in model.named_parameters()}
 
 
-def param_labels(model: nn.Module, cfg: TrainConfig) -> Dict[str, str]:
+def param_labels(model: nn.Module, cfg: TrainConfig,
+                 lora_cfg=None) -> Dict[str, str]:
     """{key: 'frozen' | 'projector' | 'default'} (the multi_transform
     labels)."""
-    mask = trainable_mask(model, cfg)
+    mask = trainable_mask(model, cfg, lora_cfg)
 
     def label(n: str) -> str:
         if not mask[n]:
@@ -88,9 +96,10 @@ def param_labels(model: nn.Module, cfg: TrainConfig) -> Dict[str, str]:
     return {n: label(n) for n in mask}
 
 
-def apply_trainable_mask(model: nn.Module, cfg: TrainConfig) -> Dict[str, bool]:
+def apply_trainable_mask(model: nn.Module, cfg: TrainConfig,
+                         lora_cfg=None) -> Dict[str, bool]:
     """Set requires_grad from `trainable_mask`; returns the mask."""
-    mask = trainable_mask(model, cfg)
+    mask = trainable_mask(model, cfg, lora_cfg)
     for n, p in model.named_parameters():
         p.requires_grad_(mask[n])
     return mask
@@ -228,13 +237,18 @@ class Optimizer:
     """clip_by_global_norm (AdamW only), then AdamW or Adafactor per label;
     frozen parameters are left as they are (optax.set_to_zero)."""
 
-    def __init__(self, model: nn.Module, cfg: TrainConfig):
+    def __init__(self, model: nn.Module, cfg: TrainConfig, lora=None,
+                 lora_cfg=None):
         if cfg.optimizer not in _GROUP_CLASSES:
             raise ValueError(f"optimizer must be one of "
                              f"{sorted(_GROUP_CLASSES)}; got {cfg.optimizer!r}")
         self.cfg = cfg
-        labels = param_labels(model, cfg)
+        labels = param_labels(model, cfg, lora_cfg)
         named = dict(model.named_parameters())
+        if lora is not None:       # the adapters train, at the default lr
+            for n, p in lora.named_parameters():
+                named["lora." + n] = p
+                labels["lora." + n] = "default"
         lrs = {"default": cfg.learning_rate,
                "projector": cfg.mm_projector_lr or cfg.learning_rate}
         group_cls = _GROUP_CLASSES[cfg.optimizer]
@@ -333,9 +347,10 @@ class MultiSteps:
         self.mini_step = int(state["mini_step"])
 
 
-def build_optimizer(model: nn.Module, cfg: TrainConfig):
+def build_optimizer(model: nn.Module, cfg: TrainConfig, lora=None,
+                    lora_cfg=None):
     """Optimizer, wrapped in MultiSteps when gradients accumulate."""
-    opt = Optimizer(model, cfg)
+    opt = Optimizer(model, cfg, lora, lora_cfg)
     if cfg.grad_accum_steps > 1:
         return MultiSteps(opt, cfg.grad_accum_steps)
     return opt
@@ -345,13 +360,17 @@ class TrainState(NamedTuple):
     step: int
     model: nn.Module
     opt: "Optimizer | MultiSteps"
+    lora: "nn.Module | None" = None    # models/lora.py LoraAdapters
 
     @classmethod
-    def create(cls, model: nn.Module, cfg: TrainConfig,
-               lora_cfg=None) -> "TrainState":
-        """Freezes what the train set leaves out and builds the optimizer
-        state for the rest."""
-        if lora_cfg is not None:
-            raise NotImplementedError("LoRA is not ported yet")
-        apply_trainable_mask(model, cfg)
-        return cls(0, model, build_optimizer(model, cfg))
+    def create(cls, model: nn.Module, cfg: TrainConfig, lora_cfg=None,
+               lora=None) -> "TrainState":
+        """Freezes what the train set leaves out (and, with adapters, the
+        parameters they target) and builds the optimizer state for the
+        rest and the adapters."""
+        if (lora is None) != (lora_cfg is None):
+            raise ValueError("LoRA needs both the adapters and their config")
+        apply_trainable_mask(model, cfg, lora_cfg)
+        if lora is not None:
+            lora.requires_grad_(True)
+        return cls(0, model, build_optimizer(model, cfg, lora, lora_cfg), lora)

@@ -22,16 +22,21 @@ runs on the card unless the caller passes `device="cpu"` to `run_stage` or
 `main`.  `--optimizer adafactor` runs on every stage; `--fused_update`
 (align stage, Adafactor) takes the fused backward+update step
 (train/fused_steps.py), with the loader folding each `accum` microbatches
-into one batch.  Every branch of the JAX engine that the port does not run
-yet raises NotImplementedError naming the ROADMAP Queue 1 item that ports
-it.
+into one batch.  `--lora_enable` trains LoRA adapters (models/lora.py) on
+the targets' frozen weights, merged on the fly each step; `--s2` and
+`--video_tower` build a preset model with the S2 tower or the video
+projector (a checkpoint directory keeps the configuration it was saved
+with, as in the JAX engine).  Every branch of the JAX engine that the port
+does not run yet (parallelism) raises NotImplementedError naming the
+ROADMAP Queue 1 item that ports it.
 
 Per run the output directory gets `metrics.jsonl` (one line per
 `logging_steps` steps: microbatches, or fused updates), `run_info.json`
 (seconds spent building and loading the models, in the loop and saving;
 microbatches and optimizer updates), periodic `checkpoint-<step>/` (<step>
 counts loop steps), the final model (`llavamod_config.json` + `model.pt`)
-and, for stage 1, `mm_projector.bin`.
+and, for stage 1, `mm_projector.bin`; with LoRA the final model is the
+merged one and `adapter/` holds the adapters in PEFT's layout.
 """
 
 from __future__ import annotations
@@ -92,10 +97,6 @@ def translate_train_modules(mods) -> Optional[Tuple[str, ...]]:
 def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
     """Raise on every option of the JAX engine that the port does not run
     yet, before anything is built."""
-    if margs.lora_enable:
-        raise not_ported("LoRA (--lora_enable)", 6)
-    if margs.video_tower or margs.s2:
-        raise not_ported("video frames and S2 (--video_tower, --s2)", 6)
     if (max(targs.data_parallel, targs.expert_parallel, targs.tensor_parallel,
             targs.pipeline_parallel) > 1 or targs.sequence_parallel):
         raise not_ported("data, expert, tensor, sequence and pipeline "
@@ -141,7 +142,17 @@ def build_llava(name_or_path: str, margs: ModelArgs, *, seed: int = 0,
         vision=vision_configs.get(margs.image_tower),
         projector_type=margs.image_projector_type,
         select_layer=margs.mm_vision_select_layer,
-        select_feature=margs.mm_vision_select_feature)
+        select_feature=margs.mm_vision_select_feature,
+        s2_scales=(tuple(int(s) for s in margs.s2_scales.split(","))
+                   if margs.s2 else ()),
+        # the video projector bundle (reference builder.py:125-205), on with
+        # --video_tower; frames run through the IMAGE tower (the reference
+        # stubs dedicated video towers out, multimodal_encoder/builder.py:39)
+        video_projector_type=(margs.video_projector_type
+                              if margs.video_tower else None),
+        video_global_proj=margs.video_global_proj,
+        video_temporal_proj=margs.video_temproal_proj,
+        video_spatial_proj=margs.video_spatial_proj)
     gen = torch.Generator(device=device).manual_seed(seed)
     return cfg, llava_mod.init(cfg, gen, device=device, dtype=torch.float32)
 
@@ -179,6 +190,32 @@ def maybe_upcycle(cfg, model, margs: ModelArgs):
     return cfg, model
 
 
+def maybe_add_lora(model, margs: ModelArgs, seed: int):
+    """(adapters, LoraConfig), or (None, None) without --lora_enable: rank
+    `lora_r`, alpha `lora_alpha`, on the FFN weights (experts included) with
+    --only_lora_ffn, else also on attention; drawn from seed + 1."""
+    if not margs.lora_enable:
+        return None, None
+    from llavamod_tpu_torch.models.lora import (
+        DEFAULT_TARGETS,
+        FFN_TARGETS,
+        LoraConfig,
+        init_lora,
+    )
+
+    lcfg = LoraConfig(r=margs.lora_r, alpha=margs.lora_alpha,
+                      dropout=margs.lora_dropout,
+                      target_patterns=FFN_TARGETS if margs.only_lora_ffn
+                      else DEFAULT_TARGETS)
+    device = next(model.llm.parameters()).device
+    lora = init_lora(model, lcfg, torch.Generator(device=device)
+                     .manual_seed(seed + 1))
+    rank0_print(f"[build] LoRA adapters added (r={lcfg.r}, "
+                f"ffn_only={margs.only_lora_ffn}, {len(lora.targets)} "
+                f"targets)")
+    return lora, lcfg
+
+
 # ---------------------------------------------------------------------------
 # data module
 # ---------------------------------------------------------------------------
@@ -197,19 +234,26 @@ def build_data_module(stage: str, margs: ModelArgs, dargs: DataArgs,
         RandomSampler,
     )
 
+    video = cfg.video_projector_type is not None
     ds_cls = PreferenceJsonDataset if stage == "dpo" else SupervisedJsonDataset
     dataset = ds_cls(
         dargs.data_path, tokenizer, make_image_preprocessor(cfg),
         image_folder=dargs.image_folder, template_name=margs.version,
         model_max_length=targs.model_max_length,
-        is_multimodal=dargs.is_multimodal, num_frames=dargs.num_frames,
-        use_im_start_end=margs.mm_use_im_start_end, seed=targs.seed)
+        is_multimodal=dargs.is_multimodal,
+        num_frames=cfg.num_video_frames if video else dargs.num_frames,
+        use_im_start_end=margs.mm_use_im_start_end, seed=targs.seed,
+        video_projector=video)
     pad_id = getattr(tokenizer, "pad_token_id", 0) or 0
     coll_cls = DPOCollator if stage == "dpo" else SupervisedCollator
+    coll_kw = {}
+    if stage != "dpo" and video:      # no video in the preference batches
+        coll_kw = dict(num_video_tokens=cfg.num_video_tokens,
+                       num_video_frames=cfg.num_video_frames)
     collator = coll_cls(max_len=targs.model_max_length,
                         num_image_tokens=cfg.num_image_tokens,
                         image_size=cfg.vision.image_size,
-                        max_images=cfg.max_images, pad_id=pad_id)
+                        max_images=cfg.max_images, pad_id=pad_id, **coll_kw)
     if targs.group_by_modality_length:
         sampler = LengthGroupedSampler(
             targs.per_device_train_batch_size,
@@ -315,8 +359,8 @@ def _prune_checkpoints(output_dir: str, keep: int):
 # int8 W8A8 options
 # ---------------------------------------------------------------------------
 
-def quantize_stage_models(tcfg: TrainConfig, stage_args, model,
-                          teacher) -> Dict[str, Any]:
+def quantize_stage_models(tcfg: TrainConfig, stage_args, model, teacher,
+                          lora_cfg=None) -> Dict[str, Any]:
     """Apply the stage's int8 options in place (JAX run.py:521-600):
 
       * `ref_quant` int8 / int8_head: the teacher's (stage 3: the
@@ -332,7 +376,10 @@ def quantize_stage_models(tcfg: TrainConfig, stage_args, model,
         the body, experts included, to int8; the float layers are kept on
         the host.
 
-    Returns the host stash that `restore_float_weights` puts back."""
+    With LoRA the student is left as it is, as in the JAX engine: its head
+    is quantized per step from the live weights (train/steps.py) and its
+    body stays in float.  Returns the host stash that
+    `restore_float_weights` puts back."""
     from llavamod_tpu_torch.models.llm.decoder import (
         quantize_decoder_int8,
         quantize_head_int8,
@@ -350,6 +397,8 @@ def quantize_stage_models(tcfg: TrainConfig, stage_args, model,
         rank0_print("[build] teacher attention/MLP quantized to int8 (W8A8)"
                     + (" + int8 LM head" if rq == "int8_head" else ""))
     llm = model.llm
+    if lora_cfg is not None:
+        return stash
     if (tcfg.student_head_quant and hasattr(llm, "lm_head")
             and not isinstance(llm.lm_head.weight, Int8Weight)):
         with torch.no_grad():
@@ -394,12 +443,24 @@ def restore_float_weights(model, stash: Dict[str, Any]) -> None:
         llm.layers[i] = layer
 
 
-def final_save(output_dir: str, cfg, state, tcfg: TrainConfig):
-    """The full model (llavamod_config.json + model.pt); stage 1 also
-    exports mm_projector.bin (reference train.py:535-557)."""
+def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
+               lora_cfg=None):
+    """The full model (llavamod_config.json + model.pt); with LoRA the
+    adapters first go to `output_dir/adapter` in PEFT's layout and are then
+    merged into the model saved; stage 1 also exports mm_projector.bin
+    (reference train.py:535-557)."""
     from llavamod_tpu_torch.models.builder import save_model
     from llavamod_tpu_torch.train.checkpoint import save_mm_projector
 
+    if state.lora is not None:
+        from llavamod_tpu_torch.models.lora import (
+            merge_lora_,
+            save_lora_adapter,
+        )
+
+        save_lora_adapter(os.path.join(output_dir, "adapter"), state.lora,
+                          lora_cfg)
+        merge_lora_(state.model, state.lora, lora_cfg)
     save_model(output_dir, state.model)
     if tcfg.tune_mm_mlp_adapter or tcfg.stage == "pretrain":
         save_mm_projector(os.path.join(output_dir, "mm_projector.bin"),
@@ -485,6 +546,12 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
         tokenizer = load_tokenizer(margs)
     cfg, model, teacher_cfg, teacher = build_stage_models(
         stage, margs, targs, salign, sdpo, device)
+    if stage == "align" and cfg.video_projector_type is not None:
+        # the distillation batch indexes the student's video rows, which the
+        # teacher's media table lacks (the JAX engine reads past its table;
+        # the preference batches carry no video)
+        raise ValueError("the video projector does not train in the align "
+                         "stage: its teacher cannot read the video rows")
 
     # ---- data ----
     loader = build_data_module(stage, margs, dargs, targs, tokenizer, cfg)
@@ -503,7 +570,9 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
             and hasattr(teacher, "vision"):
         # the frozen tower is shared with the teacher: drop its own copy
         del teacher.vision
-    float_stash = quantize_stage_models(tcfg, salign or sdpo, model, teacher)
+    lora, lora_cfg = maybe_add_lora(model, margs, targs.seed)
+    float_stash = quantize_stage_models(tcfg, salign or sdpo, model, teacher,
+                                        lora_cfg)
 
     # (prestack_layers has no effect: the JAX package pre-stacks the layer
     # trees for its lax.scan layer loop, a TPU workaround the port does not
@@ -519,6 +588,8 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     if fused:
         if stage != "align":
             raise ValueError("--fused_update is align-stage only")
+        if lora is not None:
+            raise ValueError("--fused_update does not support LoRA")
         if accum > 1:
             rank0_print(f"[fused] in-batch gradient accumulation: {accum} "
                         f"microbatches folded per update; running "
@@ -526,7 +597,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
                         f"microbatches)")
         state = init_fused_state(model, cfg, tcfg)
     else:
-        state = TrainState.create(model, tcfg)
+        state = TrainState.create(model, tcfg, lora_cfg, lora)
     state, resumed = maybe_auto_resume(targs.output_dir, state)
     if resumed:
         rank0_print(f"[ckpt] auto-resumed from {resumed}")
@@ -535,14 +606,14 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
 
     if stage == "align":
         step_fn = (make_fused_align_step(cfg, teacher_cfg, tcfg) if fused
-                   else make_align_step(cfg, teacher_cfg, tcfg))
+                   else make_align_step(cfg, teacher_cfg, tcfg, lora_cfg))
         call = lambda st, b: step_fn(  # noqa: E731
             st, teacher, batch_from_arrays(b, device=device))
     elif stage == "dpo":
-        step_fn = make_dpo_step(cfg, teacher_cfg, tcfg)
+        step_fn = make_dpo_step(cfg, teacher_cfg, tcfg, lora_cfg)
         call = lambda st, b: step_fn(st, teacher, b)  # noqa: E731
     else:
-        step_fn = make_pretrain_step(cfg, tcfg)
+        step_fn = make_pretrain_step(cfg, tcfg, lora_cfg)
         call = lambda st, b: step_fn(  # noqa: E731
             st, batch_from_arrays(b, device=device))
 
@@ -566,7 +637,8 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
 
     host_batches = infinite_batches(loader)
     batches = (fold_microbatches(host_batches, accum, rows_per_sample=(
-        cfg.max_images * cfg.num_image_tokens)) if fused else host_batches)
+        cfg.max_images * cfg.num_image_tokens + cfg.num_video_tokens))
+        if fused else host_batches)
     profiler = None
     save_s = 0.0
     t_loop = time.perf_counter()
@@ -602,7 +674,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
 
     t_save = time.perf_counter()
     restore_float_weights(state.model, float_stash)
-    final_save(targs.output_dir, cfg, state, tcfg)
+    final_save(targs.output_dir, cfg, state, tcfg, lora_cfg)
     save_s += time.perf_counter() - t_save
     info = {"stage": stage, "build_and_load_s": build_s, "loop_s": loop_s,
             "save_s": save_s,

@@ -17,7 +17,10 @@ before clipping.  Frozen models (teacher, DPO reference) run under no_grad,
 on the student's frozen tower features where the towers are shareable.
 Parameters are cast to `compute_dtype` for the forward when they are kept
 in another dtype (f32 masters), and the gradients flow back to them through
-the cast, as the JAX `_cast_tree`.
+the cast, as the JAX `_cast_tree`.  With LoRA (`lora_cfg`, the adapters in
+`state.lora`) the adapted weights are merged on the fly each step
+(models/lora.py `lora_merged`, the JAX `_effective_params`), before the
+cast, and the gradients reach the adapters through the merge.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from torch import nn
 from llavamod_tpu_torch.models import llava
 from llavamod_tpu_torch.models.llava import LlavaConfig, MultimodalBatch
 from llavamod_tpu_torch.models.llm.decoder import quantize_head_int8
+from llavamod_tpu_torch.models.lora import lora_merged
 from llavamod_tpu_torch.models.params import Int8Weight
 from llavamod_tpu_torch.ops.losses import (
     dpo_loss,
@@ -73,20 +77,22 @@ def batch_from_arrays(d: Dict[str, Any], prefix: str = "",
     def g(k, key=None):
         return torch.as_tensor(d[key or prefix + k], device=device)
 
+    def video(k):
+        return g(k, k) if k in d else None
+
     return MultimodalBatch(
         input_ids=g("input_ids"), segment_ids=g("segment_ids"),
         image_mask=g("image_mask"), image_pos=g("image_pos"),
         pixels=g("pixels", "pixels"), pixel_valid=g("pixel_valid",
                                                     "pixel_valid"),
-        labels=g("labels"))
+        labels=g("labels"), video_pixels=video("video_pixels"),
+        video_valid=video("video_valid"))
 
 
 def _stop_frozen(model: nn.Module, tcfg: TrainConfig, lora_cfg=None):
     """Frozen parameters take no gradient (requires_grad False), so autograd
     never forms their backward, as the JAX stop_gradient lets XLA drop it."""
-    if lora_cfg is not None:
-        raise NotImplementedError("LoRA is not ported yet")
-    return apply_trainable_mask(model, tcfg)
+    return apply_trainable_mask(model, tcfg, lora_cfg)
 
 
 def _student_forward(model, cfg: LlavaConfig, batch: MultimodalBatch,
@@ -94,7 +100,8 @@ def _student_forward(model, cfg: LlavaConfig, batch: MultimodalBatch,
     """Inside `_cast_tree`: (LlavaOutput, head weight) of the student.  An
     int8 body (student_body_quant) was quantized when the stage was built
     (train/run.py); with student_head_quant, a head still in float (a tied
-    model's embedding) is quantized here each step, without a gradient."""
+    model's embedding, or any head under LoRA) is quantized here each step
+    from the live weights, without a gradient."""
     dtype = _DTYPES[tcfg.compute_dtype]
     cbatch = batch._replace(pixels=batch.pixels.to(dtype))
     out = llava.forward(model, cfg, cbatch, train=True, remat=tcfg.remat,
@@ -177,7 +184,8 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
         model = state.model
         _stop_frozen(model, tcfg, lora_cfg)
         _clear_grads(state)
-        with _cast_tree(model, dtype), _cast_tree(teacher, dtype):
+        with lora_merged(model, state.lora, lora_cfg), \
+                _cast_tree(model, dtype), _cast_tree(teacher, dtype):
             loss, metrics = loss_fn(model, teacher, batch)
             loss.backward()
         return _apply_update(state, metrics)
@@ -234,7 +242,8 @@ def _row_chunk(batch: MultimodalBatch, i: int, rows: int,
         image_pos=(batch.image_pos[sl]
                    - i * rows * rows_per_sample).clamp_min(0),
         pixels=r(batch.pixels), pixel_valid=r(batch.pixel_valid),
-        labels=r(batch.labels), positions=r(batch.positions))
+        labels=r(batch.labels), positions=r(batch.positions),
+        video_pixels=r(batch.video_pixels), video_valid=r(batch.video_valid))
 
 
 def _ce_token_count(labels: torch.Tensor, ignore_index: int = -100):
@@ -260,7 +269,8 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
     over the whole batch, which chunks would not reproduce."""
     moe_on = cfg.llm.is_moe and tcfg.moe_loss_enable
     coef = cfg.llm.router_aux_loss_coef if moe_on else 0.0
-    rows_per_sample = cfg.max_images * cfg.num_image_tokens
+    rows_per_sample = cfg.max_images * cfg.num_image_tokens \
+        + cfg.num_video_tokens
     dtype = _DTYPES[tcfg.compute_dtype]
 
     def ce_forward(model, batch: MultimodalBatch):
@@ -314,7 +324,8 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
             group = cfg.llm.moe_gating_group_size
             if not (group > 0 and ((b // n_ck) * t) % group == 0):
                 n_ck = 1
-        with _cast_tree(model, dtype):
+        with lora_merged(model, state.lora, lora_cfg), \
+                _cast_tree(model, dtype):
             metrics = (chunked(model, batch, n_ck) if n_ck > 1
                        else one_shot(model, batch))
         return _apply_update(state, metrics)
@@ -408,7 +419,8 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
         _clear_grads(state)
         device = next(model.parameters()).device
         batch2b = _concat_pair_batch(batch_dict, device=device)
-        with _cast_tree(model, dtype), _cast_tree(ref, dtype):
+        with lora_merged(model, state.lora, lora_cfg), \
+                _cast_tree(model, dtype), _cast_tree(ref, dtype):
             loss, metrics = loss_fn(model, ref, batch2b)
             loss.backward()
         return _apply_update(state, metrics)

@@ -13,7 +13,9 @@ them) with the tower of an HF CLIP directory (the port's `--vision-path`;
 the JAX side through `load_pretrained_model(vision_path=...)`, which its
 CLIs do not expose), `generate` and `run_llava.single_query` give JAX's
 answers and the server's `build_engine` serves it; with no tower the load
-raises a ValueError naming vision_path.  The JAX side decodes through its
+raises a ValueError naming vision_path.  With `--model-base` the port's
+`generate` answers from a LoRA adapter merged onto that base, as the
+merged model tools.merge_lora writes does.  The JAX side decodes through its
 XLA branch (LLAVAMOD_DECODE_ATTN=xla) and preprocesses images on its PIL
 path (the one the port copies; its optional C++ batch path resizes
 differently), which changes nothing in the JAX package."""
@@ -240,11 +242,44 @@ def test_chat_cli_int8_runs(ckpts, monkeypatch):
 
 @pytest.mark.parametrize("case,item", [("model_base", 6)])
 def test_unported_loads_raise(ckpts, tmp_path, case, item):
-    argv = ["generate", "--question-file", ckpts["qfile"], "--answers-file",
-            str(tmp_path / "a.jsonl"), "--model-path", ckpts["torch"],
-            "--model-base", ckpts["torch"]]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tcli.main(argv, device="cpu")
+    """Once refused as ROADMAP item 6: `--model-base` merges a LoRA adapter
+    directory onto the base the flag names (the tokenizer comes from the
+    base); the answers equal, row for row, those of the merged model that
+    tools.merge_lora writes."""
+    import torch
+
+    from llavamod_tpu_torch.models import builder as tbuilder
+    from llavamod_tpu_torch.models import lora as tlora
+    from llavamod_tpu_torch.tools import merge_lora
+
+    _, base = tbuilder.load_model(ckpts["torch"], device="cpu")
+    lcfg = tlora.LoraConfig(r=4, alpha=8, target_patterns=tlora.FFN_TARGETS)
+    lora = tlora.init_lora(base, lcfg, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for p in lora.parameters():
+            p.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(2))
+    adapter = tlora.save_lora_adapter(str(tmp_path / "adapter"), lora, lcfg)
+    merged = merge_lora.main(["--model-path", adapter, "--model-base",
+                              ckpts["torch"], "--save-path",
+                              str(tmp_path / "merged"), "--device", "cpu"])
+    make_tiny_tokenizer(merged)
+    argv = ["generate", "--question-file", ckpts["qfile"], "--image-folder",
+            ckpts["imgs"], "--conv-mode", "qwen", "--batch-size", "2",
+            "--max-new-tokens", NEW]
+    tcli.main(argv + ["--model-path", adapter, "--model-base", ckpts["torch"],
+                      "--answers-file", str(tmp_path / "a.jsonl")],
+              device="cpu")
+    tcli.main(argv + ["--model-path", merged, "--answers-file",
+                      str(tmp_path / "m.jsonl")], device="cpu")
+
+    def rows(name):
+        return [{k: v for k, v in r.items() if k != "model_id"}
+                for r in _rows(tmp_path / name)]
+
+    assert len(rows("a.jsonl")) == 5 and rows("a.jsonl") == rows("m.jsonl")
+    up = "llm.layers.1.mlp.experts.up"
+    assert not torch.equal(tbuilder.load_model(merged, device="cpu")[1]
+                           .state_dict()[up], base.state_dict()[up])
 
 
 @pytest.fixture(scope="module")

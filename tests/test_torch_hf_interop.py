@@ -14,8 +14,9 @@ torch oracles for qwen-1.0 and MiniCPM, which transformers does not ship):
     to_hf -> from_hf round-trips bitwise;
   * CLIP and SigLIP towers bitwise JAX's; a CLIP checkpoint without the
     patch bias the registered CLIP config declares loads (JAX's converter
-    raises); linear / mlp2x_gelu / pool_mlp2x_gelu projectors round-trip
-    and equal JAX's; the Q-Former and simple types raise item 6;
+    raises); linear / mlp2x_gelu / pool_mlp2x_gelu and the Q-Former
+    projectors round-trip and equal JAX's; the simple types have no HF
+    layout in either package, and their mm_projector.bin interchanges;
   * export both ways, dense and MoE: the port's `export_hf_llava` read by
     JAX's `import_hf_llava`, and JAX's export read by the port, bitwise;
   * the safetensors reader against `safetensors.safe_open(framework='pt')`
@@ -51,6 +52,7 @@ from llavamod_tpu.models.llm import decoder as jdecoder
 from llavamod_tpu.models.projector import build_projector as jbuild_projector
 from llavamod_tpu.models.vision import vit as jvit
 from llavamod_tpu.models.vision.vit import VisionConfig as JVisionConfig
+from llavamod_tpu.train import checkpoint as jckpt
 from llavamod_tpu_torch.interop import hf
 from llavamod_tpu_torch.interop.from_jax import load_jax_params
 from llavamod_tpu_torch.interop.safetensors_io import read_safetensors
@@ -60,6 +62,7 @@ from llavamod_tpu_torch.models.llm import decoder as tdecoder
 from llavamod_tpu_torch.models.projector import build_projector
 from llavamod_tpu_torch.models.vision import vit as tvit
 from llavamod_tpu_torch.models.vision.vit import VisionConfig
+from llavamod_tpu_torch.train import checkpoint as tckpt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HF_TOL = 2e-3      # the JAX HF tests' tolerance against transformers
@@ -430,11 +433,40 @@ def test_projector_roundtrip_equals_jax(kind):
 
 @pytest.mark.parametrize("kind", ["qformer2_32", "cheap_qformer2_32",
                                   "simple_in2_out2", "cheap_simple_in2_out2"])
-def test_unported_projector_layouts_raise_item_6(kind):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        hf.projector_params_from_hf({}, kind)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        hf.projector_params_to_hf({}, kind)
+def test_unported_projector_layouts_raise_item_6(kind, tmp_path):
+    """Once item 6's refusals, now its layouts: the Q-Former's Blip2 keys
+    round-trip and equal JAX's bitwise; the simple projector has no HF
+    layout in either package (both raise the same NotImplementedError), and
+    its mm_projector.bin tree layout is read by each package from the
+    other's file."""
+    jproj = jbuild_projector(kind, 16, 24)
+    jparams = jax.device_get(jproj.init(jax.random.PRNGKey(0)))
+    module = build_projector(kind, 16, 24).init(torch.Generator())
+    load_jax_params(module, jparams)
+    if "qformer" in kind:
+        state = hf.projector_params_to_hf(module.state_dict(), kind)
+        want = jhf.projector_params_to_hf(jparams, kind)
+        assert state.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(state[k].numpy(), want[k],
+                                          err_msg=k)
+        back = hf.projector_params_from_hf(state, kind)
+        for k, v in module.state_dict().items():
+            assert torch.equal(back[k], v), k
+        return
+    for side in (hf, jhf):
+        with pytest.raises(NotImplementedError, match="not implemented"):
+            side.projector_params_from_hf({}, kind)
+        with pytest.raises(NotImplementedError, match="not implemented"):
+            side.projector_params_to_hf(
+                module.state_dict() if side is hf else jparams, kind)
+    path = tckpt.save_mm_projector(str(tmp_path / "p.bin"),
+                                   module.state_dict(), kind)
+    back = jckpt.load_mm_projector(path, kind, template=jparams)
+    jax.tree_util.tree_map(
+        lambda u, v: np.testing.assert_array_equal(np.asarray(u),
+                                                   np.asarray(v)),
+        back, jparams)
 
 
 # ---------------------------------------------------------------------------

@@ -220,8 +220,8 @@ def test_stage2_config_as_written_trains_int8_and_saves_the_float_head(
     seen = {}
     quantize = trun.quantize_stage_models
 
-    def spy(tcfg, stage_args, model, teacher_model):
-        stash = quantize(tcfg, stage_args, model, teacher_model)
+    def spy(tcfg, stage_args, model, teacher_model, lora_cfg=None):
+        stash = quantize(tcfg, stage_args, model, teacher_model, lora_cfg)
         seen.update(ref_quant=stage_args.ref_quant,
                     teacher=isinstance(teacher_model.llm.lm_head.weight,
                                        Int8Weight),

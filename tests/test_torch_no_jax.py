@@ -68,7 +68,8 @@ def test_importing_the_port_loads_no_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
     assert len(_modules()) >= 20
-    # the trainer's modules, the W8A8 blocks and the HF interop and tools
+    # the trainer's modules, the W8A8 blocks, the HF interop and tools, and
+    # LoRA, the Q-Former / simple projectors, S2 and the video projector
     # are among those imported
     assert {f"llavamod_tpu_torch.{m}" for m in (
         "train.run", "train.args", "train.checkpoint", "train.sampler",
@@ -79,4 +80,5 @@ def test_importing_the_port_loads_no_jax():
         "train.optim", "models.llm.decoder", "interop.hf",
         "interop.safetensors_io", "interop.tiktoken_tokenizers",
         "tools.import_hf", "tools.consolidate", "tools.extract_mm_projector",
-        "tools.delta")} <= set(_modules())
+        "tools.delta", "tools.merge_lora", "models.lora", "models.qformer",
+        "models.vision.s2", "models.video")} <= set(_modules())

@@ -9,7 +9,8 @@ package's on the same inputs, on the CPU:
     mm_projector.bin contents as JAX's tool, loadable by
     train/checkpoint.py;
   * `consolidate` of an HF LLaVA export into a native directory: JAX's
-    config and weights;
+    config and weights; with `--base`, a LoRA adapter merged onto that HF
+    export as JAX's `merge_lora` tool merges it;
   * `delta` make and apply, with a resized vocabulary: bitwise JAX's."""
 
 import json
@@ -31,10 +32,12 @@ from llavamod_tpu.tools import consolidate as jconsolidate
 from llavamod_tpu.tools import delta as jdelta
 from llavamod_tpu.tools import extract_mm_projector as jextract
 from llavamod_tpu.tools import import_hf as jimport_hf
+from llavamod_tpu.tools import merge_lora as jmerge_lora
 from llavamod_tpu_torch.interop import hf
 from llavamod_tpu_torch.interop.from_jax import load_jax_params
 from llavamod_tpu_torch.models import builder
 from llavamod_tpu_torch.models import llava as tllava
+from llavamod_tpu_torch.models import lora as tlora
 from llavamod_tpu_torch.models.llm import decoder as tdecoder
 from llavamod_tpu_torch.models.vision import vit as tvit
 from llavamod_tpu_torch.tools import consolidate, delta, import_hf
@@ -193,9 +196,25 @@ def test_consolidate_hf_to_native_equals_jax_tool(tmp_path):
     cfg2, m2 = builder.load_model(str(tmp_path / "port"), device="cpu",
                                   fill_missing_seed=0)
     assert cfg2.llm == cfg.llm.replace(name="hf-qwen2")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        consolidate.main(["--src", src, "--base", src, "--dst",
-                          str(tmp_path / "x"), "--device", "cpu"])
+    # --base (once refused as ROADMAP item 6): --src is a LoRA adapter,
+    # merged onto the HF base as JAX's merge_lora tool merges it (1e-6:
+    # the rank-r products run in another order)
+    lcfg = tlora.LoraConfig(r=4, alpha=8)
+    lora = tlora.init_lora(m2, lcfg, torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        for p in lora.parameters():
+            p.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(2))
+    adapter = tlora.save_lora_adapter(str(tmp_path / "adapter"), lora, lcfg)
+    consolidate.main(["--src", adapter, "--base", src, "--dst",
+                      str(tmp_path / "merged"), "--device", "cpu"])
+    jmerge_lora.merge_lora_weights(adapter, src, str(tmp_path / "jmerged"))
+    _, got = _native(str(tmp_path / "merged"))
+    _, want = _native(str(tmp_path / "jmerged"))
+    assert got.keys() == want.keys() and "llm.layers.0.attn.wq" in lora.targets
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-6,
+                                   err_msg=k)
+        assert (k in lora.targets) != np.array_equal(got[k], tw[k]), k
 
 
 def test_delta_make_and_apply_equal_jax_tool(tmp_path):

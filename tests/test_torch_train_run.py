@@ -28,8 +28,9 @@ checkpoint}.py) on the CPU, at tiny sizes:
     per 2 folded microbatches, the global-gating warning, and a run
     stopped at a checkpoint and auto-resumed ends with the parameters of
     an uninterrupted one;
-  * every option the port does not run yet raises NotImplementedError
-    naming its ROADMAP item."""
+  * every option the port does not run yet (parallelism) raises
+    NotImplementedError naming its ROADMAP item; LoRA, S2 and the video
+    projector run."""
 
 import json
 import os
@@ -562,10 +563,16 @@ def test_fused_auto_resume_matches_an_uninterrupted_run(tmp_path, dirs):
     assert _lines(cut)[-1]["loss"] == _lines(whole)[-1]["loss"]
 
 
+PRESET = "tiny-dense-preset"     # a registered name: --s2 and
+# --video_tower build a preset model (a directory keeps its saved config)
+
+
 @pytest.mark.parametrize("option,item", [
-    (dict(margs=dict(lora_enable=True)), 6),
-    (dict(margs=dict(s2=True)), 6),
-    (dict(margs=dict(video_tower="frames")), 6),
+    (dict(margs=dict(lora_enable=True, lora_r=4, lora_alpha=8)), 6),
+    (dict(margs=dict(s2=True, s2_scales="28,56", model_name_or_path=PRESET,
+                     image_tower="tiny-vit")), 6),
+    (dict(margs=dict(video_tower="frames", model_name_or_path=PRESET,
+                     image_tower="tiny-vit", video_global_proj=True)), 6),
     (dict(targs=dict(data_parallel=2)), 9),
     (dict(targs=dict(expert_parallel=2)), 9),
     (dict(targs=dict(sequence_parallel=True)), 9),
@@ -573,14 +580,64 @@ def test_fused_auto_resume_matches_an_uninterrupted_run(tmp_path, dirs):
         "sequence_parallel"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item):
-    margs = ModelArgs(model_name_or_path=dirs["port"],
-                      **option.get("margs", {}))
-    salign = AlignArgs(ref_model_name_or_path=dirs["port"],
+    """Item 9's options raise NotImplementedError naming the item; item 6's
+    options, once refused the same way, run the align stage: LoRA writes
+    `adapter/` and the merged model (its FFN weights moved, its tower not),
+    S2 doubles the tower's feature width, and the video projector joins
+    the model in stage 1 (the align stage refuses it)."""
+    from llavamod_tpu_torch.models.llm.config import llm_configs
+    from llavamod_tpu_torch.models.vision import vit as tvit
+
+    if PRESET not in llm_configs:
+        llm_configs.register(PRESET, _cfg().llm)
+    if "tiny-vit" not in tvit.vision_configs:
+        tvit.vision_configs.register("tiny-vit", tvit.tiny_vision_config())
+    margs = dict(model_name_or_path=dirs["port"])
+    margs.update(option.get("margs", {}))
+    # kd_lm: the teacher is the policy's own checkpoint, so the KD term
+    # alone has no gradient
+    salign = AlignArgs(ref_model_name_or_path=dirs["port"], loss_type="kd_lm",
                        **option.get("salign", {}))
-    tok = StubTok()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}"):
-        trun.run_stage("align", margs,
-                       DataArgs(data_path=[dirs["sft"]],
-                                image_folder=dirs["imgs"]),
-                       _targs(tmp_path / "out", **option.get("targs", {})),
-                       salign=salign, tokenizer=tok, device="cpu")
+    out = tmp_path / "out"
+    targs = dict(model_max_length=256, **option.get("targs", {}))
+
+    # the video projector trains in stage 1 (a teacher without one cannot
+    # read the video rows of the distillation batch)
+    stage = "pretrain" if margs.get("video_tower") else "align"
+
+    def run():
+        return trun.run_stage(
+            stage, ModelArgs(**margs),
+            DataArgs(data_path=[dirs["sft"]], image_folder=dirs["imgs"]),
+            _targs(out, **targs), salign=salign, tokenizer=StubTok(),
+            device="cpu")
+
+    if item == 9:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1, item {item}"):
+            run()
+        return
+    last = run()
+    assert last["num_tokens"] > 1 and np.isfinite(last["loss"])
+    assert _info(out)["optimizer_updates"] == 2
+    cfg, model = tbuilder.load_model(str(out), device="cpu")
+    if margs.get("lora_enable"):
+        adapter = torch.load(out / "adapter" / "adapter_model.bin",
+                             weights_only=True)
+        assert len(adapter) == 2 * 3 * cfg.llm.num_layers  # FFN only
+        before, after = _state(dirs["port"]), _state(out)
+        moved = {k for k in before if not torch.equal(before[k], after[k])}
+        assert {f"llm.layers.{i}.mlp.{w}" for i in range(cfg.llm.num_layers)
+                for w in ("gate", "up", "down")} <= moved
+        assert not any(k.startswith("vision.") for k in moved)
+    elif margs.get("s2"):
+        assert cfg.s2_scales == (28, 56) and cfg.vision_feature_dim == 64
+        assert model.projector.layers[0].kernel.shape[0] == 64
+    else:
+        assert cfg.video_projector_type == "linear" and cfg.video_global_proj
+        assert hasattr(model, "video_projector")
+        with pytest.raises(ValueError, match="video"):
+            trun.run_stage("align", ModelArgs(**margs), DataArgs(
+                data_path=[dirs["sft"]], image_folder=dirs["imgs"]),
+                _targs(tmp_path / "x", **targs), salign=salign,
+                tokenizer=StubTok(), device="cpu")
