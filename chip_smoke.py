@@ -81,12 +81,23 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      entries bitwise the seeded source, with the seconds to write and to
      load and the host's peak resident memory of the load.  Seeded
      336x336 PNGs and three JSON datasets in the reference formats, read
-     through a stand-in tokenizer;
-     stage 1 (projector only, B=8, accumulation 2) -> stage 2 (upcycled to
-     4 experts top-2 inside the stage, kd_lm against the teacher in W8A8
-     with an int8 head, the student head pre-quantized, record train set,
-     B=1, accumulation 2) -> stage 3 (kto_pair against the teacher, the
-     whole LLM trainable, one pair, accumulation 2), 4 microbatches each.
+     through a stand-in tokenizer; the recipes' chain
+     stage 1 (projector only, B=8, accumulation 2) -> [data] -> stage 2a
+     (the port's recipes/train/dense2dense_distillation.sh as written,
+     its flags read out of the file: the dense student, kd_lm against the
+     bf16 teacher, the whole LLM and the projector trained, B=1,
+     accumulation 2; the output config dense, the tower bitwise stage 1's,
+     every LLM and projector matrix moved) -> stage 2 (from 2a's output,
+     upcycled to 4 experts top-2 inside the stage, kd_lm against the
+     teacher in W8A8 with an int8 head, the student head pre-quantized,
+     record train set, B=1, accumulation 2) -> stage 3 (kto_pair against
+     the teacher, the whole LLM trainable, one pair, accumulation 2), 4
+     microbatches each.  [data] drives the trainer's loader of the
+     stage-1 config (B=8, 8 worker threads, DevicePrefetcher onto the
+     card) over the stage-1 data: host ms to build a batch and ms a batch
+     delivered, on the C++ preprocessor and with LLAVAMOD_NO_NATIVE=1,
+     beside stage 1's microbatch; no image batch of the whole run but that
+     PIL pass's may take the PIL path.
      Per stage it checks that every logged metric is finite, that the
      optimizer took 2 updates, that every microbatch launched K1, K3 and K4
      as the stage's layers and remat require, and that the first
@@ -124,7 +135,7 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      K2 launches as expected and no plain attention; tools/import_hf, tools/consolidate and
      tools/extract_mm_projector on the HF directory must give stage 3's
      llm.* and projector.* bit for bit;
-  9. [lora] (after [stages fused], from stage 1's output): stage 2 from its
+  9. [lora] (after [stages fused], from stage 2a's output): stage 2 from its
      config as written plus `--lora_enable True` (r 128, alpha 256, FFN
      adapters, per expert on the experts; the student head quantized per
      step from the live weights), its microbatch time, tokens/s and peak
@@ -827,6 +838,14 @@ def build_model(dev):
                     * cfg.llm.hidden_size ** -0.5)
     n_params = sum(p.numel() for p in model.parameters())
     return cfg, model, n_params
+
+
+def activated_line(cfg) -> str:
+    from llavamod_tpu_torch.models.llm.upcycle import activated_params
+
+    n = activated_params(cfg.llm)
+    return (f"{n:,} activated LLM parameters a token "
+            f"({n / 1e9:.3f} B; the paper's \"2B activated\")")
 
 
 def post(url: str, payload: dict, timeout: float = 600):
@@ -2216,9 +2235,9 @@ def counted_steps(records: list):
             setattr(mod, n, make)
 
 
-def parse_stage(stage: str, config: str, argv: list):
-    """The stage's dataclasses from the repository's config file, with the
-    command line `argv` on top."""
+def parse_stage(stage: str, config, argv: list):
+    """The stage's dataclasses from the repository's config file (None: a
+    recipe's command line alone), with the command line `argv` on top."""
     from llavamod_tpu_torch.train import args
 
     classes = [args.ModelArgs, args.DataArgs, args.TrainArgs]
@@ -2226,7 +2245,8 @@ def parse_stage(stage: str, config: str, argv: list):
         classes.append(args.AlignArgs)
     if stage == "dpo":
         classes.append(args.DPOArgs)
-    parsed = args.parse_into_dataclasses(classes, ["--config", config] + argv)
+    parsed = args.parse_into_dataclasses(
+        classes, (["--config", config] if config else []) + argv)
     margs, dargs, targs = parsed[:3]
     extra = parsed[3] if len(parsed) > 3 else None
     return margs, dargs, targs, extra
@@ -2796,7 +2816,7 @@ def drive_eval(tag: str, argv: list, tok, card: str, layers: int,
     log(f"{tag} {questions} questions in {batches} batches of "
         f"{runner.batch_size}: {stats['questions_per_s']:.3f} questions/s "
         f"(run {rec['run_s']:.2f} s; load {stats['load_s']:.2f} s); batch "
-        f"building host ms per batch: image load + preprocess "
+        f"building host ms per batch: image load + preprocess (C++) "
         f"{stats['image_ms_per_batch']:.1f}, tokenize + splice + copy to "
         f"the card {stats['encode_ms_per_batch']:.1f}; prefill (B="
         f"{runner.batch_size}, T={runner.max_prompt_len}, tower + LLM + head)"
@@ -3221,18 +3241,19 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
                card: str, plain_stage2: dict) -> dict:
     """[lora]: stage 2 from its config as written plus `--lora_enable True`
     (r 128, alpha 256, FFN adapters, the experts' per expert) from stage
-    1's output: the numbers beside the same call's stage 2 without
+    2a's output: the numbers beside the same call's stage 2 without
     adapters; every adapted base weight bitwise unchanged before the final
     save and every `b` moved.  The upcycled base is built again as
     `run_stage` builds it (same seed) and saved; `tools.merge_lora` merges
     `out/adapter` onto it, and each adapted weight must equal the stage's
     merged output within one bf16 ulp of the larger of the entry and the
-    rank-r product.  Then `eval.cli generate
+    rank-r product; the routers the run trained come through
+    non_lora_trainables.bin bitwise.  Then `eval.cli generate
     --model-path out/adapter --model-base <base>` and the same on the
     merged directory must answer the 20 questions token for token alike,
     with the first batch's prefill logits bitwise equal."""
     from llavamod_tpu_torch.models.builder import save_model
-    from llavamod_tpu_torch.models.lora import load_lora_adapter
+    from llavamod_tpu_torch.models.lora import NON_LORA_FILE, load_lora_adapter
     from llavamod_tpu_torch.tools import merge_lora
     from llavamod_tpu_torch.train import run
 
@@ -3261,7 +3282,7 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
                              f"not: {record['unchanged']}, "
                              f"{record['b_moved']} of {n}")
 
-    # the base as run_stage built it: stage 1's output, upcycled
+    # the base as run_stage built it: stage 2a's output, upcycled
     margs, _, targs, salign = parse_stage("align", config, argv)
     t0 = time.perf_counter()
     cfg, model = run.build_llava(salign.policy_model_name_or_path, margs,
@@ -3273,7 +3294,7 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
     base = save_model(os.path.join(root, "lora_base"), model)
     base_s = time.perf_counter() - t0
     del weights, record["before"]
-    shutil.rmtree(salign.policy_model_name_or_path)   # stage 1's output
+    shutil.rmtree(salign.policy_model_name_or_path)   # stage 2a's output
     t0 = time.perf_counter()
     merged = merge_lora.main(["--model-path", os.path.join(out, "adapter"),
                               "--model-base", base, "--save-path",
@@ -3289,6 +3310,30 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
                    weights_only=True, mmap=True)
     b = torch.load(os.path.join(merged, "model.pt"), map_location="cpu",
                    weights_only=True, mmap=True)
+    # the run's other trained tensors (the routers and the projector) reach
+    # the tool's merge through non_lora_trainables.bin
+    extra = torch.load(os.path.join(out, "adapter", NON_LORA_FILE),
+                       map_location="cpu", weights_only=True)
+    base_state = model.state_dict()
+    routers = [k for k in a if k.endswith(".mlp.router")]
+    carried_keys = routers + [k for k in a if k.startswith("projector.")]
+    wg = [k for k in extra if k.endswith("deepspeed_moe.gate.wg.weight")]
+    carried = sum(bool(torch.equal(a[k], b[k])) for k in carried_keys)
+    moved = sum(not torch.equal(a[k].to(dev), base_state[k])
+                for k in routers)
+    log(f"[lora] {NON_LORA_FILE}: {len(extra)} entries, {len(wg)} routers "
+        f"as '...mlp.deepspeed_moe.gate.wg.weight', the projector in "
+        f"mm_projector.bin's keys; routers and projector tensors of the "
+        f"tool's merge bitwise the stage's merged output: {carried} of "
+        f"{len(carried_keys)}; routers moved from the base: {moved} of "
+        f"{len(routers)}")
+    if not (routers and len(wg) == len(routers) == moved
+            and carried == len(carried_keys)):
+        raise AssertionError(f"[lora] the routers did not travel: file "
+                             f"{len(wg)}, carried {carried} of "
+                             f"{len(carried_keys)}, moved {moved} of "
+                             f"{len(routers)}")
+    del extra, base_state
     equal = within = within_result = 0
     worst = 0.0
     for t in record["targets"]:
@@ -3464,6 +3509,154 @@ def projectors_phase(data: dict, root: str, tok, dev, card: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# stage 2a from the port's recipe, and the [data] phase
+# ---------------------------------------------------------------------------
+
+D2D_RECIPE = "llavamod_tpu_torch/recipes/train/dense2dense_distillation.sh"
+D2D_TRAINABLE_PREDICTED = (1.8e9, 1.9e9)   # Qwen1.5-1.8B untied + mlp2x_gelu
+DATA_TIMED_EPOCHS = 3                       # 4 batches of B=8 an epoch
+
+
+def d2d_stage(env: dict, common: list, policy: str, tok, dev,
+              card: str) -> dict:
+    """Stage 2a as the port's dense2dense_distillation.sh writes it (its
+    flags read out of the file with `recipes.recipe_commands`, as the CPU
+    test reads them), with the smoke's `common` flags on top: the dense
+    student from stage 1's output distilled from the HF teacher, the whole
+    LLM and the projector trained.  Beside `drive_stage`'s checks: the
+    output config is dense, the tower is bitwise stage 1's, only LLM and
+    projector tensors moved (every matrix among them), and the trainable
+    parameters are counted."""
+    from llavamod_tpu_torch.recipes import STAGES, recipe_commands
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    (module, argv), = recipe_commands(os.path.join(here, D2D_RECIPE), env)
+    log(f"[stages] align d2d: {D2D_RECIPE} -> python -m {module} "
+        f"{' '.join(argv)}; the smoke adds {' '.join(common)}")
+    res = drive_stage(STAGES[module], None, argv + common, tok, dev, card,
+                      tag="align d2d")
+    out = env["OUTPUT_DIR"]
+    from llavamod_tpu_torch.models.builder import CONFIG_NAME
+
+    with open(os.path.join(out, CONFIG_NAME)) as f:
+        llm = json.load(f)["llm"]
+    before = torch.load(os.path.join(policy, "model.pt"), map_location="cpu",
+                        weights_only=True, mmap=True)
+    after = torch.load(os.path.join(out, "model.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    if before.keys() != after.keys():
+        raise AssertionError("stage 2a changed the model's keys")
+    tower = [k for k in before if k.startswith("vision.")]
+    trained = [k for k in before if not k.startswith("vision.")]
+    tower_same = sum(bool(torch.equal(before[k], after[k])) for k in tower)
+    moved = {k for k in trained
+             if not torch.equal(before[k].to(dev), after[k].to(dev))}
+    # every matrix must move; a norm weight near 1.0 does not move in bf16
+    # under 2 updates at lr 2e-5 (its ulp is 2^-8)
+    still = [k for k in trained if k not in moved and after[k].dim() >= 2]
+    n_trainable = sum(after[k].numel() for k in trained)
+    dense = not llm.get("moe_layers") and not llm.get("moe_num_experts")
+    lo, hi = D2D_TRAINABLE_PREDICTED
+    log(f"[stages] align d2d: output config dense: {dense} (moe_layers "
+        f"{llm.get('moe_layers')}, moe_num_experts "
+        f"{llm.get('moe_num_experts')}); tower {tower_same} of {len(tower)} "
+        f"tensors bitwise stage 1's; LLM + projector tensors moved "
+        f"{len(moved)} of {len(trained)} (matrices unmoved: {len(still)}); "
+        f"trainable parameters {n_trainable:,} ({n_trainable / 1e9:.3f} B; "
+        f"predicted {lo / 1e9:.1f}-{hi / 1e9:.1f} B)")
+    del before, after
+    if not (dense and tower_same == len(tower) and moved and not still):
+        raise AssertionError(f"stage 2a: dense {dense}, tower {tower_same} "
+                             f"of {len(tower)}, moved {len(moved)}, matrices "
+                             f"unmoved {still[:4]}")
+    return dict(res, trainable=n_trainable, dense=dense,
+                tower_unchanged=tower_same, moved=len(moved))
+
+
+def data_phase(config: str, data: dict, tok, dev, card: str,
+               stage1_ms: float) -> dict:
+    """[data]: the trainer's loader as stage 1 builds it (train/run.py's
+    `build_data_module` from the stage-1 config: B=8, 8 worker threads,
+    the length-free random sampler) over the stage-1 dataset and its seeded
+    PNGs, through `DevicePrefetcher` onto the card, with the consumer idle:
+    one epoch of warm-up, then DATA_TIMED_EPOCHS epochs timed.  Once on the
+    C++ preprocessor and once with LLAVAMOD_NO_NATIVE=1: the host ms to
+    build one batch on one worker (median of the timed builds) and the ms
+    per batch delivered to the card (wall time / batches), beside stage 1's
+    microbatch.  The PIL pass's batches are counted; no other batch of the
+    run may take the PIL path."""
+    from llavamod_tpu_torch import native
+    from llavamod_tpu_torch.models.llava import LlavaConfig
+    from llavamod_tpu_torch.models.llm.config import QWEN1_5_1_8B
+    from llavamod_tpu_torch.models.vision.vit import CLIP_VIT_L_336
+    from llavamod_tpu_torch.runtime.prefetch import DevicePrefetcher
+    from llavamod_tpu_torch.train import run
+    from llavamod_tpu_torch.train.loader import infinite_batches
+
+    margs, dargs, targs, _ = parse_stage("pretrain", config, [
+        "--data_path", data["pretrain"], "--image_folder", data["images"]])
+    cfg = LlavaConfig(llm=QWEN1_5_1_8B, vision=CLIP_VIT_L_336,
+                      projector_type=margs.image_projector_type,
+                      max_images=1)
+    out = {}
+    for path in ("native", "pil"):
+        if path == "pil":
+            os.environ["LLAVAMOD_NO_NATIVE"] = "1"
+        before = dict(native.counts)
+        try:
+            loader = run.build_data_module("pretrain", margs, dargs, targs,
+                                           tok, cfg)
+            per_epoch = len(loader)
+            builds, lock, build = [], threading.Lock(), loader._build
+
+            def timed(idx, build=build, builds=builds, lock=lock):
+                t0 = time.perf_counter()
+                batch = build(idx)
+                with lock:
+                    builds.append((time.perf_counter() - t0) * 1e3)
+                return batch
+
+            loader._build = timed
+            host = infinite_batches(loader)
+            it = iter(DevicePrefetcher(host, device=dev))
+            for _ in range(per_epoch):                 # warm-up epoch
+                next(it)
+            torch.cuda.synchronize()
+            warm = len(builds)
+            n = per_epoch * DATA_TIMED_EPOCHS
+            t0 = time.perf_counter()
+            for _ in range(n):
+                batch = next(it)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            host.close()
+        finally:
+            os.environ.pop("LLAVAMOD_NO_NATIVE", None)
+        timed_builds = builds[warm:warm + n]
+        counts = {k: native.counts[k] - before[k] for k in before}
+        out[path] = dict(
+            build_ms=statistics.median(timed_builds), builds=len(timed_builds),
+            delivered_ms=wall_ms / n, batches=n, prep_batches=counts,
+            pixels=list(batch["pixels"].shape))
+        log(f"[data] {path}: loader of the stage-1 config (B="
+            f"{targs.per_device_train_batch_size}, "
+            f"{targs.dataloader_num_workers} worker threads, pixels "
+            f"{out[path]['pixels']}): host ms to build a batch "
+            f"{out[path]['build_ms']:.1f} (median of "
+            f"{len(timed_builds)} after a warm-up epoch), delivered to the "
+            f"card {out[path]['delivered_ms']:.1f} ms a batch over {n} "
+            f"batches; stage 1's microbatch {stage1_ms:.1f} ms "
+            f"({out[path]['delivered_ms'] / stage1_ms:.3f} of it); "
+            f"preprocessor calls {counts}; on {card}")
+        if len(timed_builds) < 8 or (path == "native" and counts["pil"]) \
+                or (path == "pil" and counts["native"]):
+            raise AssertionError(f"[data] {path}: {len(timed_builds)} timed "
+                                 f"builds, preprocessor calls {counts}")
+    out["stage1_microbatch_ms"] = stage1_ms
+    return out
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3474,12 +3667,15 @@ def stages_phase(card: str, dev):
         data = write_stage_data(root, n_img=576)
         tok = StandInTokenizer()
         outs = {s: os.path.join(root, f"out_{s}") for s, _ in STAGE_CONFIGS}
+        outs["align_d2d"] = os.path.join(root, "out_align_d2d")
         common = ["--image_folder", data["images"],
                   "--max_steps", str(STAGE_MICROBATCHES),
                   "--gradient_accumulation_steps", str(STAGE_ACCUM)]
+        # the recipes' chain: stage 1 -> 2a (dense -> dense) -> 2b (the
+        # upcycled MoE, from 2a's output) -> 3
         argvs = {
             "pretrain": ["--model_name_or_path", dirs["dense"]],
-            "align": ["--policy_model_name_or_path", outs["pretrain"],
+            "align": ["--policy_model_name_or_path", outs["align_d2d"],
                       "--ref_model_name_or_path", dirs["teacher"]],
             "dpo": ["--policy_model_name_or_path", outs["align"],
                     "--ref_model_name_or_path", dirs["teacher"]],
@@ -3492,8 +3688,21 @@ def stages_phase(card: str, dev):
                                          argv, tok, dev, card)
             if stage == "pretrain":
                 check_stage1_outputs(dirs["dense"], outs["pretrain"], dev)
+                shutil.rmtree(dirs["dense"])
+                results["data"] = data_phase(
+                    os.path.join(here, config), data, tok, dev, card,
+                    results["pretrain"]["median_ms"])
+                results["align_d2d"] = d2d_stage(
+                    dict(JSON_FILE=data["align"], IMAGE_FOLDER=data["images"],
+                         REF_MLLM=dirs["teacher"],
+                         POLICY_MLLM=outs["pretrain"],
+                         OUTPUT_DIR=outs["align_d2d"]),
+                    common, outs["pretrain"], tok, dev, card)
+                shutil.rmtree(outs["pretrain"])
             if stage == "align":
-                check_float_head(outs["pretrain"], outs["align"])
+                log(f"[stages] align: the upcycled stage 2b started from "
+                    f"stage 2a's output ({outs['align_d2d']})")
+                check_float_head(outs["align_d2d"], outs["align"])
                 moe = _moe_config(outs["align"])
                 log(f"[stages] align: output config {moe}")
                 every_2nd = list(range(0, _num_layers(outs["align"]), 2))
@@ -3501,11 +3710,10 @@ def stages_phase(card: str, dev):
                         and moe["moe_capacity_factor"] == 1.5
                         and moe["moe_layers"] == every_2nd):
                     raise AssertionError(f"stage 2 wrote {moe}")
-                shutil.rmtree(dirs["dense"])
                 results["align_fused"] = fused_stage(
                     os.path.join(here, config), argvs["align"] + common,
                     data, root, tok, dev, card, results["align"])
-                # (removes stage 1's output once it has rebuilt the base)
+                # (removes stage 2a's output once it has rebuilt the base)
                 results["align_lora"] = lora_phase(
                     os.path.join(here, config), argvs["align"] + common
                     + ["--data_path", data["align"]], data, root, tok, dev,
@@ -3544,6 +3752,7 @@ def main() -> int:
         return 2
     # the port must be importable before anything is printed: a copy of this
     # script without the package prints no result
+    from llavamod_tpu_torch import native
     from llavamod_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3570,6 +3779,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    native.reset_counts()     # every image batch of the run is counted
     k1 = check_flash_fwd(gen, dev)
     k2 = check_flash_decode(gen, dev)
     k3, k4 = check_flash_bwd(gen, dev)
@@ -3581,7 +3791,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[slice] LLaVA-MoD-2B student ({n_params / 1e9:.3f} B params, bf16, "
         f"seeded random weights) built on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; {activated_line(cfg)}")
     torch.cuda.reset_peak_memory_stats()
     served = serve_phase(cfg, model, card)
     slice_stats = logits_and_timing(cfg, model, served.pop("runner"), card)
@@ -3597,11 +3807,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     stages = stages_phase(card, dev)
 
+    # outside the [data] phase's PIL pass, every image batch took the C++
+    # preprocessor
+    pil_pass = stages["data"]["pil"]["prep_batches"]["pil"]
+    log(f"[data] image batches of the whole run: {dict(native.counts)}; "
+        f"PIL outside the [data] PIL pass: {native.counts['pil'] - pil_pass}")
+    if native.counts["pil"] != pil_pass or not native.counts["native"]:
+        raise AssertionError(f"image batches took the PIL path outside the "
+                             f"[data] PIL pass: {dict(native.counts)}")
+
     train_n = trained["launches"]
     serve_n = served["launches"]
     stage_n = {path: stages[stage]["launches"] for stage, path in (
         ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"),
-        ("align_fused", "align_fused"))}
+        ("align_fused", "align_fused"), ("align_d2d", "align_d2d"))}
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
     stage_n["train_fused"] = trained["fused"]["launches"]

@@ -9,8 +9,10 @@ Torch-free, numpy/PIL host-side versions of the reference's
     host-side decode loop instead of HF StoppingCriteria)
 
 The port's own copy of llavamod_tpu/mm_utils.py (the port imports nothing
-of the JAX package).  It keeps the PIL path only: the JAX package's optional
-C++ batch preprocessor is not carried over.
+of the JAX package).  `ImagePreprocessor` takes the C++ batch path first
+(llavamod_tpu_torch/native, the port's copy of the JAX package's), as the
+JAX package does; unlike it, a failed build raises instead of falling back,
+and only LLAVAMOD_NO_NATIVE=1 selects the PIL path.
 """
 
 from __future__ import annotations
@@ -82,9 +84,29 @@ class ImagePreprocessor:
         return arr.transpose(2, 0, 1)  # CHW
 
     def __call__(self, images) -> np.ndarray:
+        from llavamod_tpu_torch import native
+
         if isinstance(images, Image.Image):
             images = [images]
-        return np.stack([self.preprocess_one(im) for im in images], axis=0)
+        images = list(images)
+        if native.enabled():
+            out = self._native_batch(images)
+            native.count("native")
+            return out
+        out = np.stack([self.preprocess_one(im) for im in images], axis=0)
+        native.count("pil")
+        return out
+
+    def _native_batch(self, images) -> np.ndarray:
+        """C++ batch path (llavamod_tpu_torch/native): pad + resize +
+        normalize of the whole batch in one call."""
+        from llavamod_tpu_torch import native
+
+        arrays = [np.asarray(im if im.mode == "RGB" else im.convert("RGB"),
+                             np.uint8) for im in images]
+        return native.preprocess_batch(
+            arrays, self.size, pad_square=self.image_aspect_ratio == "pad",
+            background=self.background_color, mean=self.mean, std=self.std)
 
 
 def process_images(images, preprocessor: ImagePreprocessor) -> np.ndarray:

@@ -67,6 +67,11 @@ class LlavaConfig:
         return self.build_projector().num_output_tokens(self.vision.num_patches)
 
     def build_video_projector(self):
+        """The video projector, at the width `encode_video` feeds it: the
+        tower's hidden size, since frames run the tower without S2 (the
+        reference's forward_video).  The JAX package sizes it at
+        `vision_feature_dim`, which S2 multiplies, and fails at the first
+        video batch."""
         from llavamod_tpu_torch.models.video import (
             VideoProjectorConfig,
             build_video_projector,
@@ -77,7 +82,7 @@ class LlavaConfig:
                                  global_proj=self.video_global_proj,
                                  temporal_proj=self.video_temporal_proj,
                                  spatial_proj=self.video_spatial_proj),
-            self.vision_feature_dim, self.llm.hidden_size)
+            self.vision.hidden_size, self.llm.hidden_size)
 
     @property
     def num_video_tokens(self) -> int:
@@ -177,7 +182,7 @@ def multimodal_embed(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch,
 def encode_video(model: Llava, cfg: LlavaConfig, video_pixels: torch.Tensor,
                  video_valid: Optional[torch.Tensor]) -> torch.Tensor:
     """[B, F, 3, S, S] frames -> [B, num_video_tokens, D] through the frozen
-    tower (per frame, CLS kept) and the video projector."""
+    tower (per frame, CLS kept, no S2) and the video projector."""
     b, f = video_pixels.shape[:2]
     px = video_pixels.reshape((-1,) + tuple(video_pixels.shape[2:]))
     hidden = vit.forward(model.vision, cfg.vision, px, cfg.select_layer)
@@ -215,6 +220,74 @@ def forward(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch, *,
         attn_impl=attn_impl, remat=remat, prefix_mask=prefix_mask)
     return LlavaOutput(out.hidden, out.aux_loss, out.moe_losses,
                        out.router_probs, out.cache)
+
+
+@torch.no_grad()
+def initialize_vision_tokenizer(model: Llava, cfg: LlavaConfig, tokenizer, *,
+                                mm_use_im_patch_token: bool = False,
+                                mm_use_im_start_end: bool = False,
+                                pretrain_mm_mlp_adapter: Optional[str] = None):
+    """Add the image special tokens to `tokenizer` and grow the vocabulary
+    of `model` in place (the reference's model/llava_arch.py:336-379, the
+    JAX package's function of the same name): the embedding and an untied
+    head gain one row per token the tokenizer did not have, each the mean
+    of the existing rows (taken in float64); with `mm_use_im_start_end` a
+    stage-1 mm_projector.bin holding 'model.embed_tokens.weight' donates
+    the new embedding rows.  Returns (cfg, model) with the grown
+    vocabulary."""
+    from llavamod_tpu_torch.constants import (
+        DEFAULT_IM_END_TOKEN,
+        DEFAULT_IM_START_TOKEN,
+        DEFAULT_IMAGE_PATCH_TOKEN,
+    )
+
+    new_tokens = []
+    if mm_use_im_patch_token:
+        new_tokens.append(DEFAULT_IMAGE_PATCH_TOKEN)
+    if mm_use_im_start_end:
+        new_tokens += [DEFAULT_IM_START_TOKEN, DEFAULT_IM_END_TOKEN]
+    if not new_tokens:
+        return cfg, model
+    num_new = tokenizer.add_tokens(new_tokens, special_tokens=True)
+    if num_new <= 0:
+        return cfg, model
+
+    def grow(group, name):
+        # the mean in float64, rounded once: the same bits on every device
+        # (the JAX package's f32 mean follows XLA's reduction order)
+        w = getattr(group, name)
+        mean = w.double().mean(dim=0, keepdim=True).expand(num_new,
+                                                           *w.shape[1:])
+        setattr(group, name, nn.Parameter(torch.cat([w, mean.to(w.dtype)]),
+                                          requires_grad=w.requires_grad))
+
+    llm = model.llm
+    grow(llm.embed, "embedding")
+    if hasattr(llm, "lm_head"):
+        grow(llm.lm_head, "weight")
+        if hasattr(llm.lm_head, "bias"):
+            grow(llm.lm_head, "bias")
+    cfg = cfg.replace(llm=cfg.llm.replace(
+        vocab_size=cfg.llm.vocab_size + num_new))
+    model.cfg, llm.cfg = cfg, cfg.llm
+
+    if mm_use_im_start_end and pretrain_mm_mlp_adapter:
+        state = torch.load(pretrain_mm_mlp_adapter, map_location="cpu",
+                           weights_only=True)
+        if "model.embed_tokens.weight" in state:
+            w = state["model.embed_tokens.weight"]
+            e = llm.embed.embedding
+            if num_new != 2:
+                raise ValueError(f"the donor rows of {pretrain_mm_mlp_adapter} "
+                                 f"are for 2 new tokens, not {num_new}")
+            if tuple(w.shape) == tuple(e.shape):
+                w = w[-num_new:]
+            elif w.shape[0] != num_new:
+                raise ValueError(
+                    f"Unexpected embed_tokens_weight shape {tuple(w.shape)} "
+                    f"vs {tuple(e.shape)} with {num_new} new tokens")
+            e[-num_new:] = w.to(e.dtype)
+    return cfg, model
 
 
 def logits(model: Llava, cfg: LlavaConfig, hidden: torch.Tensor) -> torch.Tensor:

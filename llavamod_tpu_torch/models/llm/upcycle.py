@@ -81,3 +81,26 @@ def upcycle(
     moe = dec.Decoder(moe_cfg, generator=None, device="meta", dtype=ref.dtype)
     moe.load_state_dict(state, strict=True, assign=True)
     return moe_cfg, moe
+
+
+def activated_params(cfg: DecoderConfig) -> int:
+    """Closed-form count of the parameters one token activates in a
+    (possibly MoE) decoder: top_k experts instead of one FFN, plus the
+    router, in each MoE layer (the reference's scripts/activated_params.py,
+    the paper's "2B activated")."""
+    d, f, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = d * h * dh + 2 * d * kh * dh + h * dh * d
+    if cfg.qkv_bias:
+        attn += h * dh + 2 * kh * dh
+    mlp_dense = (3 if cfg.gated_mlp else 2) * d * f
+    per_layer_dense = attn + mlp_dense + 2 * d       # + the two norms
+    total = 0
+    for i in range(cfg.num_layers):
+        total += per_layer_dense
+        if cfg.is_moe and i in cfg.moe_layers:
+            total += (cfg.moe_top_k - 1) * mlp_dense + d * cfg.moe_num_experts
+    total += d + v * d                               # final norm, embedding
+    if not cfg.tie_word_embeddings:
+        total += v * d
+    return total

@@ -33,6 +33,7 @@ import dataclasses
 import json
 import os
 import re
+from collections.abc import Mapping
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -272,23 +273,118 @@ def load_lora_adapter(adapter_dir: str, model: nn.Module
     return lora_tree_from_peft(state, model, cfg), cfg
 
 
+# ---------------------------------------------------------------------------
+# non_lora_trainables.bin: the run's trained tensors that are not adapters
+# ---------------------------------------------------------------------------
+
+NON_LORA_FILE = "non_lora_trainables.bin"
+_PEFT_PREFIX = "base_model.model."
+
+
+class _Partial(Mapping):
+    """A state dict whose entries outside `keep` read as meta tensors of
+    their shape and dtype: the HF converters of interop/hf.py turn it into
+    the kept entries' HF tensors beside meta stand-ins for the rest."""
+
+    def __init__(self, state: Dict[str, torch.Tensor], keep):
+        self.state, self.keep = state, set(keep)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        v = self.state[key]
+        if key in self.keep:
+            return v
+        return torch.empty(v.shape, dtype=v.dtype, device="meta")
+
+    def __iter__(self):
+        return iter(self.state)
+
+    def __len__(self) -> int:
+        return len(self.state)
+
+
+def save_non_lora_trainables(adapter_dir: str, model: nn.Module) -> str:
+    """Write `adapter_dir/non_lora_trainables.bin`: every trainable
+    parameter of `model` (requires_grad, which excludes the adapted
+    targets) in the reference's layout (train.py:535-545): PEFT's
+    'base_model.model.' before the HF names, the router as
+    '...mlp.deepspeed_moe.gate.wg.weight' (interop/hf.py), the projector as
+    in mm_projector.bin; any other module under its own state-dict key.
+    Tensors keep their dtype."""
+    from llavamod_tpu_torch.interop.hf import decoder_params_to_hf
+    from llavamod_tpu_torch.train.checkpoint import mm_projector_state
+
+    cfg = model.cfg
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    state: Dict[str, torch.Tensor] = {}
+    llm_keep = [k[len("llm."):] for k in trainable if k.startswith("llm.")]
+    if llm_keep:
+        hf = decoder_params_to_hf(_Partial(model.llm.state_dict(), llm_keep),
+                                  cfg.llm)
+        state.update({_PEFT_PREFIX + k: v for k, v in hf.items()
+                      if v.device.type != "meta"})
+    if any(k.startswith("projector.") for k in trainable):
+        state.update({_PEFT_PREFIX + k: v for k, v in mm_projector_state(
+            model.projector.state_dict(), cfg.projector_type).items()})
+    for k in trainable:
+        if not k.startswith(("llm.", "projector.")):
+            state[_PEFT_PREFIX + k] = model.get_parameter(k)
+    state = {k: v.detach().to("cpu").contiguous() for k, v in state.items()}
+    os.makedirs(adapter_dir, exist_ok=True)
+    path = os.path.join(adapter_dir, NON_LORA_FILE)
+    torch.save(state, path)
+    return path
+
+
+@torch.no_grad()
+def load_non_lora_trainables(path: str, model: nn.Module) -> None:
+    """Copy every tensor of a non_lora_trainables.bin into `model` (its
+    dtype and device kept).  The PEFT wrapper's prefixes are stripped
+    first, as the reference does."""
+    from llavamod_tpu_torch.interop.hf import (
+        decoder_params_from_hf,
+        decoder_params_to_hf,
+    )
+    from llavamod_tpu_torch.train.checkpoint import mm_projector_from_state
+
+    cfg = model.cfg
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    state = {re.sub(r"^(base_model\.)?(model\.)?", "", k): v
+             for k, v in state.items()}
+    params = dict(model.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    proj = {k: v for k, v in state.items() if "mm_projector" in k}
+    if proj:
+        template = model.projector.state_dict()
+        out.update({"projector." + k: v for k, v in mm_projector_from_state(
+            proj, cfg.projector_type, template, path).items()})
+    own = {k: v for k, v in state.items() if k in params}
+    out.update(own)
+    llm = {k: v for k, v in state.items() if k not in proj and k not in own}
+    if llm:
+        names = decoder_params_to_hf(_Partial(model.llm.state_dict(), ()),
+                                     cfg.llm)
+        unknown = sorted(set(llm) - set(names))
+        if unknown:
+            raise ValueError(f"{path}: entries that are no tensor of the "
+                             f"model: {unknown[:4]}")
+        ours = decoder_params_from_hf({**names, **llm}, cfg.llm)
+        out.update({"llm." + k: v for k, v in ours.items()
+                    if v.device.type != "meta"})
+    for k, v in out.items():
+        params[k].copy_(v)
+
+
 def merge_lora_checkpoint(adapter_path: str, cfg, model: nn.Module):
     """The reference's LoRA-checkpoint load (model/builder.py:82-155):
-    `model` is the BASE model (`cfg` its config); the adapter, and the
-    projector of `non_lora_trainables.bin` when the adapter directory has
-    one, are merged into it in place.  Returns (cfg, model).  (The JAX
-    function also takes the base's path, and never reads it.)"""
+    `model` is the BASE model (`cfg` its config); the adapter is merged into
+    it in place, and every tensor of `non_lora_trainables.bin` (the router
+    and the projector a LoRA run trains) replaces the base's when the
+    adapter directory has one.  Returns (cfg, model).  (The JAX function
+    also takes the base's path, and never reads it; it reads only the
+    projector out of the file.)"""
     lora, lcfg = load_lora_adapter(adapter_path, model)
     merge_lora_(model, lora, lcfg)
-    extra = os.path.join(adapter_path, "non_lora_trainables.bin")
+    extra = os.path.join(adapter_path, NON_LORA_FILE)
     if os.path.exists(extra):
-        from llavamod_tpu_torch.interop.hf import projector_params_from_hf
-
-        state = torch.load(extra, map_location="cpu", weights_only=True)
-        # the reference strips the PEFT wrapper's prefixes first
-        state = {re.sub(r"^(base_model\.)?(model\.)?", "", k): v
-                 for k, v in state.items() if "mm_projector" in k}
-        if state:
-            model.projector.load_state_dict(projector_params_from_hf(
-                state, cfg.projector_type), strict=True)
+        load_non_lora_trainables(extra, model)
     return cfg, model

@@ -98,34 +98,42 @@ def _tree_order(key: str):
             for p in key.split(".")]
 
 
-def save_mm_projector(path: str, projector: Dict[str, torch.Tensor],
-                      projector_type: str = "mlp2x_gelu") -> str:
-    """Write an mm_projector.bin from the projector's state dict (keys as
-    `Llava.projector.state_dict()`: 'kernel'/'bias' for linear,
-    'layers.<j>.kernel'/'.bias' for the MLP), tensors in their own dtype."""
+def mm_projector_state(projector: Dict[str, torch.Tensor],
+                       projector_type: str = "mlp2x_gelu"
+                       ) -> Dict[str, torch.Tensor]:
+    """The entries of an mm_projector.bin from the projector's state dict
+    (keys as `Llava.projector.state_dict()`: 'kernel'/'bias' for linear,
+    'layers.<j>.kernel'/'.bias' for the MLP), CPU tensors in their own
+    dtype."""
     t = {k: v.detach().cpu() for k, v in projector.items()}
     depth = _mlp_depth(projector_type)
     if _is_qformer(projector_type):
         from llavamod_tpu_torch.interop.hf import projector_params_to_hf
 
-        state = {k: v.contiguous() for k, v in
-                 projector_params_to_hf(t, projector_type).items()}
-    elif projector_type == "linear":
-        state = {_SEQ_PREFIX + "weight": t["kernel"].t().contiguous(),
-                 _SEQ_PREFIX + "bias": t["bias"].clone()}
-    elif depth is not None:
+        return {k: v.contiguous() for k, v in
+                projector_params_to_hf(t, projector_type).items()}
+    if projector_type == "linear":
+        return {_SEQ_PREFIX + "weight": t["kernel"].t().contiguous(),
+                _SEQ_PREFIX + "bias": t["bias"].clone()}
+    if depth is not None:
         state = {}
         for j in range(depth):
             idx = j * 2  # nn.Sequential: Linear, GELU, Linear, ...
             state[f"{_SEQ_PREFIX}{idx}.weight"] = \
                 t[f"layers.{j}.kernel"].t().contiguous()
             state[f"{_SEQ_PREFIX}{idx}.bias"] = t[f"layers.{j}.bias"].clone()
-    else:
-        from llavamod_tpu_torch.models.qformer import tree_scalars
+        return state
+    from llavamod_tpu_torch.models.qformer import tree_scalars
 
-        t.update(tree_scalars(projector_type, t))
-        state = {_TREE_PREFIX + k: t[k].clone()
-                 for k in sorted(t, key=_tree_order)}
+    t.update(tree_scalars(projector_type, t))
+    return {_TREE_PREFIX + k: t[k].clone() for k in sorted(t, key=_tree_order)}
+
+
+def save_mm_projector(path: str, projector: Dict[str, torch.Tensor],
+                      projector_type: str = "mlp2x_gelu") -> str:
+    """Write an mm_projector.bin from the projector's state dict
+    (`mm_projector_state`)."""
+    state = mm_projector_state(projector, projector_type)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(state, path)
     return path
@@ -140,14 +148,23 @@ def load_mm_projector(path: str, projector_type: str = "mlp2x_gelu",
     shapes (the Python leaves of the simple projector's entries are module
     config here and are not read)."""
     state = torch.load(path, map_location="cpu", weights_only=True)
+    return mm_projector_from_state(state, projector_type, template, path)
+
+
+def mm_projector_from_state(state: Dict[str, torch.Tensor],
+                            projector_type: str = "mlp2x_gelu",
+                            template: Optional[Dict[str, torch.Tensor]] = None,
+                            source: str = "mm_projector.bin"
+                            ) -> Dict[str, torch.Tensor]:
+    """The inverse of `mm_projector_state`."""
     if not any(k.startswith(_TREE_PREFIX) for k in state):
         from llavamod_tpu_torch.interop.hf import projector_params_from_hf
 
         return projector_params_from_hf(state, projector_type)
     if template is None:
-        raise ValueError(f"mm_projector.bin for '{projector_type}' uses the "
-                         "tree layout; pass template= (the projector's "
-                         "state dict)")
+        raise ValueError(f"{source} for '{projector_type}' uses the tree "
+                         "layout; pass template= (the projector's state "
+                         "dict)")
     out = {}
     for k, leaf in template.items():
         t = state[_TREE_PREFIX + k]

@@ -168,6 +168,25 @@ def maybe_load_mm_adapter(model, path: Optional[str], projector_type: str):
     return model
 
 
+def maybe_add_image_tokens(cfg, model, margs: ModelArgs, tokenizer,
+                           adapter: Optional[str] = None):
+    """With --mm_use_im_start_end, `<im_start>` / `<im_end>` are added to
+    the tokenizer and the policy's vocabulary grows by the rows of the new
+    ids (`llava.initialize_vision_tokenizer`; the trainer's arguments have
+    no --mm_use_im_patch_token, as in the JAX package)."""
+    if not margs.mm_use_im_start_end:
+        return cfg, model
+    from llavamod_tpu_torch.models.llava import initialize_vision_tokenizer
+
+    vocab = cfg.llm.vocab_size
+    cfg, model = initialize_vision_tokenizer(
+        model, cfg, tokenizer, mm_use_im_start_end=True,
+        pretrain_mm_mlp_adapter=adapter)
+    rank0_print(f"[build] image tokens added: vocabulary {vocab} -> "
+                f"{cfg.llm.vocab_size}")
+    return cfg, model
+
+
 def maybe_upcycle(cfg, model, margs: ModelArgs):
     """Dense -> sparse MoE student (initialize_moe_modules equivalent)."""
     if cfg.llm.is_moe:
@@ -446,7 +465,8 @@ def restore_float_weights(model, stash: Dict[str, Any]) -> None:
 def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
                lora_cfg=None):
     """The full model (llavamod_config.json + model.pt); with LoRA the
-    adapters first go to `output_dir/adapter` in PEFT's layout and are then
+    adapters first go to `output_dir/adapter` in PEFT's layout, with the
+    run's other trained tensors in `non_lora_trainables.bin`, and are then
     merged into the model saved; stage 1 also exports mm_projector.bin
     (reference train.py:535-557)."""
     from llavamod_tpu_torch.models.builder import save_model
@@ -456,10 +476,12 @@ def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
         from llavamod_tpu_torch.models.lora import (
             merge_lora_,
             save_lora_adapter,
+            save_non_lora_trainables,
         )
 
-        save_lora_adapter(os.path.join(output_dir, "adapter"), state.lora,
-                          lora_cfg)
+        adapter = os.path.join(output_dir, "adapter")
+        save_lora_adapter(adapter, state.lora, lora_cfg)
+        save_non_lora_trainables(adapter, state.model)
         merge_lora_(state.model, state.lora, lora_cfg)
     save_model(output_dir, state.model)
     if tcfg.tune_mm_mlp_adapter or tcfg.stage == "pretrain":
@@ -475,19 +497,23 @@ def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
 
 def build_stage_models(stage: str, margs: ModelArgs, targs: TrainArgs,
                        salign: Optional[AlignArgs] = None,
-                       sdpo: Optional[DPOArgs] = None, device="cuda"):
+                       sdpo: Optional[DPOArgs] = None, device="cuda",
+                       tokenizer=None):
     """(cfg, model, teacher_cfg, teacher) for `stage`: the policy (with its
-    adapter loaded and, where asked, upcycled to MoE) and, for align and
-    dpo, the frozen teacher / reference model (None otherwise)."""
+    adapter loaded, its vocabulary grown by the image tokens with
+    --mm_use_im_start_end and, where asked, upcycled to MoE) and, for align
+    and dpo, the frozen teacher / reference model (None otherwise)."""
     policy_spec = margs.model_name_or_path
     teacher_cfg = teacher = None
     if stage == "align":
         policy_spec = salign.policy_model_name_or_path or policy_spec
         cfg, model = build_llava(policy_spec, margs, seed=targs.seed,
                                  device=device)
-        maybe_load_mm_adapter(model, salign.policy_pretrain_mm_mlp_adapter
-                              or margs.pretrain_mm_mlp_adapter,
-                              cfg.projector_type)
+        adapter = (salign.policy_pretrain_mm_mlp_adapter
+                   or margs.pretrain_mm_mlp_adapter)
+        maybe_load_mm_adapter(model, adapter, cfg.projector_type)
+        cfg, model = maybe_add_image_tokens(cfg, model, margs, tokenizer,
+                                            adapter)
         if salign.policy_model_type == "sparse" and margs.moe_enable:
             cfg, model = maybe_upcycle(cfg, model, margs)
         teacher_cfg, teacher = build_llava(
@@ -499,6 +525,7 @@ def build_stage_models(stage: str, margs: ModelArgs, targs: TrainArgs,
         policy_spec = sdpo.policy_model_name_or_path or policy_spec
         cfg, model = build_llava(policy_spec, margs, seed=targs.seed,
                                  device=device)
+        cfg, model = maybe_add_image_tokens(cfg, model, margs, tokenizer)
         teacher_cfg, teacher = build_llava(
             sdpo.ref_model_name_or_path, margs, seed=targs.seed + 7,
             device=device)
@@ -507,10 +534,19 @@ def build_stage_models(stage: str, margs: ModelArgs, targs: TrainArgs,
                                  device=device)
         maybe_load_mm_adapter(model, margs.pretrain_mm_mlp_adapter,
                               cfg.projector_type)
+        cfg, model = maybe_add_image_tokens(cfg, model, margs, tokenizer,
+                                            margs.pretrain_mm_mlp_adapter)
         if margs.moe_enable and not targs.moe_finetune:
             cfg, model = maybe_upcycle(cfg, model, margs)
     if teacher is not None:
         teacher.requires_grad_(False)
+        if (margs.mm_use_im_start_end
+                and teacher_cfg.llm.vocab_size < cfg.llm.vocab_size):
+            raise ValueError(
+                f"the teacher's vocabulary ({teacher_cfg.llm.vocab_size}) "
+                f"lacks ids of the policy's ({cfg.llm.vocab_size}): "
+                "--mm_use_im_start_end grows the policy only; the teacher "
+                "must come with the image tokens")
     return cfg, model, teacher_cfg, teacher
 
 
@@ -545,7 +581,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     if tokenizer is None:
         tokenizer = load_tokenizer(margs)
     cfg, model, teacher_cfg, teacher = build_stage_models(
-        stage, margs, targs, salign, sdpo, device)
+        stage, margs, targs, salign, sdpo, device, tokenizer)
     if stage == "align" and cfg.video_projector_type is not None:
         # the distillation batch indexes the student's video rows, which the
         # teacher's media table lacks (the JAX engine reads past its table;

@@ -7,9 +7,9 @@ samplers give the same index order for the same seed over three epochs;
 the threaded loader gives the same batches in the same order with 0 and 4
 workers.  Every comparison is exact.
 
-The port's image preprocessor keeps the PIL path only, so the JAX side gets
-its own PIL fallback (the path it takes without its optional C++ batch
-preprocessor), not the C++ one."""
+Both packages' image preprocessors take their C++ batch paths, which give
+the same bits; on the PIL path (LLAVAMOD_NO_NATIVE=1 for the port, the JAX
+package's PIL fallback) the items are the same too."""
 
 import json
 
@@ -25,6 +25,7 @@ from llavamod_tpu.data import preprocess as jpre
 from llavamod_tpu.train import loader as jloader
 from llavamod_tpu.train import sampler as jsampler
 from llavamod_tpu_torch import mm_utils as tmm
+from llavamod_tpu_torch import native
 from llavamod_tpu_torch.data import collator as tcoll
 from llavamod_tpu_torch.data import dataset as tds
 from llavamod_tpu_torch.data import preprocess as tpre
@@ -52,6 +53,9 @@ class BosTok:
 
 
 class PilPreprocessor(jmm.ImagePreprocessor):
+    """The JAX package's PIL path (its C++ path switched off), held against
+    the port's with LLAVAMOD_NO_NATIVE=1."""
+
     def _native_batch(self, images):
         return None
 
@@ -120,13 +124,17 @@ def corpus(tmp_path_factory):
     return tmp
 
 
-def _datasets(corpus, kind, template="qwen"):
+def _datasets(corpus, kind, template="qwen", pil=False):
+    """Both packages' datasets over one corpus: each preprocessor on its C++
+    path, or with `pil` (the caller sets LLAVAMOD_NO_NATIVE=1 for the port)
+    each on its PIL path."""
     path = str(corpus / ("pref.json" if kind == "pref" else "sft.json"))
     kw = dict(image_folder=str(corpus), template_name=template,
               model_max_length=160, seed=5)
     jcls = jds.PreferenceJsonDataset if kind == "pref" else jds.SupervisedJsonDataset
     tcls = tds.PreferenceJsonDataset if kind == "pref" else tds.SupervisedJsonDataset
-    return (jcls([path], StubTok(), PilPreprocessor(size=28), **kw),
+    jpp = PilPreprocessor(size=28) if pil else jmm.ImagePreprocessor(size=28)
+    return (jcls([path], StubTok(), jpp, **kw),
             tcls([path], StubTok(), tmm.ImagePreprocessor(size=28), **kw))
 
 
@@ -151,6 +159,17 @@ def test_dataset_items_and_lengths_are_the_same(corpus, kind, template):
     assert td.modality_lengths == jd.modality_lengths
     for i in range(len(jd)):
         _assert_same(td[i], jd[i])
+
+
+@pytest.mark.parametrize("kind", ["sft", "pref"])
+def test_dataset_items_are_the_same_on_the_pil_path(corpus, kind,
+                                                    monkeypatch):
+    monkeypatch.setenv("LLAVAMOD_NO_NATIVE", "1")
+    jd, td = _datasets(corpus, kind, pil=True)
+    native.reset_counts()
+    for i in range(len(jd)):
+        _assert_same(td[i], jd[i])
+    assert native.counts["native"] == 0 and native.counts["pil"] > 0
 
 
 @pytest.mark.parametrize("kind", ["sft", "pref"])

@@ -16,9 +16,9 @@ answers and the server's `build_engine` serves it; with no tower the load
 raises a ValueError naming vision_path.  With `--model-base` the port's
 `generate` answers from a LoRA adapter merged onto that base, as the
 merged model tools.merge_lora writes does.  The JAX side decodes through its
-XLA branch (LLAVAMOD_DECODE_ATTN=xla) and preprocesses images on its PIL
-path (the one the port copies; its optional C++ batch path resizes
-differently), which changes nothing in the JAX package."""
+XLA branch (LLAVAMOD_DECODE_ATTN=xla), which changes nothing in the JAX
+package; both packages preprocess images on their C++ batch paths, which
+give the same bits."""
 
 import io
 import json
@@ -31,7 +31,6 @@ from PIL import Image
 from util_tokenizer import make_tiny_tokenizer
 from util_torch_port import matched_llava, tiny_llava_config
 
-from llavamod_tpu import mm_utils as jmm_utils
 from llavamod_tpu.eval import cli as jcli
 from llavamod_tpu.eval import run_llava as jrun_llava
 from llavamod_tpu.models.builder import save_model as jsave_model
@@ -71,8 +70,6 @@ def ckpts(tmp_path_factory):
 @pytest.fixture
 def jax_side(monkeypatch):
     monkeypatch.setenv("LLAVAMOD_DECODE_ATTN", "xla")
-    monkeypatch.setattr(jmm_utils.ImagePreprocessor, "_native_batch",
-                        lambda self, images: None)
 
 
 def _rows(path):

@@ -73,10 +73,14 @@ def test_image_preprocessor_is_the_same(aspect):
     rng = np.random.RandomState(5)
     img = Image.fromarray(rng.randint(0, 256, (50, 37, 3), dtype=np.uint8))
     kw = dict(size=28, image_aspect_ratio=aspect)
-    want = np.stack([jmm.ImagePreprocessor(**kw).preprocess_one(img)])
+    # both packages' calls take their C++ batch path
+    want = jmm.ImagePreprocessor(**kw)(img)
     got = tmm.ImagePreprocessor(**kw)(img)
     assert got.shape == (1, 3, 28, 28)
     np.testing.assert_array_equal(got, want)
+    # and the PIL path image by image
+    np.testing.assert_array_equal(tmm.ImagePreprocessor(**kw).preprocess_one(img),
+                                  jmm.ImagePreprocessor(**kw).preprocess_one(img))
 
 
 def test_registry_behaves_the_same():

@@ -69,8 +69,9 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]", out.stdout
     assert len(_modules()) >= 20
     # the trainer's modules, the W8A8 blocks, the HF interop and tools, and
-    # LoRA, the Q-Former / simple projectors, S2 and the video projector
-    # are among those imported
+    # LoRA, the Q-Former / simple projectors, S2 and the video projector,
+    # the C++ image preprocessor's loader and the recipes' reader are among
+    # those imported
     assert {f"llavamod_tpu_torch.{m}" for m in (
         "train.run", "train.args", "train.checkpoint", "train.sampler",
         "train.loader", "train.train", "train.align_train", "train.dpo_train",
@@ -81,4 +82,5 @@ def test_importing_the_port_loads_no_jax():
         "interop.safetensors_io", "interop.tiktoken_tokenizers",
         "tools.import_hf", "tools.consolidate", "tools.extract_mm_projector",
         "tools.delta", "tools.merge_lora", "models.lora", "models.qformer",
-        "models.vision.s2", "models.video")} <= set(_modules())
+        "models.vision.s2", "models.video", "native", "recipes")} \
+        <= set(_modules())

@@ -19,6 +19,10 @@ checkpoint}.py) on the CPU, at tiny sizes:
     since the two packages draw different numbers from one seed); and from
     a qwen-1.0 HF directory with its tiktoken vocabulary, whose tokenizer
     `load_tokenizer` picks (eos and pad <|endoftext|>);
+  * stage 2a (dense -> dense, the dense2dense recipe's options) through
+    both packages' `run_stage("align")` from one policy and one teacher:
+    the same losses for 3 steps (rel 1e-4) and the same saved weights (rel
+    1e-4 over each tensor);
   * the port's and the JAX package's `run_stage("pretrain")`, from one
     checkpoint and one dataset, log the same first losses (rel 1e-4), with
     AdamW on the projector and with `--optimizer adafactor` on the whole
@@ -381,6 +385,62 @@ def test_adafactor_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
     before, after = _state(dirs["port"]), _state(tmp_path / "port")
     assert not torch.equal(before["llm.layers.0.mlp.up"],
                            after["llm.layers.0.mlp.up"])
+
+
+def test_stage_2a_dense_to_dense_logs_the_losses_and_weights_of_jax(
+        tmp_path, dirs):
+    """Stage 2a (the dense2dense recipe's options: a dense student, kd_lm,
+    no --train_modules, so the whole LLM and the projector train) from one
+    policy and one dense teacher in both formats: the port's and the JAX
+    package's `run_stage("align")` log the same losses for 3 steps (rel
+    1e-4) and save the same weights (rel 1e-4 over each tensor), the tower
+    unchanged."""
+    from llavamod_tpu_torch.models.builder import CONFIG_NAME
+    from util_torch_port import flatten_numpy, matched_llava
+
+    jcfg, jparams, teacher = matched_llava(_cfg(), seed=5)
+    tteacher = tbuilder.save_model(str(tmp_path / "teacher"), teacher)
+    jteacher = jbuilder.save_model(str(tmp_path / "jteacher"), jcfg, jparams)
+    kw = dict(max_steps=3, gradient_accumulation_steps=1, learning_rate=1e-3,
+              model_max_length=256)
+    margs = dict(version="qwen")
+    align = dict(policy_model_type="dense", ref_model_type="dense",
+                 loss_type="kd_lm")
+    data = dict(data_path=[dirs["sft"]], image_folder=dirs["imgs"])
+    out, jout = str(tmp_path / "port"), str(tmp_path / "jax")
+    trun.run_stage("align", ModelArgs(**margs), DataArgs(**data),
+                   _targs(out, **kw),
+                   salign=AlignArgs(policy_model_name_or_path=dirs["port"],
+                                    ref_model_name_or_path=tteacher, **align),
+                   tokenizer=StubTok(), device="cpu")
+    jrun.run_stage("align", jargs.ModelArgs(**margs), jargs.DataArgs(**data),
+                   jargs.TrainArgs(**vars(_targs(jout, **kw))),
+                   salign=jargs.AlignArgs(
+                       policy_model_name_or_path=dirs["jax"],
+                       ref_model_name_or_path=jteacher, **align),
+                   tokenizer=StubTok())
+    got, want = _lines(out), _lines(jout)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            if k != "sec_per_step":
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-4, err_msg=k)
+    assert got[0]["num_tokens"] > 1 and got[0]["loss/align"] > 0
+    assert got[2]["loss"] != got[0]["loss"]
+    with open(os.path.join(out, CONFIG_NAME)) as f:
+        assert not json.load(f)["llm"].get("moe_layers")     # still dense
+    before, after = _state(dirs["port"]), _state(out)
+    jafter = flatten_numpy(jax.device_get(jbuilder.load_model(jout)[1]))
+    assert after.keys() == before.keys() == jafter.keys()
+    for k, v in after.items():
+        moved = not torch.equal(v, before[k])
+        assert moved == (not k.startswith("vision.")), k
+        # rel 1e-4 over each tensor: AdamW's normalised step moves an entry
+        # whose gradient is near zero by up to lr whatever its rounding
+        got_k = v.float().numpy()
+        assert np.linalg.norm(got_k - jafter[k]) <= 1e-4 * np.linalg.norm(
+            jafter[k]), k
 
 
 def _unflatten(flat):
