@@ -109,7 +109,22 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      adafactor --fused_update` ([stages fused]: 2 updates of 2 folded
      microbatches on a dataset of one repeated sample, the global-gating
      warning, peak memory beside AdamW's), and a second run resumed from
-     its checkpoint after update 1 must reach the same second update;
+     its checkpoint after update 1 must reach the same second update.
+     Around stage 2, [dist]: stage 2 again from 2a's output and its
+     config as written, under `python -m torch.distributed.run --standalone
+     --nproc_per_node 1` (NCCL, the mesh (1,1,1,1,1), both models sharded
+     by FSDP2, the gating all-gather and the expert exchange through NCCL;
+     the worker is this script's `--dist-worker` entry, which calls
+     `run_stage` with the stand-in tokenizer, since the card's machine has
+     no tokenizer files): its microbatch ms, tokens/s and peak beside the
+     single-process stage 2, K1 / K3 / K4 per microbatch, the first
+     microbatch against the single-process one, the seconds to write the
+     sharded checkpoint after update 1, rank 0's model.pt through
+     `load_pretrained_model` against the single-process output, and a
+     second torchrun resumed from that checkpoint, whose update 2 must
+     repeat the first run's (one microbatch of it profiled: the NCCL
+     kernels' and FSDP2's copy-in / copy-out device ms); a failed worker
+     fails the smoke;
   7. eval: on stage 3's trained student, still in the temporary directory,
      the port's eval CLI (`eval/cli.py generate`) answers 20 POPE-format
      questions over the stage images in batches of 8 (the last padded),
@@ -253,6 +268,16 @@ FUSED_PARAM_REL_TOL = 0.25
 RESUME_LOSS_REL_TOL = 1e-5
 RESUME_GRAD_NORM_REL_TOL = 1e-3
 RESUME_PARAM_REL_TOL = 5e-2
+#  * [dist]: stage 2 under a one-rank NCCL torchrun against the
+#    single-process stage 2 of the same call.  At world 1 FSDP2's gathers
+#    and reductions are copies and the gating gather and the expert
+#    exchange move every token to itself, so the kernels see the same
+#    tensors: first microbatch loss rel 1e-4 and grad_norm rel 1e-3 (and
+#    the line says whether they are bitwise); the run resumed from the
+#    sharded checkpoint repeats update 2 within the RESUME_* limits above.
+DIST_LOSS_REL_TOL = 1e-4
+DIST_GRAD_NORM_REL_TOL = 1e-3
+DIST_TIMEOUT_S = 600
 #  * [moe dispatch]: gather, ragged and einsum dispatch route the same
 #    tokens to the same slots with the same weights, so one step from the
 #    same weights differs only by the order of the expert sums (loss rel
@@ -307,6 +332,14 @@ BODY_QUANT_STEPS = 2
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def log_time(phase: str) -> None:
+    """The seconds since the script started, at the end of `phase`."""
+    log(f"[time] {phase} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def card_line() -> str:
@@ -2193,11 +2226,15 @@ def check_hf_build(name: str, path: str, source: dict, stage: str, dev
 
 
 @contextlib.contextmanager
-def counted_steps(records: list):
+def counted_steps(records: list, profile_call=None, memory_call=None):
     """Within the block, the step functions that `run_stage` makes record,
     for each microbatch, its K1/K3/K4 launches, its time (the card
     synchronised before and after) and its peak device memory (the
-    stage's whole-run peak may instead be set while the models load)."""
+    stage's whole-run peak may instead be set while the models load);
+    microbatch number `profile_call` (from 0) runs under torch.profiler,
+    its `dist_profile` in its record; microbatch number `memory_call`
+    records the allocator's history, its `memory_breakdown` in its
+    record."""
     from llavamod_tpu_torch.train import fused_steps, steps
 
     makers = [(steps, n) for n in ("make_pretrain_step", "make_align_step",
@@ -2213,15 +2250,39 @@ def counted_steps(records: list):
                 before = _launch_counts()
                 torch.cuda.synchronize()
                 prior = torch.cuda.max_memory_allocated() / 2**30
+                start = torch.cuda.memory_allocated() / 2**30
                 torch.cuda.reset_peak_memory_stats()
+                prof = None
+                if profile_call is not None and len(records) == profile_call:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    prof = profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+                    prof.__enter__()
+                history = (memory_call is not None
+                           and len(records) == memory_call)
+                if history:
+                    torch.cuda.memory._record_memory_history(
+                        context="alloc", stacks="python",
+                        max_entries=2_000_000)
                 t0 = time.perf_counter()
                 out = step(*sa, **sk)
                 torch.cuda.synchronize()
-                records.append(dict(
+                if history:
+                    snapshot = torch.cuda.memory._snapshot()
+                    torch.cuda.memory._record_memory_history(enabled=None)
+                rec = dict(
                     ms=(time.perf_counter() - t0) * 1e3, prior_peak_gib=prior,
+                    start_gib=start,
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                     launches={k: n - before[k]
-                              for k, n in _launch_counts().items()}))
+                              for k, n in _launch_counts().items()})
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    rec["profile"] = dist_profile(prof, rec["ms"])
+                if history:
+                    rec["memory"] = memory_breakdown(snapshot)
+                records.append(rec)
                 return out
             return counted
         return maker
@@ -2233,6 +2294,48 @@ def counted_steps(records: list):
     finally:
         for (mod, n), make in originals.items():
             setattr(mod, n, make)
+
+
+def _memory_site(frames) -> str:
+    """Where an allocation was made: the innermost FSDP2 frame, else the
+    innermost frame of the port, else the innermost Python frame; none at
+    all (the autograd engine's own work in backward) is its own site."""
+    def pick(part):
+        return next((f for f in frames if part in f["filename"]), None)
+    f = pick("torch/distributed/fsdp")
+    if f is not None:
+        return f"FSDP2 {f['name']}"
+    f = pick("llavamod_tpu_torch")
+    if f is not None:
+        rel = f["filename"].split("llavamod_tpu_torch/")[-1]
+        return f"{rel}:{f['name']}"
+    if frames:
+        return f"{os.path.basename(frames[0]['filename'])}:{frames[0]['name']}"
+    return "autograd engine (no Python frame)"
+
+
+def memory_breakdown(snapshot: dict, top: int = 8) -> dict:
+    """The allocations a step made, replayed from the allocator's history
+    on this device: the most bytes they held at once (the step's own
+    transient; what it started with is not in the history) and, at that
+    moment, the bytes by the site that allocated them."""
+    dev = torch.cuda.current_device()
+    live, by_site, total, peak, at_peak = {}, {}, 0, 0, {}
+    for ev in snapshot["device_traces"][dev]:
+        if ev["action"] == "alloc":
+            site = _memory_site(ev.get("frames", []))
+            live[ev["addr"]] = (ev["size"], site)
+            by_site[site] = by_site.get(site, 0) + ev["size"]
+            total += ev["size"]
+            if total > peak:
+                peak, at_peak = total, dict(by_site)
+        elif ev["action"] == "free_completed" and ev["addr"] in live:
+            size, site = live.pop(ev["addr"])
+            by_site[site] -= size
+            total -= size
+    rows = sorted(at_peak.items(), key=lambda kv: -kv[1])[:top]
+    return dict(peak_gib=peak / 2**30, sites=[dict(site=k, gib=v / 2**30)
+                                              for k, v in rows])
 
 
 def parse_stage(stage: str, config, argv: list):
@@ -2363,7 +2466,8 @@ def recorded_quantization(record: dict):
         run.quantize_stage_models = original
 
 
-def drive_stage(stage, config, argv, tok, dev, card, tag=None):
+def drive_stage(stage, config, argv, tok, dev, card, tag=None,
+                memory_call=None):
     """One stage through `run_stage` (counts set to 0 just before, read just
     after), with the plain-attention first microbatch beside it; returns
     the stage's numbers after checking them.  With --fused_update a step is
@@ -2396,7 +2500,8 @@ def drive_stage(stage, config, argv, tok, dev, card, tag=None):
     records, quant = [], {}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with counted_steps(records), recorded_quantization(quant):
+    with counted_steps(records, memory_call=memory_call), \
+            recorded_quantization(quant):
         _reset_launch_counts()
         last = run_stage(stage, margs, dargs, targs, tokenizer=tok,
                          device=dev, **kw)
@@ -2476,11 +2581,14 @@ def drive_stage(stage, config, argv, tok, dev, card, tag=None):
                                  f"{quant}")
     return dict(step_ms=ms, median_ms=med, tokens_per_s=tokens / med * 1e3,
                 peak_gib=peak_gib, step_peak_gib=step_peak,
+                step_start_gib=[r["start_gib"] for r in records],
                 load_s=info["build_and_load_s"],
                 save_s=info["save_s"], run_stage_s=wall_s,
                 updates=info["optimizer_updates"], launches=launches,
                 launches_per_microbatch=per_mb, first=first, plain_first=plain,
-                rel=rel, last=last, quantization=quant)
+                rel=rel, last=last, quantization=quant,
+                memory=next((r["memory"] for r in records if "memory" in r),
+                            None))
 
 
 def _trainable_state(out: str, keys) -> dict:
@@ -3215,7 +3323,7 @@ def watched_lora(record: dict):
                 for t in lora.targets})
         return lora, lcfg
 
-    def saving(output_dir, cfg, state, tcfg, lora_cfg=None):
+    def saving(output_dir, cfg, state, tcfg, *args, **kwargs):
         if state.lora is not None:
             weights = dict(state.model.named_parameters())
             record.update(
@@ -3228,7 +3336,7 @@ def watched_lora(record: dict):
                 bytes=sum(p.numel() * p.element_size()
                           for p in state.lora.parameters()),
                 dtype=str(next(state.lora.parameters()).dtype))
-        return save(output_dir, cfg, state, tcfg, lora_cfg)
+        return save(output_dir, cfg, state, tcfg, *args, **kwargs)
 
     run.maybe_add_lora, run.final_save = adding, saving
     try:
@@ -3657,6 +3765,341 @@ def data_phase(config: str, data: dict, tok, dev, card: str,
     return out
 
 
+def dist_profile(prof, wall_ms: float) -> dict:
+    """Device ms of one profiled microbatch: all kernels, the NCCL
+    kernels, and FSDP2's copy-in / copy-out operations (the `fsdp::`
+    custom ops, every kernel they launch), with the top kernels."""
+    from torch.autograd import DeviceType
+
+    rows = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in rows if e.device_type == DeviceType.CUDA]
+    busy = sum(r[1] for r in kernels)
+    nccl = [r for r in kernels if "nccl" in r[0].lower()]
+    # FSDP2's hooks by kind, every unit summed: the gathers before a
+    # forward (copy-in, all-gather, copy-out) and before a backward, and
+    # the gradient reductions (copy-in, reduce-scatter, copy-out)
+    fsdp = {}
+    for e in rows:
+        kind = e.key.split(" (")[0]
+        if e.device_type == DeviceType.CPU and kind in (
+                "FSDP::pre_forward", "FSDP::pre_backward",
+                "FSDP::post_backward_reduce"):
+            f = fsdp.setdefault(kind, dict(ms=0.0, host_ms=0.0, count=0))
+            f["ms"] += e.device_time_total / 1e3
+            f["host_ms"] += e.cpu_time_total / 1e3
+            f["count"] += e.count
+    host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    top = sorted(kernels, key=lambda r: -r[1])[:8]
+    return dict(wall_ms=wall_ms, busy_ms=busy, kernels=sum(r[2] for r in
+                                                           kernels),
+                nccl_ms=sum(r[1] for r in nccl),
+                nccl_kernels=sum(r[2] for r in nccl),
+                nccl_names=sorted({r[0][:60] for r in nccl}),
+                fsdp_ops=fsdp, top=[dict(name=n[:80], ms=ms, count=c)
+                                    for n, ms, c in top],
+                top_host=[dict(name=e.key[:80],
+                               ms=e.self_cpu_time_total / 1e3, count=e.count)
+                          for e in host])
+
+
+def dist_worker(spec_path: str) -> int:
+    """The [dist] worker, one rank of `torch.distributed.run`: stage 2
+    through `run_stage` (which joins the NCCL group torchrun describes and
+    shards both models) with the stand-in tokenizer, each microbatch
+    counted as in the stages phase; rank 0 writes the numbers to the
+    spec's `result` file."""
+    from llavamod_tpu_torch.parallel import collectives
+    from llavamod_tpu_torch.parallel.sharding import is_sharded
+    from llavamod_tpu_torch.train import run, steps
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    margs, dargs, targs, extra = parse_stage("align", spec["config"],
+                                             spec["argv"])
+    records, saves, sharded = [], [], []
+    calls = {"gather_rows": 0, "exchange": 0}
+    originals = dict(save=run._save_periodic, make=steps.make_align_step,
+                     **{n: getattr(collectives.ParallelContext, n)
+                        for n in calls})
+
+    def timed_save(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        originals["save"](*a, **k)
+        torch.cuda.synchronize()
+        saves.append(time.perf_counter() - t0)
+
+    def counting(name):
+        def call(self, *a, **k):
+            calls[name] += 1
+            return originals[name](self, *a, **k)
+        return call
+
+    def make(*a, **k):
+        step = originals["make"](*a, **k)
+
+        def checked(state, teacher, batch):
+            if not sharded:
+                sharded.append(dict(student=is_sharded(state.model),
+                                    teacher=is_sharded(teacher)))
+            return step(state, teacher, batch)
+        return checked
+
+    run._save_periodic = timed_save
+    steps.make_align_step = make
+    for n in calls:
+        setattr(collectives.ParallelContext, n, counting(n))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with counted_steps(records, spec.get("profile_call"),
+                           spec.get("memory_call")):
+            _reset_launch_counts()
+            run.run_stage("align", margs, dargs, targs, salign=extra,
+                          tokenizer=StandInTokenizer(), device="cuda")
+            launches = _launch_counts()
+    finally:
+        run._save_periodic = originals["save"]
+        steps.make_align_step = originals["make"]
+        for n in calls:
+            setattr(collectives.ParallelContext, n, originals[n])
+    if int(os.environ.get("RANK", "0")) == 0:
+        peak = max([torch.cuda.max_memory_allocated() / 2**30]
+                   + [max(r["prior_peak_gib"], r["peak_gib"])
+                      for r in records])
+        with open(spec["result"], "w") as f:
+            json.dump(dict(records=records, launches=launches, peak_gib=peak,
+                           checkpoint_s=saves, sharded=sharded,
+                           collective_calls=calls,
+                           world=int(os.environ["WORLD_SIZE"]),
+                           torch=torch.__version__,
+                           nccl=".".join(map(str, torch.cuda.nccl.version()))),
+                      f)
+    return 0
+
+
+def _torchrun(spec: dict, root: str, tag: str) -> dict:
+    """One `torch.distributed.run --standalone --nproc_per_node 1` of the
+    worker on `spec`; raises if it fails; returns its result."""
+    spec = dict(spec, result=os.path.join(root, f"dist_{tag}.json"))
+    spec_path = os.path.join(root, f"dist_{tag}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", os.path.abspath(__file__), "--dist-worker",
+         spec_path], env=env, cwd=here, capture_output=True, text=True,
+        timeout=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[mesh]", "[ckpt]", "[run]", "[data]")):
+            log(f"[dist] {tag} | {line}")
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-8000:])
+        raise AssertionError(f"[dist] {tag}: torchrun exited "
+                             f"{proc.returncode}")
+    with open(spec["result"]) as f:
+        out = json.load(f)
+    out["wall_s"] = wall
+    return out
+
+
+def dist_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
+    """[dist], before the single-process stage 2 (so that its checkpoint
+    and the stages' files fit the disk together): stage 2 (`argv`: the
+    stages phase's, from 2a's output) under a one-rank NCCL torchrun, with
+    a sharded checkpoint after update 1; rank 0's model.pt through
+    `load_pretrained_model` on the card (kept on the host for
+    `dist_check`); a second torchrun resumed from the checkpoint, one
+    microbatch profiled.  The checkpoint is removed at the end."""
+    from llavamod_tpu_torch.models.builder import load_pretrained_model
+    from llavamod_tpu_torch.train.args import AlignArgs
+
+    out = os.path.join(root, "out_align_dist")
+    argv = argv + ["--output_dir", out, "--save_steps", str(STAGE_ACCUM)]
+    margs, _, targs, extra = parse_stage("align", config, argv)
+    assert isinstance(extra, AlignArgs)
+    layers = _num_layers(extra.policy_model_name_or_path)
+    teacher_layers = _num_layers(extra.ref_model_name_or_path)
+    per_mb = {"flash_fwd": layers * (2 if targs.remat else 1)
+              + teacher_layers, "flash_dq": layers, "flash_dkv": layers}
+    # the student's bf16 model twice (the checkpoint's shards and model.pt)
+    # and AdamW's two bf16 moments of the 2.035 B trainable entries (the
+    # accumulator is zero at the update boundary and is not written)
+    need = 2 * 6.73 + 2 * 2 * 2.035 + 1.0
+    free = shutil.disk_usage(root).free / 1e9
+    log(f"[dist] needs ~{need:.1f} GB of disk, {free:.1f} GB free")
+    if free < need:
+        raise AssertionError(f"[dist] needs {need:.1f} GB, {free:.1f} free")
+    spec = dict(config=config, argv=argv)
+    first = _torchrun(dict(spec, memory_call=0), root, "run")
+    lines = _read_json_lines(os.path.join(out, "metrics.jsonl"))
+    with open(os.path.join(out, "run_info.json")) as f:
+        info = json.load(f)
+    ckpt = os.path.join(out, f"checkpoint-{STAGE_ACCUM}")
+    ckpt_gb = dir_bytes(ckpt) / 1e9
+    _, model, _, _, _ = load_pretrained_model(out, device=dev,
+                                              tokenizer=StandInTokenizer())
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    loaded_on = str(next(model.parameters()).device)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = _torchrun(dict(spec, profile_call=1), root, "resumed")
+    lines2 = _read_json_lines(os.path.join(out, "metrics.jsonl"))
+    with open(os.path.join(out, "run_info.json")) as f:
+        info2 = json.load(f)
+    again = torch.load(os.path.join(out, "model.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    resumed_same = sum(torch.equal(v, state[k]) for k, v in again.items())
+    del again
+    shutil.rmtree(ckpt)
+    return dict(out=out, first=first, lines=lines, info=info, state=state,
+                loaded_on=loaded_on, ckpt_gb=ckpt_gb, resumed=resumed,
+                lines2=lines2, info2=info2, resumed_same=resumed_same,
+                per_mb=per_mb, tokens=targs.per_device_train_batch_size
+                * targs.model_max_length)
+
+
+def dist_check(raw: dict, single: dict, single_out: str, card: str) -> dict:
+    """[dist] against the single-process stage 2 of this call (`single`,
+    its output in `single_out`): prints the numbers and raises on a failed
+    check; removes the [dist] output."""
+    first, lines, info = raw["first"], raw["lines"], raw["info"]
+    per_mb = raw["per_mb"]
+    recs = first["records"]
+    ms = [r["ms"] for r in recs]
+    med = statistics.median(ms[1:])
+    sp = single["first"]
+    got = {k: v for k, v in lines[0].items()
+           if k not in ("step", "sec_per_step")}
+    rel = {k: abs(got[k] - sp[k]) / abs(sp[k]) for k in ("loss",
+                                                         "grad_norm")}
+    bitwise = all(got[k] == sp[k] for k in got)
+    log(f"[dist] torch {first['torch']}, NCCL {first['nccl']}, world "
+        f"{first['world']}, backend {info.get('backend')}, mesh "
+        f"{info.get('mesh')}; FSDP2-wrapped {first['sharded']}; gating "
+        f"gathers {first['collective_calls']['gather_rows']} and expert "
+        f"exchanges {first['collective_calls']['exchange']} over the run; "
+        f"on {card}")
+    log(f"[dist] microbatch ms {' / '.join(f'{t:.1f}' for t in ms)} "
+        f"(median after the first {med:.1f}) against {single['median_ms']:.1f}"
+        f" single-process ({med / single['median_ms']:.3f}x); "
+        f"{raw['tokens'] / med * 1e3:.1f} tokens/s against "
+        f"{single['tokens_per_s']:.1f}; peak {first['peak_gib']:.2f} GiB "
+        f"(of the steps {max(r['peak_gib'] for r in recs):.2f}) against "
+        f"{single['peak_gib']:.2f} ({single['step_peak_gib']:.2f}); torchrun "
+        f"{first['wall_s']:.1f} s; on {card}")
+    log(f"[dist] device GiB held at each microbatch's start (weights, "
+        f"optimizer state, gradients) "
+        f"{' / '.join(f'{r['start_gib']:.2f}' for r in recs)} against "
+        f"{' / '.join(f'{g:.2f}' for g in single['step_start_gib'])} "
+        f"single-process; on {card}")
+    mem, single_mem = recs[0]["memory"], single["memory"]
+    log(f"[dist] the first microbatch's own allocations at their peak "
+        f"(allocator history): {mem['peak_gib']:.2f} GiB against "
+        f"{single_mem['peak_gib']:.2f} single-process; on {card}")
+    for name, m in (("dist", mem), ("single", single_mem)):
+        for r in m["sites"]:
+            log(f"[dist]   {name:6s} {r['gib']:7.3f} GiB {r['site']}")
+    log(f"[dist] launches per microbatch {[r['launches'] for r in recs]} "
+        f"(stage 2: {per_mb} each)")
+    log(f"[dist] first microbatch against the single-process stage 2: loss "
+        f"{got['loss']:.7f} vs {sp['loss']:.7f} (rel {rel['loss']:.3e}, tol "
+        f"{DIST_LOSS_REL_TOL}), grad_norm {got['grad_norm']:.7f} vs "
+        f"{sp['grad_norm']:.7f} (rel {rel['grad_norm']:.3e}, tol "
+        f"{DIST_GRAD_NORM_REL_TOL}); every logged metric bitwise: {bitwise}")
+    log(f"[dist] sharded checkpoint after update 1 (checkpoint-"
+        f"{STAGE_ACCUM}, {raw['ckpt_gb']:.2f} GB) written in "
+        f"{first['checkpoint_s'][0]:.2f} s; load and build "
+        f"{info['build_and_load_s']:.1f} s, saves {info['save_s']:.1f} s; "
+        f"on {card}")
+    if not (first["world"] == 1 and info.get("backend") == "nccl"
+            and info.get("mesh") == dict(data=1, fsdp=1, expert=1, tensor=1,
+                                         pipe=1)
+            and first["sharded"] == [dict(student=True, teacher=True)]
+            and first["collective_calls"]["gather_rows"] > 0
+            and first["collective_calls"]["exchange"] > 0):
+        raise AssertionError(f"[dist] did not run the sharded path: {info} "
+                             f"{first['sharded']} {first['collective_calls']}")
+    if len(recs) != STAGE_MICROBATCHES or any(r["launches"] != per_mb
+                                              for r in recs):
+        raise AssertionError(f"[dist] launches {recs}, need {per_mb}")
+    if not (rel["loss"] <= DIST_LOSS_REL_TOL
+            and rel["grad_norm"] <= DIST_GRAD_NORM_REL_TOL):
+        raise AssertionError(f"[dist] first microbatch disagrees: {rel}")
+    if not all(np.isfinite(v) for ln in lines for v in ln.values()) or \
+            info["optimizer_updates"] != STAGE_MICROBATCHES // STAGE_ACCUM:
+        raise AssertionError(f"[dist] run: {lines} {info}")
+
+    ref = torch.load(os.path.join(single_out, "model.pt"), map_location="cpu",
+                     weights_only=True, mmap=True)
+    state = raw["state"]
+    same = sum(torch.equal(v, ref[k]) for k, v in state.items() if k in ref)
+    log(f"[dist] rank 0's model.pt through load_pretrained_model on "
+        f"{raw['loaded_on']}: {len(state)} entries (single-process: "
+        f"{len(ref)}), {same} bitwise the single-process stage 2 output "
+        f"({same / len(ref):.4f}); the resumed run's model.pt: "
+        f"{raw['resumed_same']} of {len(state)} entries bitwise the first "
+        f"run's")
+    if state.keys() != ref.keys():
+        raise AssertionError("[dist] model.pt keys differ from stage 2's")
+    del ref
+
+    resumed, lines2, info2 = raw["resumed"], raw["lines2"], raw["info2"]
+    whole, again = lines2[STAGE_ACCUM:STAGE_MICROBATCHES], \
+        lines2[STAGE_MICROBATCHES:]
+    rel2 = [{k: abs(b[k] - a[k]) / abs(a[k]) for k in ("loss", "grad_norm")}
+            for a, b in zip(whole, again)]
+    prof = resumed["records"][1]["profile"]
+    log(f"[dist] resumed from {info2['resumed_from']}: microbatches "
+        f"{[ln['step'] for ln in again]}, loss / grad_norm rel to the first "
+        f"run {[(f'{r['loss']:.2e}', f'{r['grad_norm']:.2e}') for r in rel2]}"
+        f" (tol {RESUME_LOSS_REL_TOL}, {RESUME_GRAD_NORM_REL_TOL}); "
+        f"torchrun {resumed['wall_s']:.1f} s")
+    log(f"[dist] profiled microbatch: {prof['wall_ms']:.1f} ms wall, "
+        f"{prof['busy_ms']:.1f} ms device busy over {prof['kernels']} "
+        f"kernels; NCCL {prof['nccl_ms']:.3f} ms over {prof['nccl_kernels']} "
+        f"kernels {prof['nccl_names']}; FSDP2 hooks (copy-in, collective, "
+        f"copy-out), device / host ms: "
+        + ", ".join(f"{k} {v['ms']:.3f} / {v['host_ms']:.1f} x{v['count']}"
+                    for k, v in prof["fsdp_ops"].items()) + f"; on {card}")
+    for r in prof["top"]:
+        log(f"[dist]   {r['ms']:9.3f} ms x{r['count']:<5d} {r['name']}")
+    for r in prof["top_host"]:
+        log(f"[dist]   host {r['ms']:9.3f} ms x{r['count']:<5d} {r['name']}")
+    if not (len(again) == len(whole) == STAGE_ACCUM
+            and info2["optimizer_updates"] == STAGE_MICROBATCHES // STAGE_ACCUM
+            and all(r["loss"] <= RESUME_LOSS_REL_TOL
+                    and r["grad_norm"] <= RESUME_GRAD_NORM_REL_TOL
+                    for r in rel2)
+            and prof["nccl_kernels"] > 0):
+        raise AssertionError(f"[dist] resumed run: {again} vs {whole} "
+                             f"{info2} {prof['nccl_kernels']}")
+    shutil.rmtree(raw["out"])
+    return dict(step_ms=ms, median_ms=med,
+                tokens_per_s=raw["tokens"] / med * 1e3,
+                single_median_ms=single["median_ms"],
+                peak_gib=first["peak_gib"], launches=first["launches"],
+                launches_per_microbatch=per_mb, first=got, single_first=sp,
+                rel=rel, bitwise=bitwise,
+                checkpoint_s=first["checkpoint_s"][0],
+                checkpoint_gb=raw["ckpt_gb"],
+                load_s=info["build_and_load_s"], save_s=info["save_s"],
+                model_entries_bitwise=same, resumed_rel=rel2, profile=prof,
+                resumed_launches=resumed["launches"],
+                torchrun_s=[first["wall_s"], resumed["wall_s"]],
+                torch=first["torch"], nccl=first["nccl"], memory=mem,
+                single_memory=single_mem)
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3684,20 +4127,32 @@ def stages_phase(card: str, dev):
         for stage, config in STAGE_CONFIGS:
             argv = argvs[stage] + common + ["--data_path", data[stage],
                                             "--output_dir", outs[stage]]
-            results[stage] = drive_stage(stage, os.path.join(here, config),
-                                         argv, tok, dev, card)
+            if stage == "align":
+                # [dist] first: its checkpoint and the stages' files must fit
+                # the disk together; dist_check compares after stage 2
+                dist_raw = dist_runs(os.path.join(here, config),
+                                     argvs["align"] + common
+                                     + ["--data_path", data["align"]], root,
+                                     dev, card)
+                log_time("[dist] runs")
+            results[stage] = drive_stage(
+                stage, os.path.join(here, config), argv, tok, dev, card,
+                memory_call=0 if stage == "align" else None)
+            log_time(f"stage {stage}")
             if stage == "pretrain":
                 check_stage1_outputs(dirs["dense"], outs["pretrain"], dev)
                 shutil.rmtree(dirs["dense"])
                 results["data"] = data_phase(
                     os.path.join(here, config), data, tok, dev, card,
                     results["pretrain"]["median_ms"])
+                log_time("[data]")
                 results["align_d2d"] = d2d_stage(
                     dict(JSON_FILE=data["align"], IMAGE_FOLDER=data["images"],
                          REF_MLLM=dirs["teacher"],
                          POLICY_MLLM=outs["pretrain"],
                          OUTPUT_DIR=outs["align_d2d"]),
                     common, outs["pretrain"], tok, dev, card)
+                log_time("stage 2a")
                 shutil.rmtree(outs["pretrain"])
             if stage == "align":
                 log(f"[stages] align: the upcycled stage 2b started from "
@@ -3710,14 +4165,19 @@ def stages_phase(card: str, dev):
                         and moe["moe_capacity_factor"] == 1.5
                         and moe["moe_layers"] == every_2nd):
                     raise AssertionError(f"stage 2 wrote {moe}")
+                results["align_dist"] = dist_check(
+                    dist_raw, results["align"], outs["align"], card)
+                del dist_raw
                 results["align_fused"] = fused_stage(
                     os.path.join(here, config), argvs["align"] + common,
                     data, root, tok, dev, card, results["align"])
+                log_time("[stages fused]")
                 # (removes stage 2a's output once it has rebuilt the base)
                 results["align_lora"] = lora_phase(
                     os.path.join(here, config), argvs["align"] + common
                     + ["--data_path", data["align"]], data, root, tok, dev,
                     card, results["align"])
+                log_time("[lora]")
             if stage == "dpo":
                 moe = _moe_config(outs["dpo"])
                 if not ("loss/moe_balance" in results["dpo"]["last"]
@@ -3730,6 +4190,7 @@ def stages_phase(card: str, dev):
                 torch.cuda.empty_cache()
                 results["eval"] = eval_phase(outs["dpo"], data["images"],
                                              root, tok, card)
+                log_time("[eval]")
                 # the round trip needs the room of the teacher and stage 2
                 shutil.rmtree(dirs["teacher"])
                 shutil.rmtree(outs["align"])
@@ -3737,15 +4198,19 @@ def stages_phase(card: str, dev):
                     outs["dpo"], data["images"], root, tok, card,
                     results["eval"].pop("bf16_rows"),
                     results["eval"].pop("bf16_first_logits"), dev)
+                log_time("[hf]")
                 results["hf"]["starts"] = hf_stats
         shutil.rmtree(outs["dpo"])
         results["projectors"] = projectors_phase(data, root, tok, dev, card)
+        log_time("[projectors]")
         return dict(results, write_models_s=write_s)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check needs a GPU",
               file=sys.stderr)
@@ -3785,6 +4250,7 @@ def main() -> int:
     k3, k4 = check_flash_bwd(gen, dev)
 
     int8_gemm = check_int8_gemm(dev)
+    log_time("kernels and [int8]")
 
     t0 = time.perf_counter()
     cfg, model, n_params = build_model(dev)
@@ -3798,14 +4264,17 @@ def main() -> int:
     slice_stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[slice] peak device memory {slice_stats['peak_gib']:.2f} GiB")
     served8, slice8 = int8_serving(cfg, model, slice_stats, card)
+    log_time("serving")
     del model
     gc.collect()
     torch.cuda.empty_cache()
 
     trained = train_phase(card, dev)
+    log_time("train")
     gc.collect()
     torch.cuda.empty_cache()
     stages = stages_phase(card, dev)
+    log_time("stages")
 
     # outside the [data] phase's PIL pass, every image batch took the C++
     # preprocessor
@@ -3820,7 +4289,9 @@ def main() -> int:
     serve_n = served["launches"]
     stage_n = {path: stages[stage]["launches"] for stage, path in (
         ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"),
-        ("align_fused", "align_fused"), ("align_d2d", "align_d2d"))}
+        ("align_fused", "align_fused"), ("align_d2d", "align_d2d"),
+        ("align_dist", "align_dist"))}
+    stage_n["align_dist_resumed"] = stages["align_dist"]["resumed_launches"]
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
     stage_n["train_fused"] = trained["fused"]["launches"]

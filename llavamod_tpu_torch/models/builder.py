@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -59,11 +59,15 @@ def config_from_dict(d: dict) -> LlavaConfig:
     return LlavaConfig(llm=llm, vision=vision, **rest)
 
 
-def save_model(output_dir: str, model: Llava) -> str:
+def save_model(output_dir: str, model: Llava,
+               state: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """llavamod_config.json + model.pt of `model` (its `state`, when given:
+    the whole state dict gathered from a sharded model)."""
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, CONFIG_NAME), "w") as f:
         json.dump(config_to_dict(model.cfg), f, indent=2)
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    state = {k: v.detach().cpu() for k, v in
+             (model.state_dict() if state is None else state).items()}
     torch.save(state, os.path.join(output_dir, WEIGHTS_NAME))
     return output_dir
 

@@ -29,6 +29,7 @@ from torch import nn
 
 from llavamod_tpu_torch.models.llm import decoder
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
+from llavamod_tpu_torch.models.params import apply_through
 from llavamod_tpu_torch.models.projector import Projector, build_projector
 from llavamod_tpu_torch.models.vision import vit
 from llavamod_tpu_torch.models.vision.vit import VisionConfig
@@ -124,8 +125,11 @@ class Llava(nn.Module):
             self.video_projector = cfg.build_video_projector().init(
                 generator, device, dtype)
 
-    def forward(self, batch: MultimodalBatch, **kw) -> "LlavaOutput":
-        return forward(self, self.cfg, batch, **kw)
+    def forward(self, batch: MultimodalBatch, cfg: "LlavaConfig | None" = None,
+                **kw) -> "LlavaOutput":
+        """`forward` through the module call (the training steps call the
+        model this way, so that a sharded model gathers its parameters)."""
+        return forward(self, cfg or self.cfg, batch, **kw)
 
 
 def init(cfg: LlavaConfig, generator: torch.Generator, device=None,
@@ -145,8 +149,7 @@ def encode_tower(model: Llava, cfg: LlavaConfig,
                                    cfg.s2_scales, cfg.select_layer,
                                    cfg.select_feature)
     else:
-        hidden = vit.forward(model.vision, cfg.vision, pixels,
-                             cfg.select_layer)
+        hidden = model.vision(pixels, cfg.select_layer, cfg.vision)
         feats = vit.select_features(cfg.vision, hidden, cfg.select_feature)
     return feats.detach() if cfg.freeze_vision else feats
 
@@ -156,7 +159,8 @@ def encode_images(model: Llava, cfg: LlavaConfig, pixels: torch.Tensor,
     """pixels [N, 3, S, S] -> projected features [N, tokens, D_llm]."""
     if tower_feats is None:
         tower_feats = encode_tower(model, cfg, pixels)
-    return cfg.build_projector().apply(model.projector, tower_feats)
+    return apply_through(model.projector, cfg.build_projector().apply,
+                         tower_feats)
 
 
 def multimodal_embed(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch,
@@ -185,7 +189,7 @@ def encode_video(model: Llava, cfg: LlavaConfig, video_pixels: torch.Tensor,
     tower (per frame, CLS kept, no S2) and the video projector."""
     b, f = video_pixels.shape[:2]
     px = video_pixels.reshape((-1,) + tuple(video_pixels.shape[2:]))
-    hidden = vit.forward(model.vision, cfg.vision, px, cfg.select_layer)
+    hidden = model.vision(px, cfg.select_layer, cfg.vision)
     feats = vit.select_features(cfg.vision, hidden, "cls_patch")
     if cfg.freeze_vision:
         feats = feats.detach()
@@ -206,6 +210,7 @@ class LlavaOutput(NamedTuple):
     moe_losses: Tuple[torch.Tensor, ...]
     router_probs: Tuple[torch.Tensor, ...]
     cache: Optional[decoder.KVCache]
+    tower_feats: Optional[torch.Tensor] = None   # the frozen tower's output
 
 
 def forward(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch, *,
@@ -213,13 +218,16 @@ def forward(model: Llava, cfg: LlavaConfig, batch: MultimodalBatch, *,
             attn_impl: str = "auto", remat: bool = False,
             tower_feats: Optional[torch.Tensor] = None,
             prefix_mask: Optional[torch.Tensor] = None) -> LlavaOutput:
+    if tower_feats is None:
+        tower_feats = encode_tower(model, cfg, batch.pixels.reshape(
+            (-1,) + tuple(batch.pixels.shape[2:])))
     emb = multimodal_embed(model, cfg, batch, tower_feats)
     out = decoder.forward(
         model.llm, cfg.llm, inputs_embeds=emb, positions=batch.positions,
         segment_ids=batch.segment_ids, cache=cache, train=train,
         attn_impl=attn_impl, remat=remat, prefix_mask=prefix_mask)
     return LlavaOutput(out.hidden, out.aux_loss, out.moe_losses,
-                       out.router_probs, out.cache)
+                       out.router_probs, out.cache, tower_feats)
 
 
 @torch.no_grad()

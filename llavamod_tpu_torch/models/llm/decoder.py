@@ -41,6 +41,7 @@ still trains.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -54,11 +55,15 @@ from torch.utils.checkpoint import (
 
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
 from llavamod_tpu_torch.models.params import Initializer, Int8Weight, ParamGroup
+from llavamod_tpu_torch.parallel.collectives import (
+    current as parallel_context,
+)
 from llavamod_tpu_torch.ops.attention import dot_product_attention
 from llavamod_tpu_torch.ops.decode_attention import flash_decode
 from llavamod_tpu_torch.ops.int8 import act_quant_rows, int8_matmul
 from llavamod_tpu_torch.ops.matmul import matmul_f32_out
 from llavamod_tpu_torch.ops.moe import (
+    CompactGating,
     GatingConfig,
     moe_ffn,
     moe_ffn_gather,
@@ -139,6 +144,15 @@ class DecoderLayer(nn.Module):
             self.post_attn_norm = _norm_group(cfg, ini)
         if cfg.post_mlp_norm:
             self.post_mlp_norm = _norm_group(cfg, ini)
+
+    def forward(self, cfg: DecoderConfig, x: torch.Tensor, positions,
+                segment_ids, layer_idx: int, cache, train: bool,
+                attn_impl: str = "auto",
+                prefix_mask: Optional[torch.Tensor] = None):
+        """`layer_forward` through the module call, so that a sharded layer
+        gathers its parameters (FSDP2's hooks fire on the call only)."""
+        return layer_forward(cfg, self, x, positions, segment_ids, layer_idx,
+                             cache, train, attn_impl, prefix_mask)
 
 
 class KVCache(NamedTuple):
@@ -573,6 +587,144 @@ def _grouped_moe(cfg: DecoderConfig, gcfg: GatingConfig, xs: torch.Tensor,
 _DISPATCH = ("gather", "ragged", "einsum")
 
 
+def _expert_fns(cfg: DecoderConfig, p: MoEMLP):
+    """(capacity-layout, ragged) expert FFNs of block `p`, each through the
+    experts group's module call."""
+    def dense(xe):
+        return p.experts(functools.partial(_expert_mlp, cfg), xe)
+
+    def ragged(xr, sizes):
+        return p.experts(functools.partial(_expert_mlp_ragged, cfg), xr,
+                         sizes)
+    return dense, ragged
+
+
+def _moe_distributed(cfg: DecoderConfig, gcfg: GatingConfig, p: MoEMLP,
+                     xs: torch.Tensor, router_logits: torch.Tensor,
+                     tv: Optional[torch.Tensor], train: bool, pctx):
+    """The sparse FFN of this rank's tokens xs [n, D] as the single-process
+    block computes them within the world's tokens (every rank owns distinct
+    rows).  Grouped gating whose groups tile each rank's rows (segment by
+    segment) stays local, the aux loss the mean over the world's groups.
+    Otherwise the router logits are gathered (the router's gradient flows
+    back through the gather) and the world's tokens are gated as the
+    single process gates them: as one set, or in groups padded at the end
+    of the world's tokens; the rank keeps its own rows' choices.  Each kept
+    choice then goes to the rank that owns its expert
+    (`_expert_parallel_ffn`).  Returns (y, aux, router_probs)."""
+    n = xs.shape[0]
+    e = cfg.moe_num_experts
+    group = cfg.moe_gating_group_size
+    if group and n * pctx.world > group and not (n // pctx.segments) % group:
+        g = n // group
+        comp = top_k_gating_compact(
+            router_logits.reshape(g, group, e), gcfg, train=train,
+            token_valid=tv.reshape(g, group) if tv is not None else None)
+        k = comp.expert.shape[-1]
+        expert, kept, weight = (t.reshape(n, k) for t in (
+            comp.expert, comp.kept, comp.weight))
+        aux = pctx.gather_values(comp.aux_loss.reshape(-1)).mean()
+        probs = comp.router_probs.reshape(n, e)
+    else:
+        full, idx = pctx.gather_rows(router_logits)
+        tv_full = (None if tv is None
+                   else pctx.gather_rows(tv.to(torch.uint8))[0].bool())
+        s = full.shape[0]
+        if group and s > group:
+            pad = -s % group
+            if pad:
+                full = nn.functional.pad(full, (0, 0, 0, pad))
+                tv_full = nn.functional.pad(
+                    tv_full if tv_full is not None
+                    else torch.ones((s,), dtype=torch.bool,
+                                    device=xs.device), (0, pad))
+            g = full.shape[0] // group
+            comp = top_k_gating_compact(
+                full.reshape(g, group, e), gcfg, train=train,
+                token_valid=(tv_full.reshape(g, group) if tv_full is not None
+                             else None))
+            aux = comp.aux_loss.mean()
+        else:
+            comp = top_k_gating_compact(full, gcfg, train=train,
+                                        token_valid=tv_full)
+            aux = comp.aux_loss
+        k = comp.expert.shape[-1]
+        expert, kept, weight = (t.reshape(-1, k)[idx] for t in (
+            comp.expert, comp.kept, comp.weight))
+        probs = comp.router_probs.reshape(-1, e)[idx]
+    y = _expert_parallel_ffn(cfg, p, xs, expert, kept, weight, pctx)
+    return y, aux, probs
+
+
+def _expert_parallel_ffn(cfg: DecoderConfig, p: MoEMLP, xs: torch.Tensor,
+                         expert, kept, weight, pctx):
+    """Send this rank's kept choices [n, k] to the ranks that own their
+    experts (E / expert each, in rank order) over the expert group, run
+    the local experts there on the rows received, send the outputs back
+    and combine them with the gate weights, as `moe_ffn_gather` combines.
+    The rows go expert-major, so the counts per (rank, local expert) that
+    travel first say every row's expert; they are the one host read of
+    the block.  The exchange runs whenever a context is up, a group of one
+    included."""
+    n, d = xs.shape
+    k = expert.shape[1]
+    e = cfg.moe_num_experts
+    e_local = e // pctx.expert_size
+    flat_e = expert.reshape(-1).long()
+    flat_kept = kept.reshape(-1)
+    # the kept choices expert-major, the dropped ones after them
+    order = torch.argsort(torch.where(flat_kept, flat_e, e), stable=True)
+    counts = torch.zeros((e,), dtype=torch.long, device=xs.device)
+    counts.scatter_add_(0, flat_e, flat_kept.long())
+    recv_counts, (sent, got) = pctx.exchange_counts(
+        counts.reshape(pctx.expert_size, e_local))
+    send, recv = [sum(c) for c in sent], [sum(c) for c in got]
+    pairs = order[:sum(send)]
+    x_recv = pctx.exchange(xs[pairs // k], send, recv)
+    cap = max(sum(col) for col in zip(*got))
+    y_recv = _local_experts(cfg, p, x_recv, recv_counts, cap)
+    y_send = pctx.exchange_back(y_recv, send, recv)
+    picked = xs.new_zeros((n * k, d)).index_copy(0, pairs, y_send)
+    y = (picked.reshape(n, k, d).float() * weight.float()[..., None]).sum(1)
+    return y.to(xs.dtype)
+
+
+def _local_experts(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
+                   counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """The rank's experts on the rows it received, x [r, D]: from each
+    source rank in turn, `counts[source, j]` rows for local expert j, at
+    most `cap` rows for one expert.  The rows are laid out as
+    `moe_dispatch` asks, each expert's rows compacted to slots
+    0..count-1: a batch [E_local, cap, D] (gather), the one-hot
+    contractions over it (einsum), or the rows expert-major (ragged).  So
+    the rows computed follow what the rank received, not the world's
+    capacity.  Returns [r, D], row for row."""
+    r = x.shape[0]
+    n_src, e_local = counts.shape
+    cap = max(1, cap)
+    dev = x.device
+    e_loc = torch.repeat_interleave(
+        torch.arange(e_local, device=dev).repeat(n_src), counts.reshape(-1),
+        output_size=r)
+    totals = counts.sum(0)
+    offsets = torch.cumsum(totals, 0) - totals
+    order = torch.argsort(e_loc, stable=True)
+    slot = torch.empty_like(order)
+    slot[order] = torch.arange(r, device=dev) - offsets[e_loc[order]]
+    expert_fn, expert_fn_ragged = _expert_fns(cfg, p)
+    comp = CompactGating(e_loc[:, None], slot[:, None],
+                         torch.ones((r, 1), device=dev),
+                         torch.ones((r, 1), dtype=torch.bool, device=dev),
+                         None, None, None)
+    if cfg.moe_dispatch == "ragged":
+        return moe_ffn_ragged(x, comp, e_local, cap, expert_fn_ragged)
+    if cfg.moe_dispatch == "einsum":
+        onehot = torch.zeros((r, e_local, cap), device=dev)
+        onehot[torch.arange(r, device=dev), e_loc, slot] = 1.0
+        return moe_ffn(x, onehot, onehot, expert_fn)
+    return moe_ffn_gather(x, comp, e_local, cap, expert_fn)
+
+
 def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
                       train: bool, token_valid: Optional[torch.Tensor]):
     """Sparse FFN: x [B, T, D] -> (y, aux_loss, router_probs).
@@ -580,7 +732,10 @@ def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
     With `moe_gating_group_size` = G and B*T > G, every G consecutive
     tokens are gated on their own (capacity from G, aux loss the mean over
     groups); B*T off a multiple of G is padded with invalid tokens, which
-    the gate never routes, rather than falling back to global gating."""
+    the gate never routes, rather than falling back to global gating.
+    Under a parallel context (parallel/collectives.py) the block computes
+    the single-process block over the world's tokens (`_moe_distributed`).
+    The experts run through the `experts` group's module call."""
     if cfg.moe_dispatch not in _DISPATCH:
         raise ValueError(f"moe_dispatch must be one of {_DISPATCH}; got "
                          f"{cfg.moe_dispatch!r}")
@@ -595,12 +750,14 @@ def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
         min_capacity=cfg.moe_min_capacity)
     router_logits = xs.float() @ p.router.float()
     tv = token_valid.reshape(n) if token_valid is not None else None
-    expert_fn = lambda xe: _expert_mlp(cfg, p.experts, xe)  # noqa: E731
-    expert_fn_ragged = lambda xr, sizes: _expert_mlp_ragged(  # noqa: E731
-        cfg, p.experts, xr, sizes)
+    expert_fn, expert_fn_ragged = _expert_fns(cfg, p)
     ragged = cfg.moe_dispatch == "ragged"
     group = cfg.moe_gating_group_size
-    if group and n > group:
+    pctx = parallel_context()
+    if pctx is not None:
+        y, aux, probs = _moe_distributed(cfg, gcfg, p, xs, router_logits, tv,
+                                         train, pctx)
+    elif group and n > group:
         pad = -n % group
         if pad:
             xs = nn.functional.pad(xs, (0, 0, 0, pad))
@@ -959,15 +1116,15 @@ def forward(
     router_probs: List[torch.Tensor] = []
     rematted = remat and cache is None and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers):
-        args = (cfg, layer, x, positions, segment_ids, i, cache, train,
-                attn_impl, prefix_mask)
+        args = (cfg, x, positions, segment_ids, i, cache, train, attn_impl,
+                prefix_mask)
         if rematted:
             ctx = ({"context_fn": dots_saved_context}
                    if cfg.remat_policy == "dots" else {})
-            x, aux, probs = checkpoint(layer_forward, *args,
-                                       use_reentrant=False, **ctx)
+            x, aux, probs = checkpoint(layer, *args, use_reentrant=False,
+                                       **ctx)
         else:
-            x, aux, probs = layer_forward(*args)
+            x, aux, probs = layer(*args)
         aux_total = aux_total + aux
         if probs is not None:
             moe_losses.append(aux)

@@ -7,7 +7,9 @@ and dtype; a torch.Generator stands in for the JAX key (the two give
 different numbers from one seed, so parity tests load JAX weights instead).
 Parameters are built trainable, the frozen vision tower excepted; a
 training step freezes the rest of what its train set leaves out
-(llavamod_tpu_torch/train/optim.py `apply_trainable_mask`).  An
+(llavamod_tpu_torch/train/optim.py `apply_trainable_mask`).  A group's
+functional forward runs through its module call (`ParamGroup.forward`,
+`apply_through`), so a sharded group gathers its parameters first.  An
 `Int8Weight` takes the place of a float weight that the int8 quantizers
 (models/llm/decoder.py) replaced.
 """
@@ -23,6 +25,20 @@ class ParamGroup(nn.Module):
         super().__init__()
         for name, t in tensors.items():
             self.register_parameter(name, nn.Parameter(t))
+
+    def forward(self, fn, *args, **kwargs):
+        """fn(self, *args, **kwargs), run through the module call so that
+        the module's hooks (FSDP2's gather and reshard, parallel/sharding.py)
+        fire around the functional forwards that read its parameters."""
+        return fn(self, *args, **kwargs)
+
+
+def apply_through(module: nn.Module, fn, *args, **kwargs):
+    """fn(module, *args, **kwargs), through the module call where the
+    module is a ParamGroup."""
+    if isinstance(module, ParamGroup):
+        return module(fn, *args, **kwargs)
+    return fn(module, *args, **kwargs)
 
 
 class Int8Weight(nn.Module):

@@ -43,7 +43,7 @@ def _apply_dense(p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
 def _mlp_init(din: int, dout: int, depth: int):
     def init(generator, device=None, dtype=torch.float32) -> nn.Module:
         ini = Initializer(generator, device, dtype)
-        m = nn.Module()
+        m = ParamGroup()
         m.layers = nn.ModuleList(
             [_dense(ini, din, dout)]
             + [_dense(ini, dout, dout) for _ in range(1, depth)])

@@ -80,13 +80,13 @@ def multiscale_forward(tower: VisionTower, cfg: VisionConfig,
         n = scale // base
         if n == 1:
             outs.append(vit.select_features(
-                cfg, vit.forward(tower, cfg, x, select_layer), select_feature))
+                cfg, tower(x, select_layer, cfg), select_feature))
             continue
         # tiles: [B, 3, n, base, n, base] -> [B*n*n, 3, base, base]
         tiles = x.reshape(b, 3, n, base, n, base).permute(0, 2, 4, 1, 3, 5)
         tiles = tiles.reshape(b * n * n, 3, base, base)
         feats = vit.select_features(
-            cfg, vit.forward(tower, cfg, tiles, select_layer), select_feature)
+            cfg, tower(tiles, select_layer, cfg), select_feature)
         d = feats.shape[-1]
         # reassemble the full feature grid, then average-pool to the base grid
         grid = feats.reshape(b, n, n, g, g, d).permute(0, 1, 3, 2, 4, 5)

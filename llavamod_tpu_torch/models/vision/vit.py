@@ -107,8 +107,9 @@ class VisionTower(nn.Module):
         self.post_ln = _ln(ini, d)
         self.requires_grad_(False)  # the tower is frozen
 
-    def forward(self, pixels: torch.Tensor, select_layer: int = -2) -> torch.Tensor:
-        return forward(self, self.cfg, pixels, select_layer)
+    def forward(self, pixels: torch.Tensor, select_layer: int = -2,
+                cfg: "VisionConfig | None" = None) -> torch.Tensor:
+        return forward(self, cfg or self.cfg, pixels, select_layer)
 
 
 def init(cfg: VisionConfig, generator: torch.Generator, device=None,

@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from llavamod_tpu_torch.ops.flash_attention import refuse_dtensor
+
 NEG_INF = -1e30
 MAX_GROUP = 8  # query heads per kv head the kernel takes
 SPLIT_SLOTS = 128  # a split owns a whole number of these cache slots
@@ -121,6 +123,7 @@ def flash_decode(
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
+    refuse_dtensor(q, k, v)
     if not q.is_cuda:
         return flash_decode_reference(q, k, v, kv_seg=kv_seg, k_scale=k_scale,
                                       v_scale=v_scale, scale=scale,

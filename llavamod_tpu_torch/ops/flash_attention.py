@@ -29,6 +29,7 @@ gradients.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -84,6 +85,23 @@ def flash_fwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype), lse
 
 
+@functools.lru_cache(maxsize=None)
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def refuse_dtensor(*xs) -> None:
+    """A sharded tensor never reaches a kernel wrapper: under FSDP2 a
+    layer's gathered parameters and the rank's activations are plain
+    tensors (parallel/sharding.py).  One that does raises; it is not
+    converted."""
+    if any(isinstance(x, _dtensor_type()) for x in xs):
+        raise TypeError("a DTensor reached a kernel wrapper: the sharded "
+                        "path hands the kernels the rank's plain tensors")
+
+
 def _check_operand(x: torch.Tensor, name: str) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the flash kernels take bf16 {name}, got {x.dtype}")
@@ -115,6 +133,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plain version; CUDA tensors launch the kernel or raise."""
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("pass both q_seg and kv_seg, or neither")
+    refuse_dtensor(q, k, v)
     if not q.is_cuda:
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, causal=causal,
                                    scale=scale, softcap=softcap)
@@ -283,6 +302,7 @@ def flash_dq(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
     """K3's wrapper: dq [B,T,H,D].  delta is rowsum(dO * O) as [B, H, T]
     f32.  CPU tensors run the plain version; CUDA tensors launch the kernel
     or raise."""
+    refuse_dtensor(q, k, v, do)
     if not q.is_cuda:
         return flash_dq_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                   causal=causal, scale=scale, softcap=softcap)
@@ -314,6 +334,7 @@ def flash_dkv(q, k, v, do, lse, delta, q_seg=None, kv_seg=None, *,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's wrapper: (dk, dv) [B,S,KH,D], summed over the q heads of each
     kv head.  Same rules as `flash_dq`."""
+    refuse_dtensor(q, k, v, do)
     if not q.is_cuda:
         return flash_dkv_reference(q, k, v, do, lse, delta, q_seg, kv_seg,
                                    causal=causal, scale=scale,
@@ -359,6 +380,7 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     read through strides under K1's alignment check."""
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("pass both q_seg and kv_seg, or neither")
+    refuse_dtensor(q, k, v, o, do)
     if not q.is_cuda:
         return flash_bwd_reference(q, k, v, o, lse, do, q_seg, kv_seg,
                                    causal=causal, scale=scale,

@@ -345,13 +345,25 @@ class KdCeOutput(NamedTuple):
     ce_tokens: torch.Tensor
 
 
+def _count(mask: torch.Tensor, count_reduce) -> torch.Tensor:
+    """The token count of a mask, summed by `count_reduce` (over the
+    world's ranks, parallel/collectives.py `all_sum`) when given, floored
+    at 1."""
+    n = mask.sum()
+    if count_reduce is not None:
+        n = count_reduce(n)
+    return n.clamp_min(1.0)
+
+
 def softmax_cross_entropy(hidden, w_head, labels, ignore_index: int = -100,
                           vocab_limit: Optional[int] = None,
                           chunk: int = DEFAULT_CHUNK, shift: bool = True,
-                          stream_dh: bool = False) -> TokenLossOutput:
+                          stream_dh: bool = False,
+                          count_reduce=None) -> TokenLossOutput:
     """Causal-LM CE, token-mean over labels != ignore_index.  hidden
     [B,T,D], w_head [V,D], labels [B,T]; shift applies the next-token
-    shift."""
+    shift.  With `count_reduce` the mean divides by the world's token
+    count: the loss is this rank's share of the world's mean."""
     if shift:
         hidden, labels = hidden[:, :-1], labels[:, 1:]
     b, t, d = hidden.shape
@@ -362,19 +374,19 @@ def softmax_cross_entropy(hidden, w_head, labels, ignore_index: int = -100,
     lse, picked = chunked_lse_and_gather(hidden.reshape(b * t, d), w_head,
                                          safe, v, chunk, stream_dh)
     maskf = mask.float()
-    denom = maskf.sum().clamp_min(1.0)
+    denom = _count(maskf, count_reduce)
     return TokenLossOutput(((lse - picked) * maskf).sum() / denom, denom)
 
 
 def _kd_inputs(hidden_s, w_head_s, hidden_t, w_head_t, labels, ignore_index,
-               vocab_limit, distill_all_tokens):
+               vocab_limit, distill_all_tokens, count_reduce=None):
     b, t, d_s = hidden_s.shape
     v = (min(_head_rows(w_head_s), _head_rows(w_head_t)) if vocab_limit is None
          else vocab_limit)
     flat = labels.reshape(b * t)
     mask = (torch.ones((b * t,), device=hidden_s.device) if distill_all_tokens
             else (flat != ignore_index).float())
-    denom = mask.sum().clamp_min(1.0)
+    denom = _count(mask, count_reduce)
     return (hidden_s.reshape(b * t, d_s),
             hidden_t.reshape(b * t, hidden_t.shape[-1]), v, mask, denom)
 
@@ -383,12 +395,14 @@ def kd_align_loss(hidden_s, w_head_s, hidden_t, w_head_t, labels,
                   ignore_index: int = -100, vocab_limit: Optional[int] = None,
                   distill_all_tokens: bool = False,
                   chunk: int = DEFAULT_CHUNK, int8_dh: bool = False,
-                  stream_dh: bool = False) -> TokenLossOutput:
+                  stream_dh: bool = False, count_reduce=None
+                  ) -> TokenLossOutput:
     """Mimic-distillation loss: token-mean over the response mask of
-    -sum_v p_t(v) logp_s(v), same position (no next-token shift)."""
+    -sum_v p_t(v) logp_s(v), same position (no next-token shift); the
+    count summed by `count_reduce` when given."""
     h_s, h_t, v, mask, denom = _kd_inputs(
         hidden_s, w_head_s, hidden_t, w_head_t, labels, ignore_index,
-        vocab_limit, distill_all_tokens)
+        vocab_limit, distill_all_tokens, count_reduce)
     loss = chunked_kd_cross_entropy(h_s, w_head_s, h_t, w_head_t,
                                     mask / denom, v, chunk, int8_dh,
                                     stream_dh)
@@ -400,19 +414,20 @@ def kd_ce_align_loss(hidden_s, w_head_s, hidden_t, w_head_t, labels,
                      vocab_limit: Optional[int] = None,
                      distill_all_tokens: bool = False,
                      chunk: int = DEFAULT_CHUNK, int8_dh: bool = False,
-                     stream_dh: bool = False) -> KdCeOutput:
+                     stream_dh: bool = False, count_reduce=None
+                     ) -> KdCeOutput:
     """The kd_lm objective in one streaming pass: KD same-position over the
     response mask, CE next-token-shifted (the last position's CE target is
-    masked)."""
+    masked); both counts summed by `count_reduce` when given."""
     h_s, h_t, v, kd_mask, kd_denom = _kd_inputs(
         hidden_s, w_head_s, hidden_t, w_head_t, labels, ignore_index,
-        vocab_limit, distill_all_tokens)
+        vocab_limit, distill_all_tokens, count_reduce)
     b = labels.shape[0]
     shifted = torch.cat([labels[:, 1:], torch.full(
         (b, 1), ignore_index, dtype=labels.dtype, device=labels.device)], 1)
     ce_ids = shifted.reshape(-1)
     ce_mask = ((ce_ids != ignore_index) & (ce_ids < v)).float()
-    ce_denom = ce_mask.sum().clamp_min(1.0)
+    ce_denom = _count(ce_mask, count_reduce)
     safe = torch.where(ce_mask > 0, ce_ids, 0).long()
     kd, ce = chunked_kd_ce(h_s, w_head_s, h_t, w_head_t, kd_mask / kd_denom,
                            ce_mask / ce_denom, safe, v, chunk, int8_dh,

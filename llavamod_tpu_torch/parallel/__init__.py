@@ -1,0 +1,16 @@
+"""Multi-process training over torch.distributed (port of
+llavamod_tpu/parallel/): the mesh (`mesh.py`), the sharding rules applied
+with FSDP2 (`sharding.py`) and the collectives of the step
+(`collectives.py`).  Data, fsdp and expert parallelism run; tensor and
+sequence parallelism (ROADMAP Queue 1, item 13) and pipeline parallelism
+(item 14) raise."""
+
+from llavamod_tpu_torch.parallel.mesh import AXES, MeshConfig, make_mesh
+from llavamod_tpu_torch.parallel.sharding import (
+    batch_spec,
+    param_specs,
+    shard_params,
+)
+
+__all__ = ["AXES", "MeshConfig", "make_mesh", "batch_spec", "param_specs",
+           "shard_params"]

@@ -38,3 +38,7 @@ python -m llavamod_tpu_torch.train.align_train \
 # --ref_quant int8_head runs the frozen teacher, its LM head included, in
 # W8A8; --policy_head_quant runs the frozen student head in int8 (valid
 # because train_modules above freezes the head).
+# On N cards, one process per card (data x fsdp x expert = N; the ranks
+# --expert_parallel leaves over shard the parameters, FSDP2 / ZeRO-3):
+#   torchrun --nproc_per_node N -m llavamod_tpu_torch.train.run \
+#       --stage align <the flags above> --expert_parallel 2

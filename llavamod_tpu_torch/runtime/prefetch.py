@@ -5,8 +5,9 @@ keeps `depth` batches on their way to the device: on the card each array is
 copied into pinned host memory and sent with a `non_blocking` copy on a side
 stream, so batch N+1 travels while step N runs; the compute stream waits on
 the copy's event before it reads the batch.  On the CPU the arrays become
-tensors as they are.  There is no mesh: sharded batches come with the
-parallel port (ROADMAP Queue 1, item 9).
+tensors as they are.  Under torch.distributed each process has one card
+and its loader yields the rank's own rows, so the rank's batch goes to
+its `device` (cuda:$LOCAL_RANK) the same way.
 """
 
 from __future__ import annotations
@@ -28,14 +29,19 @@ class DevicePrefetcher:
         self._stream = (torch.cuda.Stream(self._device)
                         if self._device.type == "cuda" else None)
 
-    def _put(self, batch: Dict[str, Any]):
+    def _send(self, batch: Dict[str, Any], non_blocking: bool):
         host = {k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in batch.items()}
+        if not non_blocking:
+            return host
+        return {k: v.pin_memory().to(self._device, non_blocking=True)
+                for k, v in host.items()}
+
+    def _put(self, batch: Dict[str, Any]):
         if self._stream is None:
-            return host, None
+            return self._send(batch, False), None
         with torch.cuda.stream(self._stream):
-            out = {k: v.pin_memory().to(self._device, non_blocking=True)
-                   for k, v in host.items()}
+            out = self._send(batch, True)
             done = torch.cuda.Event()
             done.record(self._stream)
         return out, done

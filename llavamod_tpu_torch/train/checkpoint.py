@@ -5,6 +5,14 @@
     state dict, the LoRA adapters' when the state has them, both optimizer
     groups with their moments and update counts, the MultiSteps
     accumulator and its position, and the step;
+  * a run sharded over a mesh (parallel/sharding.py) writes
+    `checkpoint-<step>/` with torch.distributed.checkpoint instead: every
+    rank writes its shards of the model, of the optimizer moments, counts
+    and MultiSteps state (the accumulator only mid-accumulation: it is zero
+    at an update boundary) under its own `rank<r>.` keys, and `mesh.json`
+    records the mesh; it restores onto the same mesh.
+    `gather_full_state` assembles the whole model on rank 0 for the final
+    save, which is the single-process format;
   * auto-resume as the reference's train/train.py:527-530: when the output
     directory holds `checkpoint-*`, training restarts from the newest one;
   * the stage-1 `mm_projector.bin` in the reference's key layout: for
@@ -27,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 STATE_NAME = "state.pt"
+MESH_NAME = "mesh.json"
 _TREE_PREFIX = "model.mm_projector.tree."
 _SEQ_PREFIX = "model.mm_projector.image_spatial_proj."
 
@@ -71,11 +80,105 @@ def restore_checkpoint(path: str, state):
     return state._replace(step=int(saved["step"]))
 
 
-def maybe_auto_resume(output_dir: str, state) -> Tuple[object, Optional[str]]:
+def maybe_auto_resume(output_dir: str, state, pctx=None
+                      ) -> Tuple[object, Optional[str]]:
     path = latest_checkpoint(output_dir)
     if path is None:
         return state, None
+    if pctx is not None:
+        return restore_sharded_checkpoint(path, state, pctx), path
     return restore_checkpoint(path, state), path
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints (one process per card)
+# ---------------------------------------------------------------------------
+
+def _rank_state(state, accumulator: bool) -> dict:
+    """This rank's part of the training state: the model's shards (and its
+    buffers) and the optimizer's state, all local tensors; the MultiSteps
+    accumulator only with `accumulator` (it is zero at an update
+    boundary)."""
+    from llavamod_tpu_torch.parallel.sharding import local_tensor
+
+    model = {k: local_tensor(v) for k, v in state.model.state_dict().items()}
+    opt = state.opt.state_dict()
+    if not accumulator:
+        opt.pop("acc", None)
+    return {"model": model, "opt": opt}
+
+
+def _mesh_record(pctx) -> dict:
+    import dataclasses
+
+    return {"mesh": dataclasses.asdict(pctx.cfg), "world": pctx.world}
+
+
+def save_sharded_checkpoint(output_dir: str, step: int, state, pctx) -> str:
+    """Every rank writes its shards of the TrainState under
+    output_dir/checkpoint-<step> (torch.distributed.checkpoint); rank 0
+    also writes mesh.json."""
+    import json
+
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{step}"))
+    acc = getattr(state.opt, "mini_step", 0) != 0
+    if pctx.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, MESH_NAME), "w") as f:
+            json.dump(dict(_mesh_record(pctx), accumulator=acc), f)
+    dcp.save({"step": int(step), f"rank{pctx.rank}": _rank_state(state, acc)},
+             storage_writer=dcp.FileSystemWriter(
+                 path, thread_count=min(8, os.cpu_count() or 1)))
+    return path
+
+
+@torch.no_grad()
+def restore_sharded_checkpoint(path: str, state, pctx):
+    """Load a sharded checkpoint in place into the rank's shards (the mesh
+    must be the one it was written from); returns the state at its step."""
+    import json
+
+    import torch.distributed.checkpoint as dcp
+
+    if not os.path.exists(os.path.join(path, MESH_NAME)):
+        raise ValueError(f"{path} is not a sharded checkpoint (no "
+                         f"{MESH_NAME}); it was written by one process")
+    with open(os.path.join(path, MESH_NAME)) as f:
+        saved = json.load(f)
+    acc = saved.pop("accumulator")
+    if saved != _mesh_record(pctx):
+        raise ValueError(f"{path} was written on the mesh {saved}, not "
+                         f"{_mesh_record(pctx)}")
+    key = f"rank{pctx.rank}"
+    sd = {"step": 0, key: _rank_state(state, acc)}
+    dcp.load(sd, checkpoint_id=path)
+    state.opt.load_state_dict(sd[key]["opt"])
+    return state._replace(step=int(sd["step"]))
+
+
+@torch.no_grad()
+def gather_full_state(model, pctx) -> Optional[Dict[str, torch.Tensor]]:
+    """The whole model's state dict on rank 0 (CPU tensors in their own
+    dtypes, the keys of the unsharded model), None on the other ranks.
+    Every rank takes part: each parameter is gathered over its shards, an
+    expert tensor also over the expert ranks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from llavamod_tpu_torch.parallel.collectives import is_expert_key
+
+    out = {}
+    for k, v in model.state_dict().items():
+        full = v.full_tensor() if isinstance(v, DTensor) else v
+        if is_expert_key(k) and pctx.expert_size > 1:
+            parts = [torch.empty_like(full) for _ in range(pctx.expert_size)]
+            dist.all_gather(parts, full.contiguous(), group=pctx.expert_group)
+            full = torch.cat(parts)
+        if pctx.rank == 0:
+            out[k] = full.detach().cpu()
+    return out if pctx.rank == 0 else None
 
 
 # ---------------------------------------------------------------------------

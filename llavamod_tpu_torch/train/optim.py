@@ -31,6 +31,14 @@ weight_decay or None`, per label as AdamW.  Its rule is
 train/adafactor.py's, whose blocks are single parameter tensors (see
 there); its factored state is a few MB where AdamW's moments are twice the
 trainable bytes.
+
+On a model that parallel/sharding.py `shard_params` wrapped (`pctx`, the
+mesh's ParallelContext), every state tensor is the rank's shard of the
+parameter's: AdamW and MultiSteps are elementwise and run on the local
+shards; the global norm counts every gradient entry once (a shard's square
+sum is summed over the world and divided by the ranks that hold a copy of
+it); Adafactor's means over a sharded dim, and over a whole tensor, sum
+over the shard groups (train/adafactor.py `shards`).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from typing import Callable, Dict, NamedTuple
 import torch
 from torch import nn
 
+from llavamod_tpu_torch.parallel.sharding import local_tensor
 from llavamod_tpu_torch.train import adafactor
 from llavamod_tpu_torch.train.config import TrainConfig
 
@@ -131,22 +140,34 @@ def make_lr_schedule(cfg: TrainConfig, base_lr: float) -> Callable[[int], float]
     return lambda c: base_lr
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares over all gradients, in f32."""
-    sq = [g.float().pow(2).sum() for g in grads if g is not None]
-    return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+def global_norm(grads, weights=None) -> torch.Tensor:
+    """sqrt of the sum of squares over all gradients, in f32.  With
+    `weights` ({key: 1 / copies}, `Optimizer.norm_weights`) `grads` is a
+    dict of this rank's shards and the sum runs over the world."""
+    if weights is None:
+        sq = [g.float().pow(2).sum() for g in grads if g is not None]
+        return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+    import torch.distributed as dist
+
+    sq = [local_tensor(g).float().pow(2).sum() * weights[n]
+          for n, g in grads.items()]
+    total = torch.stack(sq).sum()
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 class AdamW:
     """optax.adamw over one label group of parameters."""
 
     def __init__(self, params: Dict[str, nn.Parameter], cfg: TrainConfig,
-                 lr: float):
+                 lr: float, shards=None):
         self.params = params
         self.cfg = cfg
         self.schedule = make_lr_schedule(cfg, lr)
-        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.mu = {n: torch.zeros_like(local_tensor(p))
+                   for n, p in params.items()}
+        self.nu = {n: torch.zeros_like(local_tensor(p))
+                   for n, p in params.items()}
         self.count = 0
 
     @torch.no_grad()
@@ -157,7 +178,8 @@ class AdamW:
         bc1 = 1.0 - cfg.adam_b1 ** self.count
         bc2 = 1.0 - cfg.adam_b2 ** self.count
         for n, p in self.params.items():
-            g = grads[n].float()
+            p = local_tensor(p)
+            g = local_tensor(grads[n]).float()
             mu = (1 - cfg.adam_b1) * g + cfg.adam_b1 * self.mu[n].float()
             nu = (1 - cfg.adam_b2) * g * g + cfg.adam_b2 * self.nu[n].float()
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
@@ -186,19 +208,27 @@ class Adafactor:
     whole gradient dict."""
 
     def __init__(self, params: Dict[str, nn.Parameter], cfg: TrainConfig,
-                 lr: float):
+                 lr: float, shards=None):
         self.params = params
         self.schedule = make_lr_schedule(cfg, lr)
-        self.state = {n: adafactor.init_leaf(p) for n, p in params.items()}
+        self.shards = shards or {}
+        self.state = {n: adafactor.init_leaf(local_tensor(p),
+                                             self._shape(n, p))
+                      for n, p in params.items()}
         self.count = 0
         self.weight_decay_rate = cfg.weight_decay or None
 
+    def _shape(self, name: str, p) -> tuple:
+        return self.shards[name][0] if name in self.shards else tuple(p.shape)
+
     @torch.no_grad()
     def update_leaf(self, name: str, grad: torch.Tensor) -> None:
-        p = self.params[name]
+        p = local_tensor(self.params[name])
         new_p, self.state[name] = adafactor.update_leaf(
-            p, grad, self.state[name], self.count, self.schedule(self.count),
-            weight_decay_rate=self.weight_decay_rate)
+            p, local_tensor(grad), self.state[name], self.count,
+            self.schedule(self.count),
+            weight_decay_rate=self.weight_decay_rate,
+            shards=self.shards.get(name))
         p.copy_(new_p)
 
     def advance(self) -> None:
@@ -238,7 +268,7 @@ class Optimizer:
     frozen parameters are left as they are (optax.set_to_zero)."""
 
     def __init__(self, model: nn.Module, cfg: TrainConfig, lora=None,
-                 lora_cfg=None):
+                 lora_cfg=None, pctx=None):
         if cfg.optimizer not in _GROUP_CLASSES:
             raise ValueError(f"optimizer must be one of "
                              f"{sorted(_GROUP_CLASSES)}; got {cfg.optimizer!r}")
@@ -252,9 +282,23 @@ class Optimizer:
         lrs = {"default": cfg.learning_rate,
                "projector": cfg.mm_projector_lr or cfg.learning_rate}
         group_cls = _GROUP_CLASSES[cfg.optimizer]
+        # sharded parameters: {key: (global shape, {dim: [(group, size)]})}
+        # and the weight of a shard's square sum in the world's norm
+        self.shards = {n: pctx.shard_groups(n, named[n])
+                       for n, lb in labels.items()
+                       if lb != "frozen"} if pctx is not None else {}
+        self.norm_weights = None
+        if pctx is not None:
+            self.norm_weights = {}
+            for n, (_, dims) in self.shards.items():
+                held = 1
+                for groups in dims.values():
+                    for _, size in groups:
+                        held *= size
+                self.norm_weights[n] = held / pctx.world
         self.groups = {
             lab: group_cls({n: named[n] for n, lb in labels.items()
-                            if lb == lab}, cfg, lr)
+                            if lb == lab}, cfg, lr, self.shards)
             for lab, lr in lrs.items()}
 
     @property
@@ -266,14 +310,21 @@ class Optimizer:
         """One update from {key: gradient} of every trainable parameter.
         With AdamW the gradients are clipped in place; returns their global
         norm before clipping."""
-        norm = global_norm(grads.values())
+        norm = self.norm(grads)
         if (self.cfg.optimizer == "adamw" and self.cfg.max_grad_norm
                 and norm >= self.cfg.max_grad_norm):
             for g in grads.values():
+                g = local_tensor(g)
                 g.div_(norm.to(g.dtype)).mul_(self.cfg.max_grad_norm)
         for group in self.groups.values():
             group.update(grads)
         return norm
+
+    def norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of {key: gradient} (sharded or whole)."""
+        if self.norm_weights is None:
+            return global_norm(grads.values())
+        return global_norm(grads, self.norm_weights)
 
     @property
     def updates(self) -> int:
@@ -310,7 +361,8 @@ class MultiSteps:
     def __init__(self, inner: Optimizer, k: int):
         self.inner, self.k = inner, k
         self.mini_step = 0
-        self.acc = {n: torch.zeros_like(p) for n, p in inner.params.items()}
+        self.acc = {n: torch.zeros_like(local_tensor(p))
+                    for n, p in inner.params.items()}
 
     @property
     def params(self) -> Dict[str, nn.Parameter]:
@@ -324,10 +376,11 @@ class MultiSteps:
     def update(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Accumulates {key: gradient}; returns the global norm of these
         (microbatch) gradients, not of the mean."""
-        norm = global_norm(grads.values())
+        norm = self.inner.norm(grads)
         n = self.mini_step
         for name, acc in self.acc.items():
-            acc.copy_((grads[name].float() + n * acc.float()) / (n + 1))
+            acc.copy_((local_tensor(grads[name]).float() + n * acc.float())
+                      / (n + 1))
         if n == self.k - 1:
             self.inner.update(self.acc)   # clips the mean in place
             for acc in self.acc.values():
@@ -342,15 +395,21 @@ class MultiSteps:
                 "acc": self.acc}
 
     def load_state_dict(self, state: dict) -> None:
+        """A state without "acc" (a sharded checkpoint at an update
+        boundary) leaves the accumulator zero."""
         self.inner.load_state_dict(state["inner"])
-        _copy_into(self.acc, state["acc"])
+        if "acc" in state:
+            _copy_into(self.acc, state["acc"])
+        else:
+            for acc in self.acc.values():
+                acc.zero_()
         self.mini_step = int(state["mini_step"])
 
 
 def build_optimizer(model: nn.Module, cfg: TrainConfig, lora=None,
-                    lora_cfg=None):
+                    lora_cfg=None, pctx=None):
     """Optimizer, wrapped in MultiSteps when gradients accumulate."""
-    opt = Optimizer(model, cfg, lora, lora_cfg)
+    opt = Optimizer(model, cfg, lora, lora_cfg, pctx)
     if cfg.grad_accum_steps > 1:
         return MultiSteps(opt, cfg.grad_accum_steps)
     return opt
@@ -364,13 +423,15 @@ class TrainState(NamedTuple):
 
     @classmethod
     def create(cls, model: nn.Module, cfg: TrainConfig, lora_cfg=None,
-               lora=None) -> "TrainState":
+               lora=None, pctx=None) -> "TrainState":
         """Freezes what the train set leaves out (and, with adapters, the
         parameters they target) and builds the optimizer state for the
-        rest and the adapters."""
+        rest and the adapters (on the rank's shards of a model sharded on
+        `pctx`'s mesh)."""
         if (lora is None) != (lora_cfg is None):
             raise ValueError("LoRA needs both the adapters and their config")
         apply_trainable_mask(model, cfg, lora_cfg)
         if lora is not None:
             lora.requires_grad_(True)
-        return cls(0, model, build_optimizer(model, cfg, lora, lora_cfg), lora)
+        return cls(0, model, build_optimizer(model, cfg, lora, lora_cfg,
+                                             pctx), lora)

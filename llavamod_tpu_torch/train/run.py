@@ -26,15 +26,34 @@ into one batch.  `--lora_enable` trains LoRA adapters (models/lora.py) on
 the targets' frozen weights, merged on the fly each step; `--s2` and
 `--video_tower` build a preset model with the S2 tower or the video
 projector (a checkpoint directory keeps the configuration it was saved
-with, as in the JAX engine).  Every branch of the JAX engine that the port
-does not run yet (parallelism) raises NotImplementedError naming the
-ROADMAP Queue 1 item that ports it.
+with, as in the JAX engine).
+
+Under `torchrun` (one process per card) every stage trains data parallel
+with FSDP2 (ZeRO-3) and, with `--expert_parallel`, expert parallelism:
+
+    torchrun --nproc_per_node 8 -m llavamod_tpu_torch.train.run \\
+        --stage align --config configs/dense2sparse_qwen2_0_5b.json \\
+        --expert_parallel 2 ...
+
+`init_distributed` joins the process group (NCCL on cuda:$LOCAL_RANK; gloo
+when the caller asked for the CPU), `_DeviceContext` builds the mesh
+(data x fsdp x expert = the world, every remaining rank on fsdp) whenever a
+process group is up, each rank's loader reads its `ProcessShardSampler`
+shard, both models are sharded (parallel/sharding.py), a step on the
+world's rows is the single-process step on them (train/steps.py), periodic
+checkpoints are sharded (train/checkpoint.py) and rank 0 writes the final
+model in the single-process format, the metrics and run_info.json.  Every
+branch of the JAX engine that the port does not run yet raises
+NotImplementedError naming the ROADMAP Queue 1 item that ports it: tensor
+and sequence parallelism (13), pipeline parallelism (14), and
+`--fused_update` or `--lora_enable` under torch.distributed (15).
 
 Per run the output directory gets `metrics.jsonl` (one line per
 `logging_steps` steps: microbatches, or fused updates), `run_info.json`
 (seconds spent building and loading the models, in the loop and saving;
 microbatches and optimizer updates), periodic `checkpoint-<step>/` (<step>
-counts loop steps), the final model (`llavamod_config.json` + `model.pt`)
+counts loop steps; a resumed run skips the batches of the steps before
+it), the final model (`llavamod_config.json` + `model.pt`)
 and, for stage 1, `mm_projector.bin`; with LoRA the final model is the
 merged one and `adapter/` holds the adapters in PEFT's layout.
 """
@@ -94,18 +113,96 @@ def translate_train_modules(mods) -> Optional[Tuple[str, ...]]:
     return tuple(_TRAIN_MODULE_ALIASES.get(m, m) for m in mods)
 
 
+def _launched() -> Tuple[bool, int]:
+    """(a process group is up or torchrun launched this process, its
+    world size)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return True, dist.get_world_size()
+    if "WORLD_SIZE" in os.environ:
+        return True, int(os.environ["WORLD_SIZE"])
+    return False, 1
+
+
 def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
     """Raise on every option of the JAX engine that the port does not run
-    yet, before anything is built."""
-    if (max(targs.data_parallel, targs.expert_parallel, targs.tensor_parallel,
-            targs.pipeline_parallel) > 1 or targs.sequence_parallel):
-        raise not_ported("data, expert, tensor, sequence and pipeline "
-                         "parallelism", 9)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or (
-            torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise not_ported("multi-process training", 9)
+    yet, and on a mesh the processes cannot fill, before anything is
+    built."""
+    if targs.tensor_parallel > 1 or targs.sequence_parallel:
+        raise not_ported("tensor and sequence parallelism", 13)
+    if targs.pipeline_parallel > 1:
+        raise not_ported("pipeline parallelism", 14)
+    launched, world = _launched()
+    if launched and targs.fused_update:
+        raise not_ported("--fused_update under torch.distributed", 15)
+    if launched and margs.lora_enable:
+        raise not_ported("--lora_enable under torch.distributed", 15)
+    need = targs.data_parallel * targs.expert_parallel
+    if world % need:
+        raise ValueError(
+            f"--data_parallel x --expert_parallel = {need} does not divide "
+            f"the {world} processes: launch one process per card with "
+            "torchrun --nproc_per_node")
+
+
+def init_distributed(device="cuda"):
+    """Join the process group that torchrun's environment describes
+    (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on
+    cuda:$LOCAL_RANK, gloo only when the caller asked for the CPU.  A
+    failed NCCL start raises; nothing falls back.  Returns (the rank's
+    device, whether this call started the group)."""
+    dist = torch.distributed
+    dev = torch.device(device)
+    if dist.is_available() and dist.is_initialized():
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev, False
+    if "WORLD_SIZE" not in os.environ:
+        return dev, False
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev)
+    else:
+        dist.init_process_group("gloo")
+    rank0_print(f"[mesh] process group: {dist.get_backend()} x "
+                f"{dist.get_world_size()}")
+    return dev, True
+
+
+class _DeviceContext:
+    """The mesh and its ParallelContext whenever a process group is up (any
+    world size: a one-rank torchrun takes the sharded path too), else
+    None: data x fsdp x expert = the world, the ranks the parallel flags
+    leave over going to fsdp (llavamod_tpu/train/run.py `_DeviceContext`)."""
+
+    def __init__(self, targs: TrainArgs, device):
+        self.mesh = self.pctx = None
+        launched, world = _launched()
+        if not launched:
+            return
+        from llavamod_tpu_torch.parallel.collectives import ParallelContext
+        from llavamod_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+        need = targs.data_parallel * targs.expert_parallel
+        self.mesh = make_mesh(MeshConfig(
+            data=targs.data_parallel, fsdp=world // need,
+            expert=targs.expert_parallel), torch.device(device).type)
+        self.pctx = ParallelContext(self.mesh)
+        rank0_print(f"[mesh] {dataclasses.asdict(self.pctx.cfg)}")
+
+    def shard_models(self, model, teacher, tcfg: TrainConfig):
+        """Both models sharded over the mesh, parameters gathered in the
+        compute dtype."""
+        if self.pctx is None:
+            return
+        from llavamod_tpu_torch.parallel.sharding import shard_params
+        from llavamod_tpu_torch.train.steps import _DTYPES
+
+        dtype = _DTYPES[tcfg.compute_dtype]
+        for m in (model, teacher):
+            if m is not None:
+                shard_params(self.mesh, m, dtype, ctx=self.pctx)
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +378,16 @@ def build_data_module(stage: str, margs: ModelArgs, dargs: DataArgs,
             group_by_modality=True, seed=targs.seed)
     else:
         sampler = RandomSampler(len(dataset), seed=targs.seed)
+    _, world = _launched()
+    if world > 1:
+        # every process loads only its rank-strided shard of the
+        # (deterministic, identically seeded) global order (reference
+        # llava_trainer.py:62-90)
+        from llavamod_tpu_torch.train.sampler import ProcessShardSampler
+        from llavamod_tpu_torch.utils.logging import process_rank
+
+        sampler = ProcessShardSampler(sampler, process_rank(), world)
+        rank0_print(f"[data] process-sharded sampler: {world} shards")
     return DataLoader(dataset, targs.per_device_train_batch_size, collator,
                       sampler=sampler, drop_last=True,
                       num_workers=targs.dataloader_num_workers)
@@ -293,7 +400,8 @@ def build_data_module(stage: str, margs: ModelArgs, dargs: DataArgs,
 class MetricLogger:
     """Accumulate step metrics; emit means every logging_steps (reference
     store_metrics/log, align_trainer.py:596-614) to the console, to
-    <output_dir>/metrics.jsonl, and to wandb when available."""
+    <output_dir>/metrics.jsonl, and to wandb when available; on rank 0
+    only (the metrics are the world's on every rank)."""
 
     def __init__(self, targs: TrainArgs, total_steps: int):
         self.every = max(1, targs.logging_steps)
@@ -303,6 +411,10 @@ class MetricLogger:
         self.t0 = time.time()
         self.wandb = None
         self.jsonl = None
+        from llavamod_tpu_torch.utils.logging import process_rank
+
+        if process_rank() != 0:
+            return
         try:
             os.makedirs(targs.output_dir, exist_ok=True)
             self.jsonl = open(os.path.join(targs.output_dir,
@@ -347,20 +459,29 @@ class MetricLogger:
 # ---------------------------------------------------------------------------
 
 def _save_periodic(output_dir: str, step: int, state, tcfg: TrainConfig,
-                   cfg, save_total_limit: Optional[int]):
+                   cfg, save_total_limit: Optional[int], pctx=None):
     from llavamod_tpu_torch.train.checkpoint import (
+        gather_full_state,
         save_checkpoint,
         save_mm_projector,
+        save_sharded_checkpoint,
     )
 
-    path = save_checkpoint(output_dir, step, state)
+    if pctx is None:
+        path = save_checkpoint(output_dir, step, state)
+        projector = state.model.projector.state_dict()
+    else:
+        path = save_sharded_checkpoint(output_dir, step, state, pctx)
+        projector = gather_full_state(state.model.projector, pctx)
     rank0_print(f"[ckpt] saved {path}")
-    if tcfg.tune_mm_mlp_adapter or tcfg.stage == "pretrain":
+    if projector is not None and (tcfg.tune_mm_mlp_adapter
+                                  or tcfg.stage == "pretrain"):
         # stage-1 semantics: the artifact of record is mm_projector.bin
-        save_mm_projector(os.path.join(path, "mm_projector.bin"),
-                          state.model.projector.state_dict(),
+        save_mm_projector(os.path.join(path, "mm_projector.bin"), projector,
                           cfg.projector_type)
-    if save_total_limit:
+    if pctx is not None:
+        torch.distributed.barrier()
+    if save_total_limit and (pctx is None or pctx.rank == 0):
         _prune_checkpoints(output_dir, save_total_limit)
 
 
@@ -397,8 +518,8 @@ def quantize_stage_models(tcfg: TrainConfig, stage_args, model, teacher,
 
     With LoRA the student is left as it is, as in the JAX engine: its head
     is quantized per step from the live weights (train/steps.py) and its
-    body stays in float.  Returns the host stash that
-    `restore_float_weights` puts back."""
+    body stays in float.  Returns the host stash that `float_state` puts
+    back for the export."""
     from llavamod_tpu_torch.models.llm.decoder import (
         quantize_decoder_int8,
         quantize_head_int8,
@@ -444,33 +565,48 @@ def quantize_stage_models(tcfg: TrainConfig, stage_args, model, teacher,
     return stash
 
 
-def restore_float_weights(model, stash: Dict[str, Any]) -> None:
-    """Put the float head and body back for the export (the int8 copies
-    were training-time stand-ins that never moved), grafting in the routers
-    that did train."""
-    from torch import nn
-
-    llm = model.llm
-    device = llm.final_norm.weight.device
-    if "head" in stash:
-        llm.lm_head.weight = nn.Parameter(stash["head"].to(device),
-                                          requires_grad=False)
-    for i, layer in enumerate(stash.get("layers", ())):
-        layer = layer.to(device)
-        if layer.is_moe:
-            layer.mlp.router = llm.layers[i].mlp.router
-        llm.layers[i] = layer
+def float_state(state: Dict[str, torch.Tensor], stash: Dict[str, Any]
+                ) -> Dict[str, torch.Tensor]:
+    """The model's state dict for the export: the float head and body of
+    `stash` in place of their int8 entries (training-time stand-ins that
+    never moved), the routers that trained kept."""
+    layers = stash.get("layers", ())
+    out: Dict[str, torch.Tensor] = {}
+    done = set()
+    for k, v in state.items():
+        if "head" in stash and k.startswith("llm.lm_head.weight."):
+            if "head" not in done:
+                out["llm.lm_head.weight"] = stash["head"]
+                done.add("head")
+            continue
+        m = re.match(r"^llm\.layers\.(\d+)\.", k)
+        if m and int(m.group(1)) < len(layers):
+            i = int(m.group(1))
+            if i not in done:
+                pre = f"llm.layers.{i}."
+                for lk, lv in layers[i].state_dict().items():
+                    out[pre + lk] = (state[pre + lk] if lk == "mlp.router"
+                                     else lv.detach().cpu())
+                done.add(i)
+            continue
+        out[k] = v
+    return out
 
 
 def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
-               lora_cfg=None):
-    """The full model (llavamod_config.json + model.pt); with LoRA the
-    adapters first go to `output_dir/adapter` in PEFT's layout, with the
-    run's other trained tensors in `non_lora_trainables.bin`, and are then
-    merged into the model saved; stage 1 also exports mm_projector.bin
-    (reference train.py:535-557)."""
+               stash: Dict[str, Any], lora_cfg=None, pctx=None) -> None:
+    """The full model (llavamod_config.json + model.pt), its int8 stand-ins
+    replaced by `float_state`; with LoRA the adapters first go to
+    `output_dir/adapter` in PEFT's layout, with the run's other trained
+    tensors in `non_lora_trainables.bin`, and are then merged into the
+    model saved; stage 1 also exports mm_projector.bin (reference
+    train.py:535-557).  Under torch.distributed every rank takes part in
+    gathering the model and rank 0 writes it, in the same format."""
     from llavamod_tpu_torch.models.builder import save_model
-    from llavamod_tpu_torch.train.checkpoint import save_mm_projector
+    from llavamod_tpu_torch.train.checkpoint import (
+        gather_full_state,
+        save_mm_projector,
+    )
 
     if state.lora is not None:
         from llavamod_tpu_torch.models.lora import (
@@ -483,12 +619,19 @@ def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
         save_lora_adapter(adapter, state.lora, lora_cfg)
         save_non_lora_trainables(adapter, state.model)
         merge_lora_(state.model, state.lora, lora_cfg)
-    save_model(output_dir, state.model)
-    if tcfg.tune_mm_mlp_adapter or tcfg.stage == "pretrain":
-        save_mm_projector(os.path.join(output_dir, "mm_projector.bin"),
-                          state.model.projector.state_dict(),
-                          cfg.projector_type)
-    rank0_print(f"[ckpt] final model saved to {output_dir}")
+    full = (state.model.state_dict() if pctx is None
+            else gather_full_state(state.model, pctx))
+    if full is not None:
+        full = float_state(full, stash)
+        save_model(output_dir, state.model, full)
+        if tcfg.tune_mm_mlp_adapter or tcfg.stage == "pretrain":
+            pre = "projector."
+            save_mm_projector(os.path.join(output_dir, "mm_projector.bin"),
+                              {k[len(pre):]: v for k, v in full.items()
+                               if k.startswith(pre)}, cfg.projector_type)
+        rank0_print(f"[ckpt] final model saved to {output_dir}")
+    if pctx is not None:
+        torch.distributed.barrier()
 
 
 # ---------------------------------------------------------------------------
@@ -554,8 +697,21 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
               salign: Optional[AlignArgs] = None,
               sdpo: Optional[DPOArgs] = None,
               tokenizer=None, device="cuda") -> Dict[str, float]:
-    """Run one full training stage on `device`; returns the last logged
-    metrics."""
+    """Run one full training stage on `device` (under torchrun, sharded
+    over the world's cards); returns the last logged metrics."""
+    assert stage in ("pretrain", "finetune", "align", "dpo"), stage
+    refuse_unported(margs, targs)
+    device, started = init_distributed(device)
+    try:
+        return _run_stage(stage, margs, dargs, targs, salign, sdpo, tokenizer,
+                          device)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _run_stage(stage, margs, dargs, targs, salign, sdpo, tokenizer, device):
+    from llavamod_tpu_torch.parallel.collectives import active
     from llavamod_tpu_torch.runtime.prefetch import DevicePrefetcher
     from llavamod_tpu_torch.train.checkpoint import maybe_auto_resume
     from llavamod_tpu_torch.train.fused_steps import (
@@ -575,8 +731,8 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
         make_pretrain_step,
     )
 
-    assert stage in ("pretrain", "finetune", "align", "dpo"), stage
-    refuse_unported(margs, targs)
+    dev = _DeviceContext(targs, device)
+    pctx = dev.pctx
     t_build = time.perf_counter()
     if tokenizer is None:
         tokenizer = load_tokenizer(margs)
@@ -633,8 +789,9 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
                         f"microbatches)")
         state = init_fused_state(model, cfg, tcfg)
     else:
-        state = TrainState.create(model, tcfg, lora_cfg, lora)
-    state, resumed = maybe_auto_resume(targs.output_dir, state)
+        dev.shard_models(model, teacher, tcfg)
+        state = TrainState.create(model, tcfg, lora_cfg, lora, pctx)
+    state, resumed = maybe_auto_resume(targs.output_dir, state, pctx)
     if resumed:
         rank0_print(f"[ckpt] auto-resumed from {resumed}")
     start_step = int(state.step)
@@ -655,6 +812,7 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
 
     logger = MetricLogger(targs, loop_total)
     os.makedirs(targs.output_dir, exist_ok=True)
+    rank0 = pctx is None or pctx.rank == 0
     last_metrics: Dict[str, float] = {}
     step_no = start_step
 
@@ -675,16 +833,23 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     batches = (fold_microbatches(host_batches, accum, rows_per_sample=(
         cfg.max_images * cfg.num_image_tokens + cfg.num_video_tokens))
         if fused else host_batches)
+    # a resumed run continues the data where its checkpoint left it, as the
+    # reference's Trainer skips the batches an interrupted epoch has seen
+    # (the JAX engine restarts the order; ROADMAP Queue 3)
+    for _ in range(start_step):
+        next(batches)
     profiler = None
     save_s = 0.0
+    stop = False
     t_loop = time.perf_counter()
     try:
         for batch in DevicePrefetcher(batches, device=device):
-            if step_no >= loop_total or stop_requested:
+            if step_no >= loop_total or stop:
                 break
-            if targs.profile_steps and step_no == start_step + 1:
+            if targs.profile_steps and step_no == start_step + 1 and rank0:
                 profiler = _start_profiler(device)
-            state, metrics = call(state, batch)
+            with active(pctx):
+                state, metrics = call(state, batch)
             step_no += 1
             last_metrics = {k: float(v) for k, v in metrics.items()}
             logger.update(step_no, last_metrics)
@@ -692,12 +857,14 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
                     step_no >= start_step + 1 + targs.profile_steps:
                 _stop_profiler(profiler, targs.output_dir)
                 profiler = None
-            if stop_requested or (
-                    targs.save_steps and step_no % targs.save_steps == 0
-                    and step_no < loop_total):
+            save = (targs.save_steps and step_no % targs.save_steps == 0
+                    and step_no < loop_total)
+            stop = _stop(stop_requested, pctx, save or step_no % max(
+                1, targs.logging_steps) == 0)
+            if stop or save:
                 t_save = time.perf_counter()
                 _save_periodic(targs.output_dir, step_no, state, tcfg, cfg,
-                               targs.save_total_limit)
+                               targs.save_total_limit, pctx)
                 save_s += time.perf_counter() - t_save
     finally:
         host_batches.close()
@@ -709,17 +876,36 @@ def run_stage(stage: str, margs: ModelArgs, dargs: DataArgs, targs: TrainArgs,
     loop_s = time.perf_counter() - t_loop - save_s
 
     t_save = time.perf_counter()
-    restore_float_weights(state.model, float_stash)
-    final_save(targs.output_dir, cfg, state, tcfg, lora_cfg)
+    final_save(targs.output_dir, cfg, state, tcfg, float_stash, lora_cfg,
+               pctx)
     save_s += time.perf_counter() - t_save
     info = {"stage": stage, "build_and_load_s": build_s, "loop_s": loop_s,
             "save_s": save_s,
             "microbatches": (step_no - start_step) * (accum if fused else 1),
             "step": step_no, "optimizer_updates": state.opt.updates,
             "resumed_from": resumed}
-    with open(os.path.join(targs.output_dir, "run_info.json"), "w") as f:
-        json.dump(info, f, indent=1)
+    if pctx is not None:
+        info["mesh"] = dataclasses.asdict(pctx.cfg)
+        info["backend"] = torch.distributed.get_backend()
+    if rank0:
+        with open(os.path.join(targs.output_dir, "run_info.json"), "w") as f:
+            json.dump(info, f, indent=1)
     return last_metrics
+
+
+def _stop(stop_requested, pctx, agree: bool) -> bool:
+    """A SIGTERM reached this process.  Under a mesh any rank's counts, and
+    the ranks agree on it (one all-reduce) only at the steps where `agree`
+    (save and logging steps), so they stop and checkpoint at the same
+    step."""
+    if pctx is None:
+        return bool(stop_requested)
+    if not agree:
+        return False
+    flag = torch.tensor([1.0 if stop_requested else 0.0],
+                        device=pctx.device_type)
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 def _start_profiler(device):

@@ -1,8 +1,9 @@
 """Batch samplers, including the modality-grouped length sampler.
 
 The port's own copy of llavamod_tpu/train/sampler.py: the same index order
-for the same seed and epoch (tests/test_torch_data.py).  The per-process
-`ProcessShardSampler` comes with the parallel port (ROADMAP Queue 1, item 9).
+for the same seed and epoch (tests/test_torch_data.py); the per-process
+`ProcessShardSampler` that a multi-process run wraps around them
+(tests/test_torch_multihost_data.py).
 Re-implementation of the reference's LengthGroupedSampler
 (train/llava_trainer.py:40-132):
 
@@ -148,3 +149,32 @@ class RandomSampler:
     def __iter__(self) -> Iterator[int]:
         rng = np.random.default_rng(self.seed + self.epoch)
         return iter(rng.permutation(self.n).tolist())
+
+
+class ProcessShardSampler:
+    """Per-process shard of a global sampler order (one process per card).
+
+    Every process iterates the SAME deterministic global order (all samplers
+    here are seeded by seed+epoch) and keeps the rank-strided slice
+    [rank::num_shards], truncated so every process yields the same count —
+    torch DistributedSampler semantics, which the reference inherits from
+    the deepspeed launcher + sampler world_size (llava_trainer.py:62-90).
+    """
+
+    def __init__(self, base, rank: int, num_shards: int):
+        assert 0 <= rank < num_shards, (rank, num_shards)
+        self.base = base
+        self.rank = rank
+        self.num_shards = num_shards
+
+    def __len__(self) -> int:
+        return len(self.base) // self.num_shards
+
+    def set_epoch(self, epoch: int) -> None:
+        if hasattr(self.base, "set_epoch"):
+            self.base.set_epoch(epoch)
+
+    def __iter__(self) -> Iterator[int]:
+        order = list(iter(self.base))
+        per = len(order) // self.num_shards
+        return iter(order[self.rank::self.num_shards][:per])

@@ -21,6 +21,17 @@ the cast, as the JAX `_cast_tree`.  With LoRA (`lora_cfg`, the adapters in
 `state.lora`) the adapted weights are merged on the fly each step
 (models/lora.py `lora_merged`, the JAX `_effective_params`), before the
 cast, and the gradients reach the adapters through the merge.
+
+Under a parallel context (parallel/collectives.py, one process per card,
+the models wrapped by parallel/sharding.py `shard_params`) a step on the
+rank's rows is its share of the single-process step on the world's rows:
+the token-mean losses divide by the world's counts, the MoE blocks gate
+the world's tokens, the terms every rank computes whole (the router aux
+loss, the DPO loss over the gathered pair log-probs) count 1 / world on
+each rank, and FSDP2 sums the gradients over the ranks.  The metrics are
+the world's values on every rank.  The models are called through their
+module call, so that a sharded model gathers its parameters, and its
+mixed-precision policy does the compute-dtype cast of `_cast_tree`.
 """
 
 from __future__ import annotations
@@ -43,6 +54,10 @@ from llavamod_tpu_torch.ops.losses import (
     sequence_log_prob,
     softmax_cross_entropy,
 )
+from llavamod_tpu_torch.parallel.collectives import (
+    current as parallel_context,
+)
+from llavamod_tpu_torch.parallel.sharding import is_sharded
 from llavamod_tpu_torch.train.config import TrainConfig
 from llavamod_tpu_torch.train.optim import TrainState, apply_trainable_mask
 
@@ -51,14 +66,37 @@ Metrics = Dict[str, torch.Tensor]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
+# per-rank shares of the single-process value, summed over the world
+_SHARED_METRICS = ("loss", "loss/align", "loss/lm")
+
+
+def _count_reduce(pctx):
+    return None if pctx is None else pctx.all_sum
+
+
+def _once(x: torch.Tensor, pctx) -> torch.Tensor:
+    """A term every rank computes whole, weighted to count once in the sum
+    of the ranks' losses."""
+    return x if pctx is None else x / pctx.world
+
+
+def _world_metrics(metrics: Metrics, pctx) -> Metrics:
+    return metrics if pctx is None else pctx.reduce_metrics(metrics,
+                                                            _SHARED_METRICS)
+
 
 @contextlib.contextmanager
 def _cast_tree(module: nn.Module, dtype: torch.dtype):
     """Within the block, every floating parameter of `module` reads as its
     cast to `dtype` (a differentiable copy; no copy where the dtype already
     matches).  The backward must run inside the block too, so that a
-    rematerialised layer recomputes with the same cast weights."""
+    rematerialised layer recomputes with the same cast weights.  A sharded
+    module is left as it is: its mixed-precision policy gathers its
+    parameters in the compute dtype."""
     saved = []
+    if is_sharded(module):
+        yield module
+        return
     for mod in module.modules():
         for name, p in list(mod._parameters.items()):
             if p is not None and p.is_floating_point() and p.dtype != dtype:
@@ -104,8 +142,8 @@ def _student_forward(model, cfg: LlavaConfig, batch: MultimodalBatch,
     from the live weights, without a gradient."""
     dtype = _DTYPES[tcfg.compute_dtype]
     cbatch = batch._replace(pixels=batch.pixels.to(dtype))
-    out = llava.forward(model, cfg, cbatch, train=True, remat=tcfg.remat,
-                        attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
+    out = model(cbatch, cfg=cfg, train=True, remat=tcfg.remat,
+                attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
     w_head = llava.lm_head_weight(model, cfg)
     if tcfg.student_head_quant and not isinstance(w_head, Int8Weight):
         with torch.no_grad():
@@ -147,21 +185,23 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
     def teacher_forward(teacher, batch, tower_feats):
         tb = batch._replace(pixels=batch.pixels.to(dtype))
         with torch.no_grad():
-            out = llava.forward(teacher, teacher_cfg, tb, train=False,
-                                attn_impl=tcfg.attn_impl,
-                                tower_feats=tower_feats)
+            out = teacher(tb, cfg=teacher_cfg, train=False,
+                          attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
             return out.hidden, llava.lm_head_weight(teacher, teacher_cfg)
 
     def loss_fn(model, teacher, batch: MultimodalBatch):
-        tower = (_shared_tower_feats(model, student_cfg, batch, tcfg)
-                 if share_tower else None)
-        out, w_s = _student_forward(model, student_cfg, batch, tcfg, tower)
-        h_t, w_t = teacher_forward(teacher, batch, tower)
+        pctx = parallel_context()
+        # the student's forward runs the frozen tower; a teacher without
+        # its own takes the features
+        out, w_s = _student_forward(model, student_cfg, batch, tcfg)
+        h_t, w_t = teacher_forward(teacher, batch,
+                                   out.tower_feats if share_tower else None)
         metrics: Metrics = {}
         kw = dict(vocab_limit=vocab_limit,
                   distill_all_tokens=tcfg.distill_all_tokens,
                   chunk=tcfg.vocab_chunk, int8_dh=tcfg.kd_int8_dh,
-                  stream_dh=tcfg.kd_stream_dh)
+                  stream_dh=tcfg.kd_stream_dh,
+                  count_reduce=_count_reduce(pctx))
         if tcfg.align_loss_type == "kd_lm":
             fused = kd_ce_align_loss(out.hidden, w_s, h_t, w_t, batch.labels,
                                      **kw)
@@ -175,7 +215,8 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
             metrics["loss/align"] = kd.loss
             metrics["num_tokens"] = kd.num_tokens
         if student_cfg.llm.is_moe and tcfg.moe_loss_enable:
-            loss = loss + student_cfg.llm.router_aux_loss_coef * out.aux_loss
+            loss = loss + student_cfg.llm.router_aux_loss_coef * _once(
+                out.aux_loss, pctx)
             metrics["loss/moe_balance"] = out.aux_loss
         metrics["loss"] = loss
         return loss, metrics
@@ -188,7 +229,8 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
                 _cast_tree(model, dtype), _cast_tree(teacher, dtype):
             loss, metrics = loss_fn(model, teacher, batch)
             loss.backward()
-        return _apply_update(state, metrics)
+        return _apply_update(state, _world_metrics(metrics,
+                                                   parallel_context()))
 
     return step
 
@@ -273,19 +315,21 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
         + cfg.num_video_tokens
     dtype = _DTYPES[tcfg.compute_dtype]
 
-    def ce_forward(model, batch: MultimodalBatch):
+    def ce_forward(model, batch: MultimodalBatch, count_reduce=None):
         out, w_head = _student_forward(model, cfg, batch, tcfg)
         ce = softmax_cross_entropy(out.hidden, w_head, batch.labels,
                                    chunk=tcfg.vocab_chunk,
-                                   stream_dh=_head_frozen(w_head))
+                                   stream_dh=_head_frozen(w_head),
+                                   count_reduce=count_reduce)
         return out, ce
 
     def one_shot(model, batch: MultimodalBatch) -> Metrics:
-        out, ce = ce_forward(model, batch)
+        pctx = parallel_context()
+        out, ce = ce_forward(model, batch, _count_reduce(pctx))
         loss = ce.loss
         metrics = {"loss/lm": ce.loss, "num_tokens": ce.num_tokens}
         if moe_on:
-            loss = loss + coef * out.aux_loss
+            loss = loss + coef * _once(out.aux_loss, pctx)
             metrics["loss/moe_balance"] = out.aux_loss
         metrics["loss"] = loss
         loss.backward()
@@ -295,14 +339,19 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
         rows = batch.input_ids.shape[0] // n_ck
         chunks = [_row_chunk(batch, i, rows, rows_per_sample)
                   for i in range(n_ck)]
+        pctx = parallel_context()
         ntok = [_ce_token_count(cb.labels) for cb in chunks]
-        n_total = torch.stack(ntok).sum().clamp_min(1.0)
+        n_total = torch.stack(ntok).sum()
+        if pctx is not None:
+            n_total = pctx.all_sum(n_total)
+        n_total = n_total.clamp_min(1.0)
         zero = torch.zeros((), device=batch.input_ids.device)
         loss_sum, ce_sum, aux_sum = zero, zero, zero
         for cb, n_c in zip(chunks, ntok):
             out, ce = ce_forward(model, cb)
             aux = out.aux_loss if cfg.llm.is_moe else zero
-            term = (n_c / n_total) * ce.loss + (coef / n_ck) * aux
+            term = (n_c / n_total) * ce.loss + (coef / n_ck) * _once(aux,
+                                                                    pctx)
             term.backward()
             loss_sum = loss_sum + term.detach()
             ce_sum = ce_sum + ce.loss.detach() * n_c
@@ -328,7 +377,8 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
                 _cast_tree(model, dtype):
             metrics = (chunked(model, batch, n_ck) if n_ck > 1
                        else one_shot(model, batch))
-        return _apply_update(state, metrics)
+        return _apply_update(state, _world_metrics(metrics,
+                                                   parallel_context()))
 
     return step
 
@@ -373,10 +423,8 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
 
     def paired_forward(model, cfg, batch2b, train, tower_feats):
         cb = batch2b._replace(pixels=batch2b.pixels.to(dtype))
-        out = llava.forward(model, cfg, cb, train=train,
-                            remat=tcfg.remat and train,
-                            attn_impl=tcfg.attn_impl,
-                            tower_feats=tower_feats)
+        out = model(cb, cfg=cfg, train=train, remat=tcfg.remat and train,
+                    attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
         w = llava.lm_head_weight(model, cfg)
         logps = sequence_log_prob(out.hidden, w, batch2b.labels,
                                   chunk=tcfg.vocab_chunk,
@@ -384,13 +432,18 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
         b2 = logps.shape[0]
         return logps[: b2 // 2], logps[b2 // 2:], out
 
-    def loss_fn(model, ref, batch2b):
-        tower = (_shared_tower_feats(model, policy_cfg, batch2b, tcfg)
-                 if share_tower else None)
+    def loss_fn(model, ref, batch2b, pctx):
+        # the policy's forward runs the frozen tower; a reference without
+        # its own takes the features
         pc, pr, pol_out = paired_forward(model, policy_cfg, batch2b, True,
-                                         tower)
+                                         None)
         with torch.no_grad():
-            rc, rr, _ = paired_forward(ref, ref_cfg, batch2b, False, tower)
+            rc, rr, _ = paired_forward(
+                ref, ref_cfg, batch2b, False,
+                pol_out.tower_feats if share_tower else None)
+        if pctx is not None:
+            # the world's pairs, rank-major as the single-process batch
+            pc, pr, rc, rr = (pctx.gather_values(t) for t in (pc, pr, rc, rr))
         out = dpo_loss(pc, pr, rc, rr, beta=tcfg.dpo_beta,
                        label_smoothing=tcfg.dpo_label_smoothing,
                        loss_type=tcfg.dpo_loss_type,
@@ -411,7 +464,8 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
             loss = loss + policy_cfg.llm.router_aux_loss_coef * pol_out.aux_loss
             metrics["loss/moe_balance"] = pol_out.aux_loss
         metrics["loss"] = loss
-        return loss, metrics
+        # every rank holds the world's loss: each counts it once
+        return _once(loss, pctx), metrics
 
     def step(state: TrainState, ref: nn.Module, batch_dict: Dict[str, Any]):
         model = state.model
@@ -419,9 +473,12 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
         _clear_grads(state)
         device = next(model.parameters()).device
         batch2b = _concat_pair_batch(batch_dict, device=device)
+        pctx = parallel_context()
+        segments = (pctx.token_segments(2) if pctx is not None
+                    else contextlib.nullcontext())
         with lora_merged(model, state.lora, lora_cfg), \
-                _cast_tree(model, dtype), _cast_tree(ref, dtype):
-            loss, metrics = loss_fn(model, ref, batch2b)
+                _cast_tree(model, dtype), _cast_tree(ref, dtype), segments:
+            loss, metrics = loss_fn(model, ref, batch2b, pctx)
             loss.backward()
         return _apply_update(state, metrics)
 

@@ -32,9 +32,10 @@ checkpoint}.py) on the CPU, at tiny sizes:
     per 2 folded microbatches, the global-gating warning, and a run
     stopped at a checkpoint and auto-resumed ends with the parameters of
     an uninterrupted one;
-  * every option the port does not run yet (parallelism) raises
-    NotImplementedError naming its ROADMAP item; LoRA, S2 and the video
-    projector run."""
+  * every option the port does not run yet (tensor, sequence and pipeline
+    parallelism; LoRA and the fused step under torch.distributed) raises
+    NotImplementedError naming its ROADMAP item, a mesh the processes
+    cannot fill raises ValueError; LoRA, S2 and the video projector run."""
 
 import json
 import os
@@ -279,6 +280,44 @@ def test_auto_resume_mid_accumulation_matches_an_uninterrupted_run(
                                    atol=1e-7, err_msg=k)
     assert not torch.equal(a["projector.layers.0.kernel"],
                            _state(dirs["port"])["projector.layers.0.kernel"])
+
+
+def test_auto_resume_continues_the_data_where_its_checkpoint_left_it(
+        tmp_path, dirs):
+    """With distinct batches, a run resumed from its checkpoint after
+    update 1 trains update 2 on the batches the uninterrupted run saw
+    there (the reference's Trainer skips the seen batches; restarting the
+    order would train on update 1's batches again), so it logs the same
+    losses and ends with the same weights."""
+    sft, _, imgs = _write_data(tmp_path, n=16)
+    kw = dict(max_steps=4, gradient_accumulation_steps=2, save_steps=2,
+              save_total_limit=1, per_device_train_batch_size=2)
+
+    def run(out):
+        return trun.run_stage(
+            "pretrain", ModelArgs(model_name_or_path=dirs["port"],
+                                  version="plain", tune_mm_mlp_adapter=True),
+            DataArgs(data_path=[sft], image_folder=imgs), _targs(out, **kw),
+            tokenizer=StubTok(), device="cpu")
+
+    whole, cut = tmp_path / "whole", tmp_path / "cut"
+    run(whole)
+    cut.mkdir()
+    os.rename(whole / "checkpoint-2", cut / "checkpoint-2")
+    run(cut)
+    a, b = _lines(whole), _lines(cut)
+    assert _info(cut)["microbatches"] == 2 and len(b) == 2
+    # the batches differ: microbatch 3 alone shows where the data resumed
+    assert len({ln["num_tokens"] for ln in a}) > 1
+    assert a[2]["loss"] != a[0]["loss"]
+    for x, y in zip(a[2:], b):
+        assert y["step"] == x["step"]
+        for k in ("loss", "num_tokens", "grad_norm"):
+            np.testing.assert_allclose(y[k], x[k], rtol=1e-6, err_msg=k)
+    sa, sb = _state(whole), _state(cut)
+    for k in sa:
+        np.testing.assert_allclose(sb[k].numpy(), sa[k].numpy(), rtol=0,
+                                   atol=1e-7, err_msg=k)
 
 
 @pytest.mark.parametrize("kind", ["linear", "mlp2x_gelu", "mlp3x_gelu"])
@@ -633,18 +672,29 @@ PRESET = "tiny-dense-preset"     # a registered name: --s2 and
                      image_tower="tiny-vit")), 6),
     (dict(margs=dict(video_tower="frames", model_name_or_path=PRESET,
                      image_tower="tiny-vit", video_global_proj=True)), 6),
-    (dict(targs=dict(data_parallel=2)), 9),
-    (dict(targs=dict(expert_parallel=2)), 9),
-    (dict(targs=dict(sequence_parallel=True)), 9),
+    (dict(targs=dict(data_parallel=2)), "mesh"),
+    (dict(targs=dict(expert_parallel=2)), "mesh"),
+    (dict(targs=dict(sequence_parallel=True)), 13),
+    (dict(targs=dict(tensor_parallel=2)), 13),
+    (dict(targs=dict(pipeline_parallel=2)), 14),
+    (dict(margs=dict(lora_enable=True), env=True), 15),
+    (dict(targs=dict(fused_update=True, optimizer="adafactor"), env=True),
+     15),
 ], ids=["lora", "s2", "video", "data_parallel", "expert_parallel",
-        "sequence_parallel"])
+        "sequence_parallel", "tensor_parallel", "pipeline_parallel",
+        "lora_multi_process", "fused_multi_process"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
-                                                        option, item):
-    """Item 9's options raise NotImplementedError naming the item; item 6's
-    options, once refused the same way, run the align stage: LoRA writes
-    `adapter/` and the merged model (its FFN weights moved, its tower not),
-    S2 doubles the tower's feature width, and the video projector joins
-    the model in stage 1 (the align stage refuses it)."""
+                                                        option, item,
+                                                        monkeypatch):
+    """The options of items 13-15 (tensor, sequence and pipeline
+    parallelism; LoRA and the fused step with more than one process, here
+    under a torchrun environment of 2) raise NotImplementedError naming
+    the item, and a data or expert parallel mesh one process cannot fill
+    raises ValueError, before anything is built; item 6's options, once
+    refused the same way, run the align stage: LoRA writes `adapter/` and
+    the merged model (its FFN weights moved, its tower not), S2 doubles
+    the tower's feature width, and the video projector joins the model in
+    stage 1 (the align stage refuses it)."""
     from llavamod_tpu_torch.models.llm.config import llm_configs
     from llavamod_tpu_torch.models.vision import vit as tvit
 
@@ -672,10 +722,18 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
             _targs(out, **targs), salign=salign, tokenizer=StubTok(),
             device="cpu")
 
-    if item == 9:
+    if option.get("env"):
+        monkeypatch.setenv("WORLD_SIZE", "2")
+    if item == "mesh":
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
+            run()
+        assert not out.exists()               # nothing was built
+        return
+    if item in (13, 14, 15):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP Queue 1, item {item}"):
             run()
+        assert not out.exists()
         return
     last = run()
     assert last["num_tokens"] > 1 and np.isfinite(last["loss"])
