@@ -124,7 +124,24 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      second torchrun resumed from that checkpoint, whose update 2 must
      repeat the first run's (one microbatch of it profiled: the NCCL
      kernels' and FSDP2's copy-in / copy-out device ms); a failed worker
-     fails the smoke;
+     fails the smoke.  Then [tp]: first a probe of which collectives gloo
+     serves for CUDA tensors (2 ranks on cuda:0; a missing one fails the
+     phase), then stage 2 again at `--tensor_parallel 2
+     --sequence_parallel true` under one `torch.distributed.run
+     --nproc_per_node 2` (the `--tp-worker` entry starts the gloo group
+     itself, both ranks on cuda:0: NCCL refuses two ranks on one card):
+     each rank's K1 / K3 / K4 per microbatch and the (query, KV) heads
+     every attention call was handed (8 of the student's 16, 16 of the
+     teacher's 32), the first microbatch against the single-process stage
+     2 (LOSS_REL_TOL, GRAD_NORM_REL_TOL), every parameter that `tensor`
+     leaves whole equal on the two ranks after update 1, the sharded
+     checkpoint written by both ranks, rank 0's model.pt against the
+     single-process output (frozen entries bitwise, trained ones by their
+     updates from the upcycled start, TP_UPDATE_DISAGREE_MAX, with two
+     planted faults that must exceed it), the microbatch ms, each rank's
+     peak and the tensor group's collectives in a profiled microbatch
+     (host ops, device copies: gloo stages CUDA tensors through the host,
+     so the times are the path's floor cost, not a scaling number);
   7. eval: on stage 3's trained student, still in the temporary directory,
      the port's eval CLI (`eval/cli.py generate`) answers 20 POPE-format
      questions over the stage images in batches of 8 (the last padded),
@@ -163,8 +180,9 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      eval CLI with `--model-path out/adapter --model-base <base>` answers
      the 20 questions token for token as the merged directory does (first
      batch's prefill logits bitwise), K1/K2 on every layer;
- 10. [projectors] (last): two stage-1 runs from the stage-1 config on the
-     preset Qwen1.5-1.8B, one with `--s2 True --s2_scales 336,672
+ 10. [projectors] (last): two stage-1 runs from the stage-1 config on a
+     preset of Qwen1.5-1.8B's widths cut to 6 of its 24 layers (the
+     smoke's time limit), one with `--s2 True --s2_scales 336,672
      --image_projector_type qformer2_64`, one with the video projector
      (`--video_tower clip-vit-l-336 --video_projector_type simple_in1_out1`
      and the three summaries; 8 seeded frames a video, 1,392 video tokens):
@@ -278,6 +296,19 @@ RESUME_PARAM_REL_TOL = 5e-2
 DIST_LOSS_REL_TOL = 1e-4
 DIST_GRAD_NORM_REL_TOL = 1e-3
 DIST_TIMEOUT_S = 600
+#  * [tp]: rank 0's model.pt against the single-process stage 2 output.
+#    The frozen llm.* entries must be bitwise.  A trained entry is compared
+#    by its update from the upcycled start (stage 2a's FFN copied into each
+#    expert, a zero router): the recipe's lr of 2e-5 moves a bf16 entry by
+#    about lr, or by a whole ulp, whatever the size of its gradient (AdamW's
+#    first steps are close to lr * sign(g)), so the two runs' updates agree
+#    to one bf16 ulp except where the ranks' rounding flips the sign of a
+#    near-zero gradient, or a near tie in the routing moves a token.  Each
+#    entry's share of moved elements that disagree by more than one ulp is
+#    held under TP_UPDATE_DISAGREE_MAX; planted faults (the routers left at
+#    their start, every update negated) must exceed it in every entry they
+#    touch, or the check fails as one that sees nothing.
+TP_UPDATE_DISAGREE_MAX = 5e-2
 #  * [moe dispatch]: gather, ragged and einsum dispatch route the same
 #    tokens to the same slots with the same weights, so one step from the
 #    same weights differs only by the order of the expert sums (loss rel
@@ -367,10 +398,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_rows(prof):
+    """[(device activity name, device ms, count)] of a finished
+    torch.profiler run, summed from its raw kineto events: the rows
+    `key_averages()` gives for CUDA, without the host event tree it builds
+    first (about 45 s for 150,000 kernels on the H100 machine's host,
+    against about 2 s for this)."""
+    from torch.autograd import DeviceType
+
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = agg.get(e.name(), (0.0, 0))
+            agg[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return [(k, ms, n) for k, (ms, n) in agg.items()]
+
+
 def profile_window(fn):
     """Run fn() once under torch.profiler; returns (wall ms, [(CUDA kernel
     name, device ms, count)])."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -380,9 +426,7 @@ def profile_window(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return wall_ms, rows
+    return wall_ms, kernel_rows(prof)
 
 
 def device_ms(fn, calls: int = 20) -> float:
@@ -1465,10 +1509,13 @@ def train_phase(card: str, dev):
     del state, teacher, runs, fn, tch, ctx
     gc.collect()
     torch.cuda.empty_cache()
+    log_time("[train] steps")
     fused = train_fused_phase(cfg, student, teacher_cfg, teacher8, head8,
                               tcfg8, card)
+    log_time("[train fused]")
     dispatch = moe_dispatch_phase(cfg, student, teacher_cfg, teacher8, head8,
                                   tcfg8, batch, card)
+    log_time("[moe dispatch]")
     body = body_quant_steps(cfg, student, teacher_cfg, teacher8, tcfg, batch,
                             per_step, card)
     return dict(fused=fused, dispatch=dispatch,
@@ -3523,7 +3570,10 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
 # [projectors]: stage 1 with S2 + the Q-Former, and with the video projector
 # ---------------------------------------------------------------------------
 
-PROJECTOR_LLM = "qwen1.5-1.8b"   # a preset: --s2 and --video_tower build it
+# a preset (--s2 and --video_tower build one): Qwen1.5-1.8B's widths at 6
+# of its 24 layers, the smoke's depth cut for [projectors] (PERF §4)
+PROJECTOR_LLM = "qwen1.5-1.8b-6-layers"
+PROJECTOR_LAYERS = 6
 VIDEO_FRAMES = 8
 PROJECTOR_EVAL_QUESTIONS = 8
 
@@ -3548,8 +3598,8 @@ def write_video_data(root: str, images: str, n: int = 8) -> str:
 
 def projectors_phase(data: dict, root: str, tok, dev, card: str) -> dict:
     """[projectors]: two stage-1 runs through `run_stage` from the stage-1
-    config as written on the preset Qwen1.5-1.8B (seeded, f32 as the trainer
-    builds presets): `--s2 True --s2_scales 336,672 --image_projector_type
+    config as written on a preset of Qwen1.5-1.8B's widths cut to
+    PROJECTOR_LAYERS layers (seeded, f32 as the trainer builds presets): `--s2 True --s2_scales 336,672 --image_projector_type
     qformer2_64`, and `--video_tower clip-vit-l-336 --video_projector_type
     simple_in1_out1` with the three summaries on video records (8 frames x
     (100 + 2) + 576 = 1,392 video tokens).  Each: 2 updates, K1/K3/K4 every
@@ -3558,7 +3608,11 @@ def projectors_phase(data: dict, root: str, tok, dev, card: str) -> dict:
     Q-Former output (cast to bf16, as the kernels take it) answers one
     batch of 8 questions through the eval CLI."""
     from llavamod_tpu_torch.models import builder
+    from llavamod_tpu_torch.models.llm.config import QWEN1_5_1_8B, llm_configs
 
+    if PROJECTOR_LLM not in llm_configs:
+        llm_configs.register(PROJECTOR_LLM, QWEN1_5_1_8B.replace(
+            name=PROJECTOR_LLM, num_layers=PROJECTOR_LAYERS))
     here = os.path.dirname(os.path.abspath(__file__))
     config = os.path.join(here, dict(STAGE_CONFIGS)["pretrain"])
     common = ["--model_name_or_path", PROJECTOR_LLM, "--image_folder",
@@ -3791,14 +3845,15 @@ def dist_profile(prof, wall_ms: float) -> dict:
             f["count"] += e.count
     host = sorted((e for e in rows if e.device_type == DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)[:8]
+    collectives = tp_collectives(rows)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
     return dict(wall_ms=wall_ms, busy_ms=busy, kernels=sum(r[2] for r in
                                                            kernels),
                 nccl_ms=sum(r[1] for r in nccl),
                 nccl_kernels=sum(r[2] for r in nccl),
                 nccl_names=sorted({r[0][:60] for r in nccl}),
-                fsdp_ops=fsdp, top=[dict(name=n[:80], ms=ms, count=c)
-                                    for n, ms, c in top],
+                fsdp_ops=fsdp, collectives=collectives,
+                top=[dict(name=n[:80], ms=ms, count=c) for n, ms, c in top],
                 top_host=[dict(name=e.key[:80],
                                ms=e.self_cpu_time_total / 1e3, count=e.count)
                           for e in host])
@@ -3939,6 +3994,7 @@ def dist_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
         raise AssertionError(f"[dist] needs {need:.1f} GB, {free:.1f} free")
     spec = dict(config=config, argv=argv)
     first = _torchrun(dict(spec, memory_call=0), root, "run")
+    log_time("[dist] first torchrun")
     lines = _read_json_lines(os.path.join(out, "metrics.jsonl"))
     with open(os.path.join(out, "run_info.json")) as f:
         info = json.load(f)
@@ -4100,6 +4156,495 @@ def dist_check(raw: dict, single: dict, single_out: str, card: str) -> dict:
                 single_memory=single_mem)
 
 
+# ---------------------------------------------------------------------------
+# [tp]: tensor and sequence parallelism, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_PROBE_OPS = ("all_reduce", "all_reduce_int32", "all_reduce_max",
+                "all_gather", "all_gather_into_tensor",
+                "reduce_scatter_tensor", "all_to_all_single", "broadcast",
+                "fsdp2_one_rank")
+
+
+def tp_probe() -> dict:
+    """The gloo-on-CUDA probe, on every rank of the started group before
+    anything is built: each collective the tensor group, the MoE block and
+    FSDP2 run, on CUDA tensors of cuda:0; {op: "ok" or its error}."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", 0)
+    x = torch.arange(4, dtype=torch.float32, device=dev) + rank
+    want_sum = sum(torch.arange(4.) + r for r in range(world))
+
+    def fsdp2():
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.fsdp import fully_shard
+
+        mesh = DeviceMesh("cuda", torch.arange(world).reshape(world, 1),
+                          mesh_dim_names=("tensor", "fsdp"))["fsdp"]
+        lin = torch.nn.Linear(8, 8, device=dev)
+        fully_shard(lin, mesh=mesh)
+        lin(torch.ones(2, 8, device=dev)).sum().backward()
+        return lin.weight.grad is not None
+
+    def check(name):
+        if name == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return torch.equal(y.cpu(), want_sum)
+        if name == "all_reduce_int32":
+            y = x.int()
+            dist.all_reduce(y)
+            return torch.equal(y.cpu(), want_sum.int())
+        if name == "all_reduce_max":
+            y = x.clone()
+            dist.all_reduce(y, op=dist.ReduceOp.MAX)
+            return torch.equal(y.cpu(), torch.arange(4.) + world - 1)
+        if name == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            return all(torch.equal(p.cpu(), torch.arange(4.) + r)
+                       for r, p in enumerate(parts))
+        if name == "all_gather_into_tensor":
+            y = x.new_empty(4 * world)
+            dist.all_gather_into_tensor(y, x)
+            return torch.equal(y.cpu(), torch.cat(
+                [torch.arange(4.) + r for r in range(world)]))
+        if name == "reduce_scatter_tensor":
+            y = x.new_empty(4 // world)
+            dist.reduce_scatter_tensor(y, x)
+            n = 4 // world
+            return torch.equal(y.cpu(), want_sum[rank * n:(rank + 1) * n])
+        if name == "all_to_all_single":
+            y = torch.empty_like(x)
+            dist.all_to_all_single(y, x)
+            n = 4 // world
+            return torch.equal(y.cpu(), torch.cat(
+                [(torch.arange(4.) + r)[rank * n:(rank + 1) * n]
+                 for r in range(world)]))
+        if name == "broadcast":
+            y = x.clone()
+            dist.broadcast(y, 0)
+            return torch.equal(y.cpu(), torch.arange(4.))
+        if name == "fsdp2_one_rank":
+            return fsdp2()
+        raise KeyError(name)
+
+    result = {}
+    for name in TP_PROBE_OPS:
+        try:
+            result[name] = "ok" if check(name) else "wrong values"
+        except Exception as exc:  # the probe reports every failure
+            result[name] = f"{type(exc).__name__}: {str(exc)[:160]}"
+        torch.cuda.synchronize()
+    return result
+
+
+TP_RANKS = 2
+TP_PROFILE_CALL = 2        # the first microbatch of update 2
+TP_FLAGS = ["--tensor_parallel", str(TP_RANKS), "--sequence_parallel", "true"]
+
+
+def tp_collectives(rows) -> dict:
+    """The tensor group's collectives in a profiled microbatch (its
+    `key_averages()` rows): gloo stages a CUDA tensor through the host, so
+    they show as host ops (c10d / gloo) and as device copies to and from
+    the host."""
+    from torch.autograd import DeviceType
+
+    ops, copies = {}, dict(ms=0.0, count=0)
+    for e in rows:
+        if e.device_type == DeviceType.CPU and (
+                e.key.startswith(("c10d::", "gloo:")) or "nccl:" in e.key):
+            ops[e.key[:60]] = dict(host_ms=e.cpu_time_total / 1e3,
+                                   count=e.count)
+        if e.device_type == DeviceType.CUDA and e.key.startswith(
+                ("Memcpy DtoH", "Memcpy HtoD")):
+            copies["ms"] += e.self_device_time_total / 1e3
+            copies["count"] += e.count
+    return dict(ops=ops, copies=copies)
+
+
+def tp_worker(spec_path: str) -> int:
+    """One rank of [tp] under `torch.distributed.run --nproc_per_node 2`.
+    It starts the process group itself (gloo, both ranks on cuda:0: NCCL
+    refuses two ranks on one card), probes it (`tp_probe`; a collective
+    gloo does not serve for CUDA tensors fails the phase), and `run_stage`
+    takes that group as it is; stage 2 with --tensor_parallel 2 --sequence_parallel true, each
+    microbatch counted as in the stages phase, the heads every attention
+    call is handed, and after update 1 every parameter that `tensor`
+    leaves whole compared between the two ranks (rank 1 against rank 0's,
+    broadcast).  Every rank writes its numbers to `<result>.<rank>`."""
+    import torch.distributed as dist
+
+    from llavamod_tpu_torch.models.llm import decoder
+    from llavamod_tpu_torch.parallel import collectives
+    from llavamod_tpu_torch.parallel.sharding import local_tensor
+    from llavamod_tpu_torch.train import run, steps
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    probe = tp_probe()
+    if rank == 0:
+        print(f"[probe] gloo with CUDA tensors on cuda:0, "
+              f"{dist.get_world_size()} ranks: {json.dumps(probe)}",
+              flush=True)
+    missing = [op for op, r in probe.items() if r != "ok"]
+    if missing:
+        raise AssertionError(f"[tp] gloo does not serve {missing} for CUDA "
+                             f"tensors: {probe}")
+    margs, dargs, targs, extra = parse_stage("align", spec["config"],
+                                             spec["argv"])
+    records, heads, replicas = [], set(), {}
+    originals = dict(attn=decoder.dot_product_attention)
+
+    def attn(q, k, v, *a, **kw):
+        heads.add((int(q.shape[2]), int(k.shape[2])))
+        return originals["attn"](q, k, v, *a, **kw)
+
+    @torch.no_grad()
+    def compare(model):
+        pctx = collectives.current()
+        splits = getattr(model, "tensor_split", {})
+        same = total = trained = 0
+        for n, p in model.named_parameters():
+            if n in splits:
+                continue
+            t = local_tensor(p).detach()
+            ref = t.clone()
+            dist.broadcast(ref, dist.get_process_group_ranks(
+                pctx.tensor_group)[0], group=pctx.tensor_group)
+            same += bool(torch.equal(ref, t))
+            total += 1
+            trained += p.requires_grad
+        replicas.update(same=same, total=total, trained=trained,
+                        split=len(splits))
+
+    def make(*a, **k):
+        step = originals["make"](*a, **k)
+        calls = []
+
+        def checked(state, teacher, batch):
+            out = step(state, teacher, batch)
+            calls.append(1)
+            if len(calls) == targs.gradient_accumulation_steps:
+                compare(out[0].model)
+            return out
+        return checked
+
+    torch.cuda.reset_peak_memory_stats()
+    decoder.dot_product_attention = attn
+    try:
+        with counted_steps(records, profile_call=spec.get("profile_call")):
+            originals["make"] = steps.make_align_step
+            steps.make_align_step = make
+            try:
+                _reset_launch_counts()
+                run.run_stage("align", margs, dargs, targs, salign=extra,
+                              tokenizer=StandInTokenizer(), device="cuda")
+                launches = _launch_counts()
+            finally:
+                steps.make_align_step = originals["make"]
+    finally:
+        decoder.dot_product_attention = originals["attn"]
+    peak = max([torch.cuda.max_memory_allocated() / 2**30]
+               + [max(r["prior_peak_gib"], r["peak_gib"]) for r in records])
+    with open(f"{spec['result']}.{rank}", "w") as f:
+        json.dump(dict(records=records, launches=launches, peak_gib=peak,
+                       heads=sorted(heads), replicas=replicas, rank=rank,
+                       probe=probe, worker_s=time.perf_counter() - t0,
+                       world=dist.get_world_size(),
+                       backend=dist.get_backend(), torch=torch.__version__),
+                  f)
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
+    """[tp], before the single-process stage 2 (the gloo probe first, in
+    the worker): stage 2 (`argv`: the stages phase's) with --tensor_parallel 2 --sequence_parallel true under
+    one `torch.distributed.run --standalone --nproc_per_node 2`, both ranks
+    on the one card over gloo, a sharded checkpoint after update 1 (written,
+    not resumed here: the CPU tests resume it at tensor=2), microbatch
+    TP_PROFILE_CALL profiled; rank 0's model.pt through
+    `load_pretrained_model` on the card, kept on the host for `tp_check`.
+    The output directory is removed at the end."""
+    from llavamod_tpu_torch.models.builder import load_pretrained_model
+    from llavamod_tpu_torch.train.args import AlignArgs
+
+    out = os.path.join(root, "out_align_tp")
+    argv = argv + TP_FLAGS + ["--output_dir", out, "--save_steps",
+                              str(STAGE_ACCUM)]
+    margs, _, targs, extra = parse_stage("align", config, argv)
+    assert isinstance(extra, AlignArgs) and targs.tensor_parallel == TP_RANKS
+    layers = _num_layers(extra.policy_model_name_or_path)
+    teacher_layers = _num_layers(extra.ref_model_name_or_path)
+    per_mb = {"flash_fwd": layers * (2 if targs.remat else 1)
+              + teacher_layers, "flash_dq": layers, "flash_dkv": layers}
+    spec = dict(config=config, argv=argv, profile_call=TP_PROFILE_CALL,
+                result=os.path.join(root, "tp_result.json"))
+    spec_path = os.path.join(root, "tp_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(TP_RANKS), os.path.abspath(__file__),
+         "--tp-worker", spec_path], env=env, cwd=here, capture_output=True,
+        text=True, timeout=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if line.startswith(("[probe]", "[mesh]", "[ckpt]", "[run]", "[data]",
+                            "[step")):
+            log(f"[tp] | {line}")
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-8000:])
+        raise AssertionError(f"[tp]: torchrun exited {proc.returncode}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(f"{spec['result']}.{r}") as f:
+            ranks.append(json.load(f))
+    lines = _read_json_lines(os.path.join(out, "metrics.jsonl"))
+    with open(os.path.join(out, "run_info.json")) as f:
+        info = json.load(f)
+    ckpt = os.path.join(out, f"checkpoint-{STAGE_ACCUM}")
+    ckpt_files = sorted(os.listdir(ckpt))
+    ckpt_gb = dir_bytes(ckpt) / 1e9
+    with open(os.path.join(ckpt, "mesh.json")) as f:
+        ckpt_mesh = json.load(f)
+    shutil.rmtree(ckpt)
+    _, model, _, _, _ = load_pretrained_model(out, device=dev,
+                                              tokenizer=StandInTokenizer())
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    loaded_on = str(next(model.parameters()).device)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out)
+    return dict(ranks=ranks, lines=lines, info=info, state=state,
+                loaded_on=loaded_on, ckpt_gb=ckpt_gb, ckpt_mesh=ckpt_mesh,
+                ckpt_files=ckpt_files, wall_s=wall, per_mb=per_mb,
+                probe=ranks[0]["probe"], lr=targs.learning_rate,
+                tokens=targs.per_device_train_batch_size
+                * targs.model_max_length)
+
+
+def _upcycled_start(key: str, start: dict, like: torch.Tensor
+                    ) -> torch.Tensor:
+    """The value `run_stage` upcycled stage 2b's entry `key` from: stage
+    2a's FFN matrix (copied into every expert) or a zero router."""
+    if key in start:
+        return start[key]
+    if ".experts." in key:
+        return start[key.replace(".experts.", ".")].unsqueeze(0).expand(
+            like.shape)
+    if key.endswith(".router"):
+        return torch.zeros_like(like)
+    raise KeyError(key)
+
+
+def update_agreement(state: dict, ref: dict, start: dict, keys, dev
+                     ) -> dict:
+    """For each entry in `keys`: its elements that moved from the upcycled
+    start in either run, those whose two values lie more than one bf16 ulp
+    (of the single-process value) apart, their share, ||u_tp - u|| / ||u||
+    of the updates, and the share the same rule gives two planted faults:
+    the update negated, and (routers) the entry left at its start."""
+    out = {}
+    for k in keys:
+        s = ref[k].to(dev)
+        t = state[k].to(dev)
+        x0 = _upcycled_start(k, start, ref[k]).to(dev, s.dtype)
+        if x0.shape != s.shape:
+            raise AssertionError(f"[tp] {k}: start {tuple(x0.shape)} vs "
+                                 f"{tuple(s.shape)}")
+        moved = (s != x0) | (t != x0)
+        n = int(moved.sum())
+        s, t, x0 = s.float(), t.float(), x0.float()
+        ulp = _bf16_ulp(s)
+        u = s - x0
+
+        def share(tt):
+            return int(((tt - s).abs() > ulp).sum()) / max(n, 1)
+
+        d = int(((t - s).abs() > ulp).sum())
+        a = dict(moved=n, disagree=d, share=d / max(n, 1),
+                 rel=float((t - s).norm() / u.norm().clamp_min(1e-30)),
+                 share_negated=share(2 * x0 - t))
+        if k.endswith(".router"):
+            a["share_router_fault"] = share(x0)
+        out[k] = a
+        del s, t, x0, ulp, u, moved
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_check(raw: dict, single: dict, single_out: str, start_out: str,
+             card: str, dev) -> dict:
+    """[tp] against the single-process stage 2 of this call (`single`, its
+    output in `single_out`, its start stage 2a's output in `start_out`):
+    prints the numbers and raises on a failed check."""
+    ranks, lines, info, per_mb = (raw["ranks"], raw["lines"], raw["info"],
+                                  raw["per_mb"])
+    r0 = ranks[0]
+    ms = [r["ms"] for r in r0["records"]]
+    med = statistics.median(ms[1:])
+    sp = single["first"]
+    got = {k: v for k, v in lines[0].items()
+           if k not in ("step", "sec_per_step")}
+    rel = {k: abs(got[k] - sp[k]) / abs(sp[k]) for k in ("loss",
+                                                         "grad_norm")}
+    log(f"[tp] torch {r0['torch']}, world {r0['world']} on one card, "
+        f"backend {r0['backend']}, mesh {info.get('mesh')}; gloo probe "
+        f"{raw['probe']}; torchrun {raw['wall_s']:.1f} s (the worker "
+        f"{r0['worker_s']:.1f} s: load and build "
+        f"{info['build_and_load_s']:.1f} s, loop {info['loop_s']:.1f} s, "
+        f"saves {info['save_s']:.1f} s); on {card}")
+    log(f"[tp] microbatch ms {' / '.join(f'{t:.1f}' for t in ms)} (median "
+        f"after the first {med:.1f}) against {single['median_ms']:.1f} "
+        f"single-process ({med / single['median_ms']:.3f}x); "
+        f"{raw['tokens'] / med * 1e3:.1f} tokens/s; peak GiB per rank "
+        f"{' / '.join(f'{r['peak_gib']:.2f}' for r in ranks)} (both on the "
+        f"one card: {sum(r['peak_gib'] for r in ranks):.2f}) against "
+        f"{single['peak_gib']:.2f} single-process; on {card}")
+    for r in ranks:
+        log(f"[tp] rank {r['rank']}: launches per microbatch "
+            f"{[x['launches'] for x in r['records']]} (need {per_mb} each); "
+            f"attention (query heads, KV heads) seen {r['heads']}; "
+            f"device GiB at each microbatch's start "
+            f"{' / '.join(f'{x['start_gib']:.2f}' for x in r['records'])}")
+    prof = next(x["profile"] for x in r0["records"] if "profile" in x)
+    coll = prof["collectives"]
+    log(f"[tp] profiled microbatch (rank 0): {prof['wall_ms']:.1f} ms wall, "
+        f"{prof['busy_ms']:.1f} ms device busy over {prof['kernels']} "
+        f"kernels; the tensor group's collectives staged through the host: "
+        f"device copies {coll['copies']['ms']:.3f} ms over "
+        f"{coll['copies']['count']}, host ops "
+        + ", ".join(f"{k} {v['host_ms']:.1f} ms x{v['count']}"
+                    for k, v in coll["ops"].items()) + f"; on {card}")
+    for x in prof["top"]:
+        log(f"[tp]   {x['ms']:9.3f} ms x{x['count']:<5d} {x['name']}")
+    log(f"[tp] first microbatch against the single-process stage 2: loss "
+        f"{got['loss']:.7f} vs {sp['loss']:.7f} (rel {rel['loss']:.3e}, tol "
+        f"{LOSS_REL_TOL}), grad_norm {got['grad_norm']:.7f} vs "
+        f"{sp['grad_norm']:.7f} (rel {rel['grad_norm']:.3e}, tol "
+        f"{GRAD_NORM_REL_TOL})")
+    reps = [r["replicas"] for r in ranks]
+    log(f"[tp] after update 1, parameters that tensor leaves whole equal on "
+        f"the two ranks: {reps[1]['same']} of {reps[1]['total']} "
+        f"({reps[1]['trained']} of them trained; {reps[1]['split']} "
+        f"tensors split); sharded checkpoint after update 1: "
+        f"{raw['ckpt_gb']:.2f} GB, files {raw['ckpt_files']}, mesh "
+        f"{raw['ckpt_mesh']['mesh']}")
+    want_heads = {"student": [16 // TP_RANKS] * 2,
+                  "teacher": [32 // TP_RANKS] * 2}
+    if not (info.get("mesh") == dict(data=1, fsdp=1, expert=1,
+                                     tensor=TP_RANKS, pipe=1)
+            and all(r["backend"] == "gloo" and r["world"] == TP_RANKS
+                    for r in ranks)):
+        raise AssertionError(f"[tp] did not run the tensor mesh: {info}")
+    for r in ranks:
+        if len(r["records"]) != STAGE_MICROBATCHES or any(
+                x["launches"] != per_mb for x in r["records"]):
+            raise AssertionError(f"[tp] rank {r['rank']} launches "
+                                 f"{r['records']}, need {per_mb}")
+        if sorted(r["heads"]) != sorted(map(list, want_heads.values())):
+            raise AssertionError(f"[tp] rank {r['rank']} ran heads "
+                                 f"{r['heads']}, need {want_heads}")
+    if not (rel["loss"] <= LOSS_REL_TOL
+            and rel["grad_norm"] <= GRAD_NORM_REL_TOL):
+        raise AssertionError(f"[tp] first microbatch disagrees: {rel}")
+    if not all(np.isfinite(v) for ln in lines for v in ln.values()) or \
+            info["optimizer_updates"] != STAGE_MICROBATCHES // STAGE_ACCUM:
+        raise AssertionError(f"[tp] run: {lines} {info}")
+    if reps[1]["same"] != reps[1]["total"] or not reps[1]["trained"]:
+        raise AssertionError(f"[tp] replicated parameters differ: {reps}")
+    if raw["ckpt_mesh"]["mesh"]["tensor"] != TP_RANKS or not {
+            f.split("_")[2] for f in raw["ckpt_files"]
+            if f.endswith(".distcp")} == {"0", "1"}:
+        raise AssertionError(f"[tp] checkpoint {raw['ckpt_files']} "
+                             f"{raw['ckpt_mesh']}")
+
+    ref = torch.load(os.path.join(single_out, "model.pt"), map_location="cpu",
+                     weights_only=True, mmap=True)
+    start = torch.load(os.path.join(start_out, "model.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    state = raw["state"]
+    if state.keys() != ref.keys():
+        raise AssertionError("[tp] model.pt keys differ from stage 2's")
+    llm = [k for k in state if k.startswith("llm.")]
+    trained = [k for k in llm if any(m in k.replace(".", "/")
+                                     for m in RECORD_TRAIN_SET)]
+    same = [k for k in llm if torch.equal(state[k], ref[k])]
+    frozen_moved = [k for k in llm if k not in trained and k not in same]
+    # the start is stage 2a's output as the stage loaded it (in the
+    # stage's dtype): its frozen entries are the single-process output's
+    start_frozen = [k for k in llm if k not in trained and k in start
+                    and not torch.equal(start[k].to(ref[k].dtype), ref[k])]
+    agree = update_agreement(state, ref, start, trained, dev)
+    del ref, start
+    worst = max(agree, key=lambda k: agree[k]["share"])
+    upd = dict(moved=sum(a["moved"] for a in agree.values()),
+               disagree=sum(a["disagree"] for a in agree.values()),
+               max_share=agree[worst]["share"], max_share_entry=worst,
+               max_rel=max(a["rel"] for a in agree.values()),
+               router_fault_min_share=min(a["share_router_fault"]
+                                          for a in agree.values()
+                                          if "share_router_fault" in a),
+               negated_min_share=min(a["share_negated"]
+                                     for a in agree.values()))
+    log(f"[tp] rank 0's model.pt through load_pretrained_model on "
+        f"{raw['loaded_on']}: {len(state)} entries; of the {len(llm)} llm.* "
+        f"entries {len(same)} bitwise the single-process stage 2 output "
+        f"(frozen ones not bitwise: {len(frozen_moved)}; frozen ones not "
+        f"stage 2a's: {len(start_frozen)})")
+    log(f"[tp] the {len(trained)} trained entries' updates from the "
+        f"upcycled start against the single-process run's: "
+        f"{upd['disagree']:,} of {upd['moved']:,} moved elements more than "
+        f"one bf16 ulp apart; the largest share of an entry "
+        f"{upd['max_share']:.3e} ({worst}; limit {TP_UPDATE_DISAGREE_MAX}), "
+        f"the largest ||u_tp - u|| / ||u|| {upd['max_rel']:.3e}; planted "
+        f"faults, the least share over the entries they touch: routers left "
+        f"at the start {upd['router_fault_min_share']:.3f}, updates negated "
+        f"{upd['negated_min_share']:.3f}")
+    for k in sorted(agree, key=lambda k: -agree[k]["share"])[:4]:
+        log(f"[tp]   {k}: {agree[k]['disagree']:,} of {agree[k]['moved']:,} "
+            f"moved ({agree[k]['share']:.3e}), rel {agree[k]['rel']:.3e}")
+    blind = [k for k, a in agree.items()
+             if a["share_negated"] <= TP_UPDATE_DISAGREE_MAX
+             or a.get("share_router_fault", 1.0) <= TP_UPDATE_DISAGREE_MAX]
+    if blind or not all(a["moved"] for a in agree.values()) or start_frozen:
+        raise AssertionError(f"[tp] the update check cannot see a fault in "
+                             f"{blind[:8]} (start {start_frozen[:8]}): "
+                             f"{agree}")
+    far = [k for k, a in agree.items()
+           if a["share"] > TP_UPDATE_DISAGREE_MAX]
+    if far or frozen_moved:
+        raise AssertionError(f"[tp] model.pt entries off the single-process "
+                             f"output: {far[:8]} {frozen_moved[:8]}")
+    return dict(step_ms=ms, median_ms=med,
+                tokens_per_s=raw["tokens"] / med * 1e3,
+                single_median_ms=single["median_ms"],
+                peak_gib=[r["peak_gib"] for r in ranks],
+                launches=r0["launches"], launches_per_microbatch=per_mb,
+                heads=r0["heads"], first=got, single_first=sp, rel=rel,
+                replicas=reps[1], checkpoint_gb=raw["ckpt_gb"],
+                load_s=info["build_and_load_s"], save_s=info["save_s"],
+                torchrun_s=raw["wall_s"], profile=prof, probe=raw["probe"],
+                model_llm_bitwise=len(same), model_llm_entries=len(llm),
+                model_trained_updates=upd)
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -4135,6 +4680,11 @@ def stages_phase(card: str, dev):
                                      + ["--data_path", data["align"]], root,
                                      dev, card)
                 log_time("[dist] runs")
+                tp_raw = tp_runs(os.path.join(here, config),
+                                 argvs["align"] + common
+                                 + ["--data_path", data["align"]], root,
+                                 dev, card)
+                log_time("[tp] run")
             results[stage] = drive_stage(
                 stage, os.path.join(here, config), argv, tok, dev, card,
                 memory_call=0 if stage == "align" else None)
@@ -4168,6 +4718,10 @@ def stages_phase(card: str, dev):
                 results["align_dist"] = dist_check(
                     dist_raw, results["align"], outs["align"], card)
                 del dist_raw
+                results["align_tp"] = tp_check(
+                    tp_raw, results["align"], outs["align"],
+                    outs["align_d2d"], card, dev)
+                del tp_raw
                 results["align_fused"] = fused_stage(
                     os.path.join(here, config), argvs["align"] + common,
                     data, root, tok, dev, card, results["align"])
@@ -4211,6 +4765,8 @@ def stages_phase(card: str, dev):
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
+        return tp_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check needs a GPU",
               file=sys.stderr)
@@ -4292,6 +4848,7 @@ def main() -> int:
         ("align_fused", "align_fused"), ("align_d2d", "align_d2d"),
         ("align_dist", "align_dist"))}
     stage_n["align_dist_resumed"] = stages["align_dist"]["resumed_launches"]
+    stage_n["align_tp"] = stages["align_tp"]["launches"]     # rank 0's
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
     stage_n["train_fused"] = trained["fused"]["launches"]

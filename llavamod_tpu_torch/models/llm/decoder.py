@@ -30,6 +30,24 @@ serving runs under `torch.inference_mode()`.
 The KV cache is updated IN PLACE (the JAX cache is a new value each step);
 `forward` returns the same tensors with the advanced `length`.
 
+Tensor parallelism (parallel/sharding.py holds each rank's slices): under
+a parallel context whose tensor group has more than one rank, each rank
+runs H / tensor query and KH / tensor KV heads through the same kernels,
+the column-parallel products (wq / wk / wv or wqkv, gate / up or gate_up,
+the experts' up and gate) on the replicated input and the row-parallel
+ones (wo, down, the experts' down) reduced over the group; the MoE gate
+runs on the full hidden, the same on every tensor rank, and the expert
+outputs are reduced after the combine.  With `seq_shard_activations`
+(sequence parallelism) the residual stream between the blocks is the
+rank's T-shard [B, T / tensor, D]: the norms run on it, the shards are
+gathered before each column-parallel product and the row-parallel output
+is reduce-scattered over T.  The embedding is vocab-parallel, and
+`forward` hands the final hidden, whole, to the vocab-parallel head of the
+losses (ops/losses.py).  A row-parallel W8A8 product quantizes each row
+with the whole row's scale (a max over the group) and sums the ranks'
+int32 products before the f32 rescale, so it gives the single-process
+bits.  The KV-cache (generation) path takes no tensor split.
+
 int8 W8A8: `quantize_decoder_int8` replaces float weights, in place, with
 `Int8Weight`s (models/params.py) under the JAX paths ('layers.3.attn.wqkv
 .w_int8', 'lm_head.weight.scale', ...).  `dense`, the expert MLP, `embed`
@@ -56,7 +74,18 @@ from torch.utils.checkpoint import (
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
 from llavamod_tpu_torch.models.params import Initializer, Int8Weight, ParamGroup
 from llavamod_tpu_torch.parallel.collectives import (
+    column_in,
+    copy_in,
     current as parallel_context,
+    gather_copies,
+    reduce_out,
+    row_out,
+    split_seq,
+    tensor_gather,
+    tensor_max,
+    tensor_reduce_scatter,
+    tensor_size,
+    tensor_sum,
 )
 from llavamod_tpu_torch.ops.attention import dot_product_attention
 from llavamod_tpu_torch.ops.decode_attention import flash_decode
@@ -232,43 +261,113 @@ def _activation(cfg: DecoderConfig, x: torch.Tensor) -> torch.Tensor:
 # product (g * scale row-quantized like a forward activation).  The int8
 # weight and its scale take no gradient (they are buffers).
 
-def _int8_rows_product(x: torch.Tensor, w_int8: torch.Tensor
+def _row_max(pctx):
+    """The row-scale reduction of an int8 product whose rows are split over
+    the tensor group (a max over it), or None."""
+    if tensor_size(pctx) == 1:
+        return None
+    return lambda amax: tensor_max(amax, pctx)
+
+
+def _int8_rows_product(x: torch.Tensor, w_int8: torch.Tensor, row_max=None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [..., K] float -> (int32 [M, N] of its row-quantized form @ w_int8
-    [K, N], the rows' scales [M, 1])."""
-    xq, s_x = act_quant_rows(x.reshape(-1, x.shape[-1]))
+    [K, N], the rows' scales [M, 1]); `row_max` reduces the rows' absmax
+    when x holds a slice of each row's K."""
+    xq, s_x = act_quant_rows(x.reshape(-1, x.shape[-1]), row_max)
     return int8_matmul(xq, w_int8), s_x
 
 
 class _DenseInt8(torch.autograd.Function):
+    """Column-parallel (or unsplit) W8A8 product: a rank's output columns
+    are exact; the straight-through backward quantizes each cotangent row
+    with the whole row's scale (`pctx`)."""
+
     @staticmethod
-    def forward(ctx, x, w_int8, scale):
+    def forward(ctx, x, w_int8, scale, pctx):
         y, s_x = _int8_rows_product(x, w_int8)
         ctx.save_for_backward(w_int8, scale)
+        ctx.pctx = pctx
         out = (y.float() * s_x * scale.float()).to(x.dtype)
         return out.reshape(*x.shape[:-1], -1)
 
     @staticmethod
     def backward(ctx, g):
         w_int8, scale = ctx.saved_tensors
+        dx, s_g = _int8_rows_product(g.float() * scale.float(), w_int8.t(),
+                                     _row_max(ctx.pctx))
+        dx = (dx.float() * s_g).to(g.dtype)
+        return dx.reshape(*g.shape[:-1], -1), None, None, None
+
+
+class _RowDenseInt8(torch.autograd.Function):
+    """Row-parallel W8A8 product, x [B, T, K / tensor] @ w_int8 [K / tensor,
+    N]: each row is quantized with the whole row's scale (a max over the
+    tensor group) and the ranks' int32 products are summed (all-reduced,
+    or with `seq` reduce-scattered over T) before the f32 rescale: the
+    single-process bits.  The straight-through backward is column-parallel:
+    the whole cotangent rows (gathered over T with `seq`) times the rank's
+    rows of W."""
+
+    @staticmethod
+    def forward(ctx, x, w_int8, scale, pctx, seq):
+        b, t = x.shape[:2]
+        y, s_x = _int8_rows_product(x, w_int8, _row_max(pctx))
+        n = y.shape[-1]
+        if seq:
+            y = tensor_reduce_scatter(y.reshape(b, t, n), pctx, 1)
+            s_x = s_x.reshape(b, t, 1).chunk(pctx.tensor_size, 1)[
+                pctx.tensor_rank]
+        else:
+            y, s_x = tensor_sum(y, pctx).reshape(b, t, n), s_x.reshape(b, t, 1)
+        ctx.save_for_backward(w_int8, scale)
+        ctx.pctx, ctx.seq = pctx, seq
+        return (y.float() * s_x * scale.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        w_int8, scale = ctx.saved_tensors
+        if ctx.seq:
+            g = tensor_gather(g, ctx.pctx, 1)
         dx, s_g = _int8_rows_product(g.float() * scale.float(), w_int8.t())
         dx = (dx.float() * s_g).to(g.dtype)
-        return dx.reshape(*g.shape[:-1], -1), None, None
+        return dx.reshape(*g.shape[:-1], -1), None, None, None, None
 
 
 def dense_int8(x: torch.Tensor, w_int8: torch.Tensor,
-               scale: torch.Tensor) -> torch.Tensor:
+               scale: torch.Tensor, pctx=None) -> torch.Tensor:
     """W8A8 x @ W: x [..., in] @ {w_int8 [in, out], scale [out]}; dynamic
-    per-row activation quantization, int8 product, f32 rescale."""
-    return _DenseInt8.apply(x, w_int8, scale)
+    per-row activation quantization, int8 product, f32 rescale.  `pctx`:
+    the parallel context of a column-parallel product (its backward)."""
+    return _DenseInt8.apply(x, w_int8, scale, pctx)
 
 
-def dense(x: torch.Tensor, w) -> torch.Tensor:
+def dense(x: torch.Tensor, w, pctx=None) -> torch.Tensor:
     """x @ w with w in the JAX [in, out] layout, or an `Int8Weight`
-    (`dense_int8`)."""
+    (`dense_int8`); a column-parallel product under a tensor split takes
+    the parallel context `pctx`."""
     if isinstance(w, Int8Weight):
-        return dense_int8(x, w.w_int8, w.scale)
+        return dense_int8(x, w.w_int8, w.scale,
+                          pctx if tensor_size(pctx) > 1 else None)
     return x @ w
+
+
+def row_dense(x: torch.Tensor, w, pctx, seq: bool) -> torch.Tensor:
+    """A row-parallel product x [B, T, K / tensor] @ w [K / tensor, N],
+    reduced over the tensor group (`row_out`); the int8 form sums int32
+    partial products (`_RowDenseInt8`).  Without a tensor split, `dense`."""
+    if tensor_size(pctx) == 1:
+        return dense(x, w)
+    if isinstance(w, Int8Weight):
+        return _RowDenseInt8.apply(x, w.w_int8, w.scale, pctx, seq)
+    return row_out(x @ w, pctx, seq)
+
+
+def _tp(cfg: DecoderConfig):
+    """(parallel context, tensor degree, sequence parallel) of a forward."""
+    pctx = parallel_context()
+    tp = tensor_size(pctx)
+    return pctx, tp, bool(cfg.seq_shard_activations) and tp > 1
 
 
 def _k_major(q: torch.Tensor) -> torch.Tensor:
@@ -398,23 +497,30 @@ def _quantize_layer(layer: "DecoderLayer", include_mlp: bool,
 
 
 def mlp_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor) -> torch.Tensor:
+    """x [B, T, D] (the rank's T-shard under sequence parallelism) ->
+    [B, T, D]: column-parallel gate / up, row-parallel down under a
+    tensor split."""
+    pctx, tp, seq = _tp(cfg)
+    if tp > 1:
+        x = column_in(x, pctx, seq)
     if hasattr(p, "gate_up"):
-        # fused int8 gate|up (quantize_decoder_int8 fuse=True)
-        gu = dense(x, p.gate_up)
+        # fused int8 gate|up (quantize_decoder_int8 fuse=True); a rank's
+        # slice is its gate columns, then its up columns
+        gu = dense(x, p.gate_up, pctx)
         f = gu.shape[-1] // 2
         up = gu[..., f:]
         if cfg.mlp_bias:
             up = up + p.up_bias
         h = _activation(cfg, gu[..., :f]) * up
     else:
-        up = dense(x, p.up)
+        up = dense(x, p.up, pctx)
         if cfg.mlp_bias:
             up = up + p.up_bias
         if cfg.gated_mlp:
-            h = _activation(cfg, dense(x, p.gate)) * up
+            h = _activation(cfg, dense(x, p.gate, pctx)) * up
         else:
             h = _activation(cfg, up)
-    out = dense(h, p.down)
+    out = row_dense(h, p.down, pctx, seq)
     if cfg.mlp_bias:
         out = out + p.down_bias
     return out
@@ -422,48 +528,61 @@ def mlp_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor) -> torch.Ten
 
 class _ExpertDenseInt8(torch.autograd.Function):
     """Per-expert W8A8 product with the straight-through dL/dx.  There is
-    no batched int8 GEMM in the library, so it loops over the experts."""
+    no batched int8 GEMM in the library, so it loops over the experts.
+    `fwd_max` / `bwd_max` reduce the row absmax of the forward's rows (a
+    row-parallel product) / of the backward's cotangent rows (a
+    column-parallel one) over the tensor group."""
 
     @staticmethod
-    def forward(ctx, xe, w_int8, scale):
-        xq, s_x = act_quant_rows(xe)
+    def forward(ctx, xe, w_int8, scale, fwd_max, bwd_max):
+        xq, s_x = act_quant_rows(xe, fwd_max)
         y = torch.stack([int8_matmul(xq[e], w_int8[e])
                          for e in range(xe.shape[0])])
         ctx.save_for_backward(w_int8, scale)
+        ctx.bwd_max = bwd_max
         return (y.float() * s_x * scale.float()[:, None, :]).to(xe.dtype)
 
     @staticmethod
     def backward(ctx, g):
         w_int8, scale = ctx.saved_tensors
-        gq, s_g = act_quant_rows(g.float() * scale.float()[:, None, :])
+        gq, s_g = act_quant_rows(g.float() * scale.float()[:, None, :],
+                                 ctx.bwd_max)
         dx = torch.stack([int8_matmul(gq[e], w_int8[e].t())
                           for e in range(g.shape[0])])
-        return (dx.float() * s_g).to(g.dtype), None, None
+        return (dx.float() * s_g).to(g.dtype), None, None, None, None
 
 
 def expert_dense_int8(xe: torch.Tensor, w_int8: torch.Tensor,
-                      scale: torch.Tensor) -> torch.Tensor:
+                      scale: torch.Tensor, fwd_max=None,
+                      bwd_max=None) -> torch.Tensor:
     """W8A8 per-expert matmul: xe [E, C, D] @ {w_int8 [E, D, F], scale
     [E, F]} with the straight-through dL/dx (see dense_int8)."""
-    return _ExpertDenseInt8.apply(xe, w_int8, scale)
+    return _ExpertDenseInt8.apply(xe, w_int8, scale, fwd_max, bwd_max)
 
 
-def _expert_dense(xe: torch.Tensor, w) -> torch.Tensor:
-    """xe [E, C, D] @ w [E, D, F] (float, or an Int8Weight) -> [E, C, F]."""
+def _expert_dense(xe: torch.Tensor, w, row: bool = False) -> torch.Tensor:
+    """xe [E, C, D] @ w [E, D, F] (float, or an Int8Weight) -> [E, C, F];
+    `row`: the product is row-parallel under a tensor split (its output is
+    the rank's partial sum)."""
     if isinstance(w, Int8Weight):
-        return expert_dense_int8(xe, w.w_int8, w.scale)
+        rmax = _row_max(parallel_context())
+        return expert_dense_int8(xe, w.w_int8, w.scale,
+                                 rmax if row else None,
+                                 None if row else rmax)
     return torch.bmm(xe, w)
 
 
 def _expert_mlp(cfg: DecoderConfig, experts: ParamGroup,
                 xe: torch.Tensor) -> torch.Tensor:
-    """xe: [E, C, D] -> [E, C, D]; expert weights carry a leading E axis."""
+    """xe: [E, C, D] -> [E, C, D]; expert weights carry a leading E axis
+    (under a tensor split, the rank's F slice: the output is its partial
+    sum)."""
     up = _expert_dense(xe, experts.up)
     if cfg.gated_mlp:
         h = _activation(cfg, _expert_dense(xe, experts.gate)) * up
     else:
         h = _activation(cfg, up)
-    return _expert_dense(h, experts.down)
+    return _expert_dense(h, experts.down, row=True)
 
 
 def _group_sizes(group_sizes) -> List[int]:
@@ -510,41 +629,49 @@ class _RaggedDenseInt8(torch.autograd.Function):
     map, one int8 product per expert block (JAX `ragged_dense_int8`)."""
 
     @staticmethod
-    def forward(ctx, xr, w_int8, scale, sizes):
+    def forward(ctx, xr, w_int8, scale, sizes, fwd_max, bwd_max):
         row_expert = _row_expert_map(sizes, w_int8.shape[0], xr.shape[0],
                                      xr.device)
-        xq, s_x = act_quant_rows(xr)
+        xq, s_x = act_quant_rows(xr, fwd_max)
         y = _ragged_products(xq, w_int8, sizes)
         s_w = scale.float()[row_expert]
         ctx.save_for_backward(w_int8, scale, row_expert)
-        ctx.sizes = sizes
+        ctx.sizes, ctx.bwd_max = sizes, bwd_max
         return (y.float() * s_x * s_w).to(xr.dtype)
 
     @staticmethod
     def backward(ctx, g):
         w_int8, scale, row_expert = ctx.saved_tensors
-        gq, s_g = act_quant_rows(g.float() * scale.float()[row_expert])
+        gq, s_g = act_quant_rows(g.float() * scale.float()[row_expert],
+                                 ctx.bwd_max)
         dx = _ragged_products(gq, w_int8, ctx.sizes, transpose=True)
-        return (dx.float() * s_g).to(g.dtype), None, None, None
+        return (dx.float() * s_g).to(g.dtype), None, None, None, None, None
 
 
 def ragged_dense_int8(xr: torch.Tensor, w_int8: torch.Tensor,
-                      scale: torch.Tensor, group_sizes) -> torch.Tensor:
+                      scale: torch.Tensor, group_sizes, fwd_max=None,
+                      bwd_max=None) -> torch.Tensor:
     """W8A8 ragged per-expert matmul: xr [M, D] (rows grouped by expert,
     `group_sizes` [E]) @ {w_int8 [E, D, F], scale [E, F]}, straight-through
-    dL/dx."""
-    return _RaggedDenseInt8.apply(xr, w_int8, scale, _group_sizes(group_sizes))
+    dL/dx (`fwd_max` / `bwd_max` as `expert_dense_int8`)."""
+    return _RaggedDenseInt8.apply(xr, w_int8, scale,
+                                  _group_sizes(group_sizes), fwd_max, bwd_max)
 
 
-def _ragged_dense(xr: torch.Tensor, w, group_sizes) -> torch.Tensor:
+def _ragged_dense(xr: torch.Tensor, w, group_sizes,
+                  row: bool = False) -> torch.Tensor:
     """Ragged per-expert matmul: xr [M, D] (rows grouped by expert,
     group_sizes [E]) @ w [E, D, F] (float, or an Int8Weight) -> [M, F].
     Only the sum(group_sizes) kept rows are computed.  The JAX package
     uses `lax.ragged_dot`; here each expert's contiguous row block is one
-    matmul, so the counts are read on the host."""
+    matmul, so the counts are read on the host.  `row` as
+    `_expert_dense`."""
     sizes = _group_sizes(group_sizes)
     if isinstance(w, Int8Weight):
-        return ragged_dense_int8(xr, w.w_int8, w.scale, sizes)
+        rmax = _row_max(parallel_context())
+        return ragged_dense_int8(xr, w.w_int8, w.scale, sizes,
+                                 rmax if row else None,
+                                 None if row else rmax)
     return _ragged_products(xr, w, sizes)
 
 
@@ -559,7 +686,7 @@ def _expert_mlp_ragged(cfg: DecoderConfig, experts: ParamGroup,
         h = _activation(cfg, _ragged_dense(xr, experts.gate, sizes)) * up
     else:
         h = _activation(cfg, up)
-    return _ragged_dense(h, experts.down, sizes)
+    return _ragged_dense(h, experts.down, sizes, row=True)
 
 
 def _grouped_moe(cfg: DecoderConfig, gcfg: GatingConfig, xs: torch.Tensor,
@@ -603,19 +730,21 @@ def _moe_distributed(cfg: DecoderConfig, gcfg: GatingConfig, p: MoEMLP,
                      xs: torch.Tensor, router_logits: torch.Tensor,
                      tv: Optional[torch.Tensor], train: bool, pctx):
     """The sparse FFN of this rank's tokens xs [n, D] as the single-process
-    block computes them within the world's tokens (every rank owns distinct
-    rows).  Grouped gating whose groups tile each rank's rows (segment by
-    segment) stays local, the aux loss the mean over the world's groups.
-    Otherwise the router logits are gathered (the router's gradient flows
-    back through the gather) and the world's tokens are gated as the
-    single process gates them: as one set, or in groups padded at the end
-    of the world's tokens; the rank keeps its own rows' choices.  Each kept
+    block computes them within the rows group's tokens (every rank of it
+    owns distinct rows; under a tensor split the output is the rank's
+    partial sum over its F slice of the experts).  Grouped gating whose
+    groups tile each rank's rows (segment by segment) stays local, the aux
+    loss the mean over the rows group's gating groups.  Otherwise the
+    router logits are gathered (the router's gradient flows back through
+    the gather) and the rows group's tokens are gated as the single process
+    gates them: as one set, or in groups padded at the end of those
+    tokens; the rank keeps its own rows' choices.  Each kept
     choice then goes to the rank that owns its expert
     (`_expert_parallel_ffn`).  Returns (y, aux, router_probs)."""
     n = xs.shape[0]
     e = cfg.moe_num_experts
     group = cfg.moe_gating_group_size
-    if group and n * pctx.world > group and not (n // pctx.segments) % group:
+    if group and n * pctx.rows > group and not (n // pctx.segments) % group:
         g = n // group
         comp = top_k_gating_compact(
             router_logits.reshape(g, group, e), gcfg, train=train,
@@ -661,7 +790,9 @@ def _expert_parallel_ffn(cfg: DecoderConfig, p: MoEMLP, xs: torch.Tensor,
     """Send this rank's kept choices [n, k] to the ranks that own their
     experts (E / expert each, in rank order) over the expert group, run
     the local experts there on the rows received, send the outputs back
-    and combine them with the gate weights, as `moe_ffn_gather` combines.
+    and combine them with the gate weights, as `moe_ffn_gather` combines
+    (under a tensor split the outputs are partial sums, so the weights'
+    gradient is all-reduced over the group, `copy_in`).
     The rows go expert-major, so the counts per (rank, local expert) that
     travel first say every row's expert; they are the one host read of
     the block.  The exchange runs whenever a context is up, a group of one
@@ -685,6 +816,7 @@ def _expert_parallel_ffn(cfg: DecoderConfig, p: MoEMLP, xs: torch.Tensor,
     y_recv = _local_experts(cfg, p, x_recv, recv_counts, cap)
     y_send = pctx.exchange_back(y_recv, send, recv)
     picked = xs.new_zeros((n * k, d)).index_copy(0, pairs, y_send)
+    weight = copy_in(weight, pctx)
     y = (picked.reshape(n, k, d).float() * weight.float()[..., None]).sum(1)
     return y.to(xs.dtype)
 
@@ -734,26 +866,37 @@ def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
     groups); B*T off a multiple of G is padded with invalid tokens, which
     the gate never routes, rather than falling back to global gating.
     Under a parallel context (parallel/collectives.py) the block computes
-    the single-process block over the world's tokens (`_moe_distributed`).
-    The experts run through the `experts` group's module call."""
+    the single-process block over the rows group's tokens
+    (`_moe_distributed`); under a tensor split every tensor rank gates the
+    same tokens alike (with sequence parallelism the router logits of the
+    T-shards are gathered), runs its F slice of the experts on the whole
+    hidden and the partial outputs are reduced after the combine.  The
+    experts run through the `experts` group's module call."""
     if cfg.moe_dispatch not in _DISPATCH:
         raise ValueError(f"moe_dispatch must be one of {_DISPATCH}; got "
                          f"{cfg.moe_dispatch!r}")
+    pctx, tp, seq = _tp(cfg)
+    x_in = x
+    e = cfg.moe_num_experts
+    router_logits = x.reshape(-1, x.shape[-1]).float() @ p.router.float()
+    if seq:
+        router_logits = gather_copies(
+            router_logits.reshape(x.shape[0], x.shape[1], e), pctx
+        ).reshape(-1, e)
+    if tp > 1:
+        x = column_in(x, pctx, seq)
     b, t, d = x.shape
     n = b * t
     xs = x.reshape(n, d)
-    e = cfg.moe_num_experts
     gcfg = GatingConfig(
         num_experts=e, top_k=cfg.moe_top_k,
         capacity_factor=cfg.moe_capacity_factor,
         eval_capacity_factor=cfg.moe_eval_capacity_factor,
         min_capacity=cfg.moe_min_capacity)
-    router_logits = xs.float() @ p.router.float()
     tv = token_valid.reshape(n) if token_valid is not None else None
     expert_fn, expert_fn_ragged = _expert_fns(cfg, p)
     ragged = cfg.moe_dispatch == "ragged"
     group = cfg.moe_gating_group_size
-    pctx = parallel_context()
     if pctx is not None:
         y, aux, probs = _moe_distributed(cfg, gcfg, p, xs, router_logits, tv,
                                          train, pctx)
@@ -794,11 +937,14 @@ def moe_block_forward(cfg: DecoderConfig, p: MoEMLP, x: torch.Tensor,
         y = (moe_ffn_ragged(xs, comp, e, cap, expert_fn_ragged) if ragged
              else moe_ffn_gather(xs, comp, e, cap, expert_fn))
         aux, probs = comp.aux_loss, comp.router_probs
+    y = y.reshape(b, t, d)
+    if tp > 1:
+        y = row_out(y, pctx, seq)
     if cfg.moe_use_residual:
-        res = mlp_forward(cfg, p.residual_mlp, xs)
-        coef = torch.softmax((xs @ p.coef).float(), dim=-1)
-        y = y * coef[:, :1].to(y.dtype) + res * coef[:, 1:].to(res.dtype)
-    return y.reshape(b, t, d), aux, probs
+        res = mlp_forward(cfg, p.residual_mlp, x_in)
+        coef = torch.softmax((x_in @ p.coef).float(), dim=-1)
+        y = y * coef[..., :1].to(y.dtype) + res * coef[..., 1:].to(res.dtype)
+    return y, aux, probs
 
 
 # Recomputation policies (DecoderConfig.remat_policy).  'dots' keeps the
@@ -845,9 +991,12 @@ def _alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
 
 
 def _alibi_bias(cfg: DecoderConfig, q_pos: torch.Tensor,
-                kv_pos: torch.Tensor) -> torch.Tensor:
-    """[B, H, T, S] additive bias: -slope * (q_pos - kv_pos)."""
+                kv_pos: torch.Tensor, pctx=None) -> torch.Tensor:
+    """[B, H, T, S] additive bias: -slope * (q_pos - kv_pos) (the rank's
+    heads under a tensor split)."""
     slopes = _alibi_slopes(cfg.num_heads, q_pos.device)
+    if tensor_size(pctx) > 1:
+        slopes = slopes.chunk(pctx.tensor_size)[pctx.tensor_rank]
     dist = (q_pos[:, :, None] - kv_pos[:, None, :]).float().clamp_min(0.0)
     return -slopes[None, :, None, None] * dist[:, None]
 
@@ -861,17 +1010,28 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
                       prefix_mask: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """x: [B, T, D] -> [B, T, D].  With a cache, k/v are written into it at
-    `cache.length` (in place; the caller wrote the segment row)."""
+    `cache.length` (in place; the caller wrote the segment row).  Under a
+    tensor split the rank runs its H / tensor query and KH / tensor KV
+    heads and `wo` is row-parallel; with sequence parallelism x and the
+    output are the rank's T-shards (positions and segment ids are whole)."""
+    pctx, tp, seq = _tp(cfg)
+    if tp > 1:
+        if cache is not None:
+            raise NotImplementedError("generation under a tensor mesh is not "
+                                      "ported yet (ROADMAP Queue 1, item 16)")
+        x = column_in(x, pctx, seq)
     b, t, d = x.shape
-    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h, kh, dh = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
 
     if hasattr(p, "wqkv"):
         # fused int8 projection (quantize_decoder_int8 fuse=True): one
-        # activation quantization and one wide int8 product for q|k|v
-        qkv = dense(x, p.wqkv)
+        # activation quantization and one wide int8 product for q|k|v (a
+        # rank's slice: its q, then its k, then its v columns)
+        qkv = dense(x, p.wqkv, pctx)
         q, k, v = qkv.split([h * dh, kh * dh, kh * dh], dim=-1)
     else:
-        q, k, v = dense(x, p.wq), dense(x, p.wk), dense(x, p.wv)
+        q, k, v = (dense(x, p.wq, pctx), dense(x, p.wk, pctx),
+                   dense(x, p.wv, pctx))
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = q.reshape(b, t, h, dh)
@@ -964,7 +1124,8 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
                 scale=scale, softcap=softcap, impl="xla", kv_layout="bksd")
     if chunk_attn:
         segs = (segment_ids, segment_ids) if segment_ids is not None else None
-        bias = _alibi_bias(cfg, positions, positions) if cfg.alibi else None
+        bias = (_alibi_bias(cfg, positions, positions, pctx) if cfg.alibi
+                else None)
         if prefix_mask is not None:
             # prefix-LM: allowed(q, k) = causal(q, k) OR prefix[k]
             q_pos = positions[:, None, :, None]
@@ -997,7 +1158,7 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
                                         impl="xla" if bias is not None
                                         else impl)
 
-    out = dense(out.reshape(b, t, h * dh), p.wo)
+    out = row_dense(out.reshape(b, t, h * dh), p.wo, pctx, seq)
     if cfg.o_bias:
         out = out + p.bo
     return out
@@ -1090,7 +1251,9 @@ def forward(
     cache.length offset during decode).  segment_ids: [B, T] (0 = padding).
     remat: recompute each layer in the backward, keeping only the layer
     boundaries, or also the matmul outputs with remat_policy='dots'
-    (no-cache path only, as in the JAX package).
+    (no-cache path only, as in the JAX package).  Under a tensor split the
+    returned hidden is whole on every tensor rank, for the vocab-parallel
+    head (its gradient is reduced over the group).
     """
     if inputs_embeds is None:
         inputs_embeds = embed(model, cfg, input_ids)
@@ -1110,7 +1273,11 @@ def forward(
                    else torch.ones((b, t), dtype=torch.int32, device=dev))
         cache.segment[:, start:start + t] = seg_new
 
+    pctx, tp, seq = _tp(cfg)
     x = inputs_embeds
+    if seq:
+        # sequence parallelism: the rank's T-shard between the blocks
+        x = split_seq(x, pctx)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     moe_losses: List[torch.Tensor] = []
     router_probs: List[torch.Tensor] = []
@@ -1130,6 +1297,9 @@ def forward(
             moe_losses.append(aux)
             router_probs.append(probs)
     x = _norm(cfg, model.final_norm, x)
+    if tp > 1:
+        # the input of the vocab-parallel head: whole on every tensor rank
+        x = column_in(x, pctx, seq)
     new_cache = cache._replace(length=cache.length + t) if cache is not None else None
     return DecoderOutput(x, aux_total, tuple(moe_losses), tuple(router_probs),
                          new_cache)
@@ -1137,8 +1307,18 @@ def forward(
 
 def embed(model: Decoder, cfg: DecoderConfig,
           input_ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings [B, T, D].  Vocab-parallel under a tensor split:
+    each rank looks up the ids of its vocab rows, zeroes the rest, and the
+    ranks' tables are summed (all-reduced) whole."""
     w = model.embed.embedding
     ids = input_ids.long()
+    pctx = parallel_context()
+    tp = tensor_size(pctx)
+    if tp > 1:
+        rows = (w.w_int8 if isinstance(w, Int8Weight) else w).shape[0]
+        local = ids - pctx.tensor_rank * rows
+        inside = (local >= 0) & (local < rows)
+        ids = torch.where(inside, local, 0)
     if isinstance(w, Int8Weight):
         # int8 table (per-row scales): gather the int8 rows and their
         # scales, dequantize to the dtype `dtype_ref` carries
@@ -1146,6 +1326,9 @@ def embed(model: Decoder, cfg: DecoderConfig,
         e = (w.w_int8[ids].float() * w.scale[ids][..., None]).to(tgt)
     else:
         e = w[ids]
+    if tp > 1:
+        e = reduce_out(torch.where(inside[..., None], e, 0.0).to(e.dtype),
+                       pctx)
     if cfg.embed_scale is not None:
         e = (e.float() * cfg.embed_scale).to(e.dtype)
     return e

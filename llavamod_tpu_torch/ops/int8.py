@@ -27,13 +27,19 @@ import torch
 _MIN_ROWS = 17
 
 
-def act_quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def act_quant_rows(x: torch.Tensor, row_max=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row (last-axis) int8 quantization:
     (int8 values, f32 scales [..., 1]) with scale = max(amax / 127, 1e-8),
     q = clip(round(x / scale), -127, 127).  torch.round rounds half to even,
-    as jnp.round does."""
+    as jnp.round does.  `row_max` maps the rows' absmax [..., 1] to the
+    whole rows' when x holds a slice of each row (a max over the ranks
+    holding the others)."""
     xf = x.float()
-    s = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        amax = row_max(amax)
+    s = (amax / 127.0).clamp_min(1e-8)
     q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
     return q, s
 

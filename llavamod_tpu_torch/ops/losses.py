@@ -32,6 +32,18 @@ config path.  With a float head, `stream_dh` changes nothing: the JAX
 streamed backward is an exact reordering of the two-pass one that runs
 here, and whether dW is formed is decided by the head
 (`ctx.needs_input_grad`).
+
+Vocab-parallel under a tensor split (parallel/collectives.py): each rank's
+head is its slice of the vocab rows, and it scans the chunks of the global
+chunk grid that fall in its rows (a rank's last chunk may be partial, and
+`vocab_limit` cuts where it falls).  The rows' running max and sum, the KD
+numerator and the CE label logit (from the rank that owns it) are then
+reduced over the tensor group, so every rank holds the single-process
+logsumexp and loss; the backward uses the global logsumexp, and each
+rank's dL/dh is its partial sum over its vocab rows (the decoder's final
+hidden reduces it, models/llm/decoder.py `forward`).  The streamed p@W of
+an int8 head stays each rank's partial sum, rescaled to the global
+statistics.
 """
 
 from __future__ import annotations
@@ -43,6 +55,12 @@ import torch
 from llavamod_tpu_torch.models.params import Int8Weight
 from llavamod_tpu_torch.ops.int8 import act_quant_rows, int8_matmul
 from llavamod_tpu_torch.ops.matmul import matmul_f32_out
+from llavamod_tpu_torch.parallel.collectives import (
+    current as parallel_context,
+    tensor_max,
+    tensor_size,
+    tensor_sum,
+)
 
 DEFAULT_CHUNK = 8192
 
@@ -52,13 +70,61 @@ def _head_rows(w) -> int:
     return w.w_int8.shape[0] if isinstance(w, Int8Weight) else w.shape[0]
 
 
+def _vocab_rows(w) -> int:
+    """Vocab rows of the whole head whose rank slice `w` is."""
+    return _head_rows(w) * tensor_size(parallel_context())
+
+
 def _detach(w):
     return w if isinstance(w, Int8Weight) else w.detach()
 
 
-def _chunks(vocab_limit: int, chunk: int):
-    for c0 in range(0, vocab_limit, chunk):
-        yield c0, min(c0 + chunk, vocab_limit)
+class _Vocab:
+    """The rank's vocab rows [lo, lo + rows) of a head (all of them in one
+    process) and its chunks: the global grid of `chunk` columns below
+    `vocab_limit`, cut to those rows, as local (c0, c1)."""
+
+    def __init__(self, w, vocab_limit: int, chunk: int, pctx):
+        self.pctx = pctx if tensor_size(pctx) > 1 else None
+        self.rows = _head_rows(w)
+        self.lo = self.pctx.tensor_rank * self.rows if self.pctx else 0
+        self.limit, self.chunk = vocab_limit, chunk
+
+    def chunks(self):
+        hi = min(self.lo + self.rows, self.limit)
+        for g0 in range(0, self.limit, self.chunk):
+            a, b = max(g0, self.lo), min(g0 + self.chunk, hi)
+            if a < b:
+                yield a - self.lo, b - self.lo
+
+    def local(self, ids):
+        """(ids as local rows, -1 where another rank owns them: no chunk
+        picks or one-hots those; whether the rank owns them)."""
+        local = ids - self.lo
+        own = (local >= 0) & (local < self.rows)
+        return torch.where(own, local, -1), own
+
+    def merge(self, *stats):
+        """(max, sum) pairs over the rank's chunks -> the global (max, sum)
+        pairs and each rank's rescale factor exp(m - M), two reductions
+        for all pairs."""
+        if self.pctx is None:
+            return [(m, l, None) for m, l in stats]
+        big = tensor_max(torch.stack([m for m, _ in stats]), self.pctx)
+        scale = torch.exp(torch.stack([m for m, _ in stats]) - big)
+        sums = torch.stack([l for _, l in stats]) * scale
+        return list(zip(big, sums, scale))
+
+    def sum(self, x):
+        return x if self.pctx is None else tensor_sum(x, self.pctx)
+
+
+def _normalized(acc, scale, l):
+    """A streamed p@W accumulator over the global sum `l` (rescaled by the
+    rank's exp(m - M) under a tensor split)."""
+    if scale is None:
+        return acc / l[:, None]
+    return acc * (scale / l)[:, None]
 
 
 def _pick(picked, s, ids, c0):
@@ -117,9 +183,11 @@ class _Head:
         wf = wq.bfloat16() * s.bfloat16()[:, None]
         return matmul_f32_out(e.bfloat16(), wf.t())
 
-    def rows(self, ids: torch.Tensor) -> torch.Tensor:
-        """Dequantized f32 rows W[ids] of an int8 head."""
-        return self.w.w_int8[ids].float() * self.w.scale[ids][:, None]
+    def rows(self, ids: torch.Tensor, own=None) -> torch.Tensor:
+        """Dequantized f32 rows W[ids] of an int8 head (zero where `own` is
+        False: another rank holds the row)."""
+        r = self.w.w_int8[ids].float() * self.w.scale[ids][:, None]
+        return r if own is None else torch.where(own[:, None], r, 0.0)
 
 
 class _HeadGrads:
@@ -162,10 +230,12 @@ class _LseGather(torch.autograd.Function):
     def forward(ctx, h, w, ids, vocab_limit, chunk, stream):
         n = h.shape[0]
         head = _Head(h, w)
+        vocab = _Vocab(w, vocab_limit, chunk, parallel_context())
+        ids, own = vocab.local(ids)
         m, l = _init_stats(n, h.device, 1)
         picked = torch.zeros((n,), device=h.device)
         acc = torch.zeros(h.shape, device=h.device) if stream else None
-        for c0, c1 in _chunks(vocab_limit, chunk):
+        for c0, c1 in vocab.chunks():
             s = head.logits(c0, c1)
             m_new = torch.maximum(m, s.amax(dim=1))
             res = torch.exp(m - m_new)
@@ -175,14 +245,18 @@ class _LseGather(torch.autograd.Function):
                 acc = acc * res[:, None] + head.fold(es, c0, c1)
             m = m_new
             picked = _pick(picked, s, ids, c0)
+        (m, l, scale), = vocab.merge((m, l))
+        l = vocab.sum(l)
+        picked = vocab.sum(picked)
         lse = m + torch.log(l)
         ctx.stream, ctx.h_dtype = stream, h.dtype
         if stream:
             # frozen int8 head: dh = g_lse * p@W + g_picked * W[ids]
-            ctx.save_for_backward(acc / l[:, None], head.rows(ids))
+            ctx.save_for_backward(_normalized(acc, scale, l),
+                                  head.rows(ids, own))
         else:
             ctx.save_for_backward(h, *_stash_heads(ctx, w), ids, lse)
-            ctx.vocab = (vocab_limit, chunk)
+            ctx.vocab = vocab
         return lse, picked
 
     @staticmethod
@@ -194,7 +268,7 @@ class _LseGather(torch.autograd.Function):
         h, w, ids, lse = ctx.saved_tensors
         head = _Head(h, *_heads(ctx, w))
         grads = _HeadGrads(head, h, ctx.needs_input_grad[1])
-        for c0, c1 in _chunks(*ctx.vocab):
+        for c0, c1 in ctx.vocab.chunks():
             p = torch.exp(head.logits(c0, c1) - lse[:, None])
             ds = (g_lse[:, None] * p
                   + g_picked[:, None] * _onehot(ids, c0, c1 - c0))
@@ -218,16 +292,17 @@ def chunked_lse_and_gather(h, w, ids, vocab_limit: int,
 # chunked KD cross-entropy, and KD + CE fused
 # ---------------------------------------------------------------------------
 
-def _kd_stats(s_head, t_head, h_s, vocab_limit, chunk, ce_ids=None,
+def _kd_stats(s_head, t_head, h_s, vocab, ce_ids=None,
               stream=False, int8_dh=False):
-    """One pass: lse_s, lse_t, E_t[s], (with ce_ids) the label logits and
-    (with `stream`) p_s@W_s and p_t@W_s."""
+    """One pass over the rank's chunks of `vocab` (`_Vocab`): lse_s, lse_t,
+    E_t[s], (with ce_ids, local rows) the label logits and (with `stream`)
+    p_s@W_s and p_t@W_s (the rank's partial sums)."""
     n, device = h_s.shape[0], h_s.device
     m_s, l_s, m_t, l_t = _init_stats(n, device, 2)
     a = torch.zeros((n,), device=device)
     picked = torch.zeros((n,), device=device)
     acc_s = acc_t = torch.zeros(h_s.shape, device=device) if stream else None
-    for c0, c1 in _chunks(vocab_limit, chunk):
+    for c0, c1 in vocab.chunks():
         s = s_head.logits(c0, c1)
         t = t_head.logits(c0, c1)
         m_s_new = torch.maximum(m_s, s.amax(dim=1))
@@ -245,10 +320,14 @@ def _kd_stats(s_head, t_head, h_s, vocab_limit, chunk, ce_ids=None,
         m_s, m_t = m_s_new, m_t_new
         if ce_ids is not None:
             picked = _pick(picked, s, ce_ids, c0)
+    (m_s, l_s, sc_s), (m_t, l_t, sc_t) = vocab.merge((m_s, l_s), (m_t, l_t))
+    if vocab.pctx is not None:
+        l_s, l_t, a, picked = vocab.sum(torch.stack([l_s, l_t, a * sc_t,
+                                                     picked]))
     lse_s = m_s + torch.log(l_s)
     lse_t = m_t + torch.log(l_t)
-    streamed = ((acc_s / l_s[:, None], acc_t / l_t[:, None]) if stream
-                else None)
+    streamed = ((_normalized(acc_s, sc_s, l_s), _normalized(acc_t, sc_t, l_t))
+                if stream else None)
     return lse_s, lse_t, a / l_t, picked, streamed
 
 
@@ -260,9 +339,12 @@ class _KdCe(torch.autograd.Function):
     def forward(ctx, h_s, w_s, h_t, w_t, kd_weight, ce_weight, ce_ids,
                 vocab_limit, chunk, int8_dh, stream):
         s_head = _Head(h_s, w_s)
+        vocab = _Vocab(w_s, vocab_limit, chunk, parallel_context())
+        own = None
+        if ce_ids is not None:
+            ce_ids, own = vocab.local(ce_ids)
         lse_s, lse_t, e_t_s, picked, streamed = _kd_stats(
-            s_head, _Head(h_t, w_t), h_s, vocab_limit, chunk, ce_ids, stream,
-            int8_dh)
+            s_head, _Head(h_t, w_t), h_s, vocab, ce_ids, stream, int8_dh)
         kd = ((lse_s - e_t_s) * kd_weight).sum()
         ce = (((lse_s - picked) * ce_weight).sum() if ce_ids is not None
               else torch.zeros((), device=h_s.device))
@@ -271,12 +353,12 @@ class _KdCe(torch.autograd.Function):
             ps_w, pt_w = streamed
             if int8_dh:   # straight-through-grade: bf16 residuals, as JAX
                 ps_w, pt_w = ps_w.bfloat16(), pt_w.bfloat16()
-            w_ce = s_head.rows(ce_ids) if ce_ids is not None else None
+            w_ce = s_head.rows(ce_ids, own) if ce_ids is not None else None
             ctx.save_for_backward(kd_weight, ce_weight, ps_w, pt_w, w_ce)
         else:
             ctx.save_for_backward(h_s, h_t, *_stash_heads(ctx, w_s, w_t),
                                   kd_weight, ce_weight, ce_ids, lse_s, lse_t)
-            ctx.vocab = (vocab_limit, chunk)
+            ctx.vocab = vocab
         return kd, ce
 
     @staticmethod
@@ -296,7 +378,7 @@ class _KdCe(torch.autograd.Function):
         s_head, t_head = _Head(h_s, w_s), _Head(h_t, w_t)
         coef_kd = (g_kd * kd_weight)[:, None]
         grads = _HeadGrads(s_head, h_s, ctx.needs_input_grad[1], ctx.int8_dh)
-        for c0, c1 in _chunks(*ctx.vocab):
+        for c0, c1 in ctx.vocab.chunks():
             p_s = torch.exp(s_head.logits(c0, c1) - lse_s[:, None])
             p_t = torch.exp(t_head.logits(c0, c1) - lse_t[:, None])
             ds = coef_kd * (p_s - p_t)
@@ -367,7 +449,7 @@ def softmax_cross_entropy(hidden, w_head, labels, ignore_index: int = -100,
     if shift:
         hidden, labels = hidden[:, :-1], labels[:, 1:]
     b, t, d = hidden.shape
-    v = _head_rows(w_head) if vocab_limit is None else vocab_limit
+    v = _vocab_rows(w_head) if vocab_limit is None else vocab_limit
     ids = labels.reshape(b * t)
     mask = ids != ignore_index
     safe = torch.where(mask, ids, 0).long()
@@ -381,8 +463,8 @@ def softmax_cross_entropy(hidden, w_head, labels, ignore_index: int = -100,
 def _kd_inputs(hidden_s, w_head_s, hidden_t, w_head_t, labels, ignore_index,
                vocab_limit, distill_all_tokens, count_reduce=None):
     b, t, d_s = hidden_s.shape
-    v = (min(_head_rows(w_head_s), _head_rows(w_head_t)) if vocab_limit is None
-         else vocab_limit)
+    v = (min(_vocab_rows(w_head_s), _vocab_rows(w_head_t))
+         if vocab_limit is None else vocab_limit)
     flat = labels.reshape(b * t)
     mask = (torch.ones((b * t,), device=hidden_s.device) if distill_all_tokens
             else (flat != ignore_index).float())
@@ -444,7 +526,7 @@ def sequence_log_prob(hidden, w_head, labels, ignore_index: int = -100,
     != ignore_index (the reference's DPOTrainer.get_logp)."""
     hidden, labels = hidden[:, :-1], labels[:, 1:]
     b, t, d = hidden.shape
-    v = _head_rows(w_head) if vocab_limit is None else vocab_limit
+    v = _vocab_rows(w_head) if vocab_limit is None else vocab_limit
     ids = labels.reshape(b * t)
     mask = ids != ignore_index
     safe = torch.where(mask, ids, 0).long()

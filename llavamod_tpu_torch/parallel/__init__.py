@@ -1,9 +1,8 @@
 """Multi-process training over torch.distributed (port of
 llavamod_tpu/parallel/): the mesh (`mesh.py`), the sharding rules applied
 with FSDP2 (`sharding.py`) and the collectives of the step
-(`collectives.py`).  Data, fsdp and expert parallelism run; tensor and
-sequence parallelism (ROADMAP Queue 1, item 13) and pipeline parallelism
-(item 14) raise."""
+(`collectives.py`).  Data, fsdp, expert, tensor and sequence parallelism
+run; pipeline parallelism (ROADMAP Queue 1, item 14) raises."""
 
 from llavamod_tpu_torch.parallel.mesh import AXES, MeshConfig, make_mesh
 from llavamod_tpu_torch.parallel.sharding import (

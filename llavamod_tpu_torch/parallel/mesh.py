@@ -10,10 +10,13 @@ per card, with the same five axes in the same order:
   data   — data parallelism: every rank owns distinct rows
   fsdp   — parameter / gradient / optimizer sharding (ZeRO-3, FSDP2)
   expert — expert parallelism: each rank along it keeps E / expert experts
-  tensor — tensor and sequence parallelism (ROADMAP Queue 1, item 13)
+  tensor — tensor parallelism: each rank along it keeps a slice of every
+           attention, MLP and expert matrix and of the vocabulary, and
+           holds the same rows (with sequence parallelism, a T-shard of
+           the residual stream between the blocks)
 
-Every axis but pipe and tensor runs: the global batch is the world's rows,
-and a step on it computes the single-process step on those rows
+Every axis but pipe runs: the global batch is the rows of data x fsdp x
+expert, and a step on it computes the single-process step on those rows
 (parallel/sharding.py, parallel/collectives.py).
 """
 
@@ -61,16 +64,14 @@ def check_ported(cfg: MeshConfig) -> None:
     """Raise for the axes whose parallelism is not ported yet."""
     from llavamod_tpu_torch.models.builder import not_ported
 
-    if cfg.tensor > 1:
-        raise not_ported("tensor and sequence parallelism", 13)
     if cfg.pipe > 1:
         raise not_ported("pipeline parallelism", 14)
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None, device_type: str = "cuda"):
     """The world's ranks as a DeviceMesh of shape (pipe, data, fsdp, expert,
-    tensor) named AXES; rank = ((data * fsdp + f) * expert + e) for pipe =
-    tensor = 1.  Needs an initialised process group of `cfg.size` ranks."""
+    tensor) named AXES; rank = (((d * fsdp + f) * expert + e) * tensor + t)
+    for pipe = 1.  Needs an initialised process group of `cfg.size` ranks."""
     from torch.distributed.device_mesh import init_device_mesh
 
     cfg = cfg or MeshConfig.auto()

@@ -3,8 +3,7 @@ llavamod_tpu/parallel/sharding.py).
 
 The rule table maps every parameter, by its path, to a PartitionSpec over
 the mesh axes, path for path as in the JAX package; it stays the one record
-of which tensor belongs to which axis (the `tensor` entries wait for
-tensor parallelism, ROADMAP Queue 1, item 13):
+of which tensor belongs to which axis:
 
   embedding / lm_head [V, D]        -> ((tensor, fsdp), None)  # vocab-dim
   attn in-proj  [D, H*dh]           -> (fsdp, tensor)
@@ -16,10 +15,27 @@ tensor parallelism, ROADMAP Queue 1, item 13):
   norms / biases / small params     -> replicated
   batch activations [B, T, ...]     -> (('data','fsdp'), None, ...)
 
-`shard_params(mesh, model)` applies it with FSDP2 (`fully_shard`), one unit
-per decoder layer, per stacked-expert group, for the vision tower and for
-the projector, and the model itself for the rest (embedding, head, final
-norm):
+`shard_params(mesh, model)` first keeps the rank's slice of every LLM
+tensor that the rule names `tensor` for (`tensor_split`, Megatron-LM's
+layout: attention in-projections on their output dim and `wo` on its input
+dim, so each rank holds H / tensor query and KH / tensor KV heads;
+`gate` / `up` on F and `down` on its input F, stacked experts included; the
+embedding and a separate head on the vocab dim), then applies the rest
+with FSDP2 (`fully_shard`), one unit per decoder layer, per stacked-expert
+group, for the vision tower and for the projector, and the model itself
+for the rest (embedding, head, final norm).  Where the port departs from
+the table: the 1-D q / k / v biases, `up_bias`, an int8 weight's output
+scales and the head's bias and scales follow their matrix's split (the
+table replicates every 1-D tensor; a bias added to a column slice must be
+that slice's); the fused int8 `wqkv` and `gate_up` are split per block
+(q, k, v; gate, up) and each rank's blocks concatenated, since a
+contiguous split of the fused columns would hand a rank other heads, or
+gate without up; and the vision tower, whose attention and MLP rows name
+`tensor` too, stays whole on every tensor rank with the projector (it is
+frozen, and the image splice runs on the full sequence).  A head count,
+KV head count, FFN width or vocabulary that `tensor` does not divide is
+refused (the JAX package replicates such a dim, `fit_spec_to_shape`).
+FSDP2:
 
   * expert-stacked tensors ([E, D, F]): each rank along `expert` keeps its
     E / expert experts, which FSDP2 shards over fsdp and replicates over
@@ -28,7 +44,10 @@ norm):
     expert (HSDP over the flattened data x expert);
   * the dim FSDP2 splits is the rule's fsdp entry (`fsdp_dim`), or dim 0
     where the rule names none or `fit_spec_to_shape` drops it (FSDP2
-    splits only dim 0 unevenly).
+    splits only dim 0 unevenly);
+  * every mesh of the FSDP2 units is the one of the rank's tensor index:
+    FSDP2 shards and reduces over data x fsdp x expert only, and sees the
+    tensor slice as the whole parameter.
 
 Gradients are summed over the ranks (no averaging): each rank's loss is
 its share of the single-process loss (train/steps.py).  Parameters are
@@ -42,7 +61,7 @@ yields its own rows, which runtime/prefetch.py puts on the rank's card.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -207,6 +226,137 @@ def _keep_local_experts(experts: nn.Module, rank: int, size: int) -> None:
                 store[name] = part
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: the rank's slices
+# ---------------------------------------------------------------------------
+
+class TensorSplit(NamedTuple):
+    """How `tensor` splits one tensor: along `dim`, contiguously, or for a
+    fused weight per block (`parts`: the blocks' sizes along `dim`, each
+    split on its own and the rank's pieces concatenated)."""
+    dim: int
+    parts: Optional[Tuple[int, ...]] = None
+
+
+# 1-D biases that follow the output split of their matrix
+_COLUMN_BIASES = {"bq": "wq", "bk": "wk", "bv": "wv", "up_bias": "up"}
+
+
+def _tensor_dim(spec: P) -> Optional[int]:
+    for i, axes in enumerate(spec):
+        if axes == "tensor" or (isinstance(axes, tuple) and "tensor" in axes):
+            return i
+    return None
+
+
+def _fused_parts(name: str, cfg) -> Optional[Tuple[int, ...]]:
+    if name == "wqkv":
+        q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        return (q, kv, kv)
+    if name == "gate_up":
+        return (cfg.intermediate_size, cfg.intermediate_size)
+    return None
+
+
+def check_tensor_parallel(cfg, tensor: int) -> None:
+    """Raise ValueError unless `tensor` divides the heads, the KV heads,
+    the FFN width and the vocabulary of the decoder config `cfg`."""
+    dims = {"num_heads": cfg.num_heads, "num_kv_heads": cfg.num_kv_heads,
+            "intermediate_size": cfg.intermediate_size,
+            "vocab_size": cfg.vocab_size}
+    bad = {k: v for k, v in dims.items() if v % tensor}
+    if bad:
+        raise ValueError(f"--tensor_parallel {tensor} does not divide "
+                         f"{bad} of {cfg.name}")
+
+
+def tensor_split(llm: nn.Module, cfg,
+                 prefix: str = "llm.") -> Dict[str, TensorSplit]:
+    """{state_dict key: TensorSplit} of every parameter and buffer of the
+    decoder `llm` that the tensor axis splits (keys under `prefix`)."""
+    out: Dict[str, TensorSplit] = {}
+    entries = list(llm.named_parameters()) + list(llm.named_buffers())
+    found = {k: t for k, t in entries}
+    for key, t in entries:
+        parts_ = key.split(".")
+        name, parent = parts_[-1], parts_[:-1]
+        path = (prefix + key).replace(".", "/")
+        split = None
+        if name == "dtype_ref":
+            continue
+        if name == "scale":                        # an Int8Weight's scales
+            w = found.get(".".join(parent + ["w_int8"]))
+            wsplit = (_tensor_dim(_spec_for(path[:-len("scale")] + "w_int8",
+                                            w.dim()))
+                      if w is not None else None)
+            if wsplit is not None and wsplit == w.dim() - 1:
+                split = TensorSplit(t.dim() - 1,
+                                    _fused_parts(parent[-1], cfg))
+            elif wsplit == 0 and w.dim() == 2 and t.dim() == 1 and (
+                    "lm_head" in path or "embed" in path):
+                split = TensorSplit(0)
+        elif name in _COLUMN_BIASES:
+            split = TensorSplit(t.dim() - 1)
+        elif name == "bias" and parent[-1:] == ["lm_head"]:
+            split = TensorSplit(0)
+        elif t.dim() >= 2:
+            dim = _tensor_dim(_spec_for(path, t.dim()))
+            if dim is not None:
+                fused = parent[-1] if name == "w_int8" else name
+                split = TensorSplit(dim, _fused_parts(fused, cfg))
+        if split is not None:
+            out[prefix + key] = split
+    return out
+
+
+def take_slice(t: torch.Tensor, split: TensorSplit, rank: int,
+               size: int) -> torch.Tensor:
+    """Rank `rank`'s slice of the whole tensor `t` (a view)."""
+    if split.parts is None:
+        return t.chunk(size, dim=split.dim)[rank]
+    pieces = t.split(list(split.parts), dim=split.dim)
+    return torch.cat([p.chunk(size, dim=split.dim)[rank] for p in pieces],
+                     dim=split.dim)
+
+
+def join_slices(slices, split: TensorSplit) -> torch.Tensor:
+    """The whole tensor from every rank's slice, in rank order (the inverse
+    of `take_slice`)."""
+    if split.parts is None:
+        return torch.cat(slices, dim=split.dim)
+    size = len(slices)
+    per = [p // size for p in split.parts]
+    pieces = [s.split(per, dim=split.dim) for s in slices]
+    return torch.cat([torch.cat([pc[j] for pc in pieces], dim=split.dim)
+                      for j in range(len(per))], dim=split.dim)
+
+
+@torch.no_grad()
+def _keep_tensor_slices(model: nn.Module, splits: Dict[str, TensorSplit],
+                        rank: int, size: int) -> None:
+    """Replace every tensor of `splits` by the rank's slice, in place (a
+    matrix stored K-major, an int8 weight, models/llm/decoder.py
+    `_k_major`, keeps that storage)."""
+    mods = dict(model.named_modules())
+    for key, split in splits.items():
+        owner, _, name = key.rpartition(".")
+        mod = mods[owner]
+        store = mod._parameters if name in mod._parameters else mod._buffers
+        t = store[name]
+        if any(p % size for p in (split.parts or (t.shape[split.dim],))):
+            raise ValueError(f"tensor={size} does not divide {key} "
+                             f"{tuple(t.shape)} on dim {split.dim}")
+        part = take_slice(t, split, rank, size)
+        if (t.dim() >= 2 and not t.is_contiguous()
+                and t.transpose(-1, -2).is_contiguous()):
+            part = part.transpose(-1, -2).contiguous().transpose(-1, -2)
+        else:
+            part = part.contiguous().clone()
+        if isinstance(t, nn.Parameter):
+            part = nn.Parameter(part, requires_grad=t.requires_grad)
+        store[name] = part
+
+
 def shard_params(mesh, model: nn.Module,
                  compute_dtype: Optional[torch.dtype] = None,
                  ctx=None) -> nn.Module:
@@ -226,6 +376,12 @@ def shard_params(mesh, model: nn.Module,
         if getattr(layer, "is_moe", False):
             _keep_local_experts(layer.mlp.experts, ctx.expert_rank,
                                 ctx.expert_size)
+    splits: Dict[str, TensorSplit] = {}
+    if llm is not None and ctx.tensor_size > 1:
+        check_tensor_parallel(llm.cfg, ctx.tensor_size)
+        splits = tensor_split(llm, llm.cfg)
+        _keep_tensor_slices(model, splits, ctx.tensor_rank, ctx.tensor_size)
+    model.tensor_split = splits
     names = {id(p): k for k, p in model.named_parameters()}
     specs = param_specs(model)
 
@@ -234,6 +390,8 @@ def shard_params(mesh, model: nn.Module,
         shape = list(param.shape)
         if ".experts." in key:
             shape[0] *= ctx.expert_size      # the rule is for all E experts
+        if key in splits:
+            shape[splits[key].dim] *= ctx.tensor_size
         return Shard(fsdp_dim(sizes, specs[key], shape))
 
     policy = MixedPrecisionPolicy(param_dtype=compute_dtype,

@@ -120,15 +120,15 @@ class TrainArgs:
     attn_impl: str = "auto"
     vocab_chunk: int = 2048
     # mesh axes under torchrun, one process per card (train/run.py
-    # `_DeviceContext`: data x fsdp x expert = the world, the ranks left
-    # over go to fsdp): data and expert parallelism run; tensor and
-    # sequence parallelism raise (ROADMAP Queue 1, item 13), pipeline
-    # parallelism too (item 14), as do --fused_update and --lora_enable
-    # under torch.distributed (item 15)
+    # `_DeviceContext`: data x fsdp x expert x tensor = the world, the
+    # ranks left over go to fsdp): data, expert, tensor and sequence
+    # parallelism run; pipeline parallelism raises (ROADMAP Queue 1, item
+    # 14), as do --fused_update and --lora_enable under torch.distributed
+    # (item 15)
     expert_parallel: int = 1            # ranks that split the experts
-    tensor_parallel: int = 1            # item 13
+    tensor_parallel: int = 1            # ranks that split heads, F, vocab
     data_parallel: int = 1              # replicas (HSDP over data x expert)
-    sequence_parallel: bool = False     # item 13
+    sequence_parallel: bool = False     # T-sharded stream (tensor > 1)
     pipeline_parallel: int = 1          # item 14
     pipeline_microbatches: int = 0      # item 14
     # accepted and without effect: the JAX package pre-stacks the layer

@@ -10,9 +10,12 @@
     rank writes its shards of the model, of the optimizer moments, counts
     and MultiSteps state (the accumulator only mid-accumulation: it is zero
     at an update boundary) under its own `rank<r>.` keys, and `mesh.json`
-    records the mesh; it restores onto the same mesh.
+    records the mesh; it restores onto the same mesh (a tensor rank's
+    slices are its local tensors, saved under its own keys).
     `gather_full_state` assembles the whole model on rank 0 for the final
-    save, which is the single-process format;
+    save, which is the single-process format: FSDP2's shards, the experts
+    of the expert ranks and the slices of the tensor ranks (a fused int8
+    `wqkv` / `gate_up` put back block by block);
   * auto-resume as the reference's train/train.py:527-530: when the output
     directory holds `checkpoint-*`, training restarts from the newest one;
   * the stage-1 `mm_projector.bin` in the reference's key layout: for
@@ -163,12 +166,15 @@ def gather_full_state(model, pctx) -> Optional[Dict[str, torch.Tensor]]:
     """The whole model's state dict on rank 0 (CPU tensors in their own
     dtypes, the keys of the unsharded model), None on the other ranks.
     Every rank takes part: each parameter is gathered over its shards, an
-    expert tensor also over the expert ranks."""
+    expert tensor also over the expert ranks, and a tensor-split one
+    (`model.tensor_split`, parallel/sharding.py) over the tensor ranks."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from llavamod_tpu_torch.parallel.collectives import is_expert_key
+    from llavamod_tpu_torch.parallel.sharding import join_slices
 
+    splits = getattr(model, "tensor_split", {})
     out = {}
     for k, v in model.state_dict().items():
         full = v.full_tensor() if isinstance(v, DTensor) else v
@@ -176,6 +182,10 @@ def gather_full_state(model, pctx) -> Optional[Dict[str, torch.Tensor]]:
             parts = [torch.empty_like(full) for _ in range(pctx.expert_size)]
             dist.all_gather(parts, full.contiguous(), group=pctx.expert_group)
             full = torch.cat(parts)
+        if k in splits and pctx.tensor_size > 1:
+            parts = [torch.empty_like(full) for _ in range(pctx.tensor_size)]
+            dist.all_gather(parts, full.contiguous(), group=pctx.tensor_group)
+            full = join_slices(parts, splits[k])
         if pctx.rank == 0:
             out[k] = full.detach().cpu()
     return out if pctx.rank == 0 else None

@@ -37,8 +37,10 @@ mesh's ParallelContext), every state tensor is the rank's shard of the
 parameter's: AdamW and MultiSteps are elementwise and run on the local
 shards; the global norm counts every gradient entry once (a shard's square
 sum is summed over the world and divided by the ranks that hold a copy of
-it); Adafactor's means over a sharded dim, and over a whole tensor, sum
-over the shard groups (train/adafactor.py `shards`).
+it: a parameter that `tensor` leaves whole is held by every tensor rank);
+Adafactor's means over a sharded dim, and over a whole tensor, sum over
+the shard groups (train/adafactor.py `shards`), the tensor group of a
+tensor-split dim included.
 """
 
 from __future__ import annotations
@@ -284,9 +286,11 @@ class Optimizer:
         group_cls = _GROUP_CLASSES[cfg.optimizer]
         # sharded parameters: {key: (global shape, {dim: [(group, size)]})}
         # and the weight of a shard's square sum in the world's norm
-        self.shards = {n: pctx.shard_groups(n, named[n])
-                       for n, lb in labels.items()
-                       if lb != "frozen"} if pctx is not None else {}
+        splits = getattr(model, "tensor_split", {})
+        self.shards = {n: pctx.shard_groups(
+            n, named[n], splits[n].dim if n in splits else None)
+            for n, lb in labels.items()
+            if lb != "frozen"} if pctx is not None else {}
         self.norm_weights = None
         if pctx is not None:
             self.norm_weights = {}

@@ -29,24 +29,27 @@ projector (a checkpoint directory keeps the configuration it was saved
 with, as in the JAX engine).
 
 Under `torchrun` (one process per card) every stage trains data parallel
-with FSDP2 (ZeRO-3) and, with `--expert_parallel`, expert parallelism:
+with FSDP2 (ZeRO-3) and, with `--expert_parallel`, expert parallelism, and
+with `--tensor_parallel` tensor parallelism (`--sequence_parallel true`:
+the residual stream T-sharded between the blocks):
 
     torchrun --nproc_per_node 8 -m llavamod_tpu_torch.train.run \\
         --stage align --config configs/dense2sparse_qwen2_0_5b.json \\
-        --expert_parallel 2 ...
+        --expert_parallel 2 --tensor_parallel 2 --sequence_parallel true ...
 
 `init_distributed` joins the process group (NCCL on cuda:$LOCAL_RANK; gloo
-when the caller asked for the CPU), `_DeviceContext` builds the mesh
-(data x fsdp x expert = the world, every remaining rank on fsdp) whenever a
-process group is up, each rank's loader reads its `ProcessShardSampler`
-shard, both models are sharded (parallel/sharding.py), a step on the
-world's rows is the single-process step on them (train/steps.py), periodic
-checkpoints are sharded (train/checkpoint.py) and rank 0 writes the final
-model in the single-process format, the metrics and run_info.json.  Every
-branch of the JAX engine that the port does not run yet raises
-NotImplementedError naming the ROADMAP Queue 1 item that ports it: tensor
-and sequence parallelism (13), pipeline parallelism (14), and
-`--fused_update` or `--lora_enable` under torch.distributed (15).
+when the caller asked for the CPU; a group the caller started is taken as
+it is), `_DeviceContext` builds the mesh (data x fsdp x expert x tensor =
+the world, every remaining rank on fsdp) whenever a process group is up,
+each rank's loader reads the `ProcessShardSampler` shard of its row rank
+(the ranks of a tensor group read the same rows), both models are sharded
+(parallel/sharding.py), a step on the rows of data x fsdp x expert is the
+single-process step on them (train/steps.py), periodic checkpoints are
+sharded (train/checkpoint.py) and rank 0 writes the final model in the
+single-process format, the metrics and run_info.json.  Every branch of the
+JAX engine that the port does not run yet raises NotImplementedError
+naming the ROADMAP Queue 1 item that ports it: pipeline parallelism (14),
+and `--fused_update` or `--lora_enable` under torch.distributed (15).
 
 Per run the output directory gets `metrics.jsonl` (one line per
 `logging_steps` steps: microbatches, or fused updates), `run_info.json`
@@ -128,8 +131,6 @@ def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
     """Raise on every option of the JAX engine that the port does not run
     yet, and on a mesh the processes cannot fill, before anything is
     built."""
-    if targs.tensor_parallel > 1 or targs.sequence_parallel:
-        raise not_ported("tensor and sequence parallelism", 13)
     if targs.pipeline_parallel > 1:
         raise not_ported("pipeline parallelism", 14)
     launched, world = _launched()
@@ -137,12 +138,13 @@ def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
         raise not_ported("--fused_update under torch.distributed", 15)
     if launched and margs.lora_enable:
         raise not_ported("--lora_enable under torch.distributed", 15)
-    need = targs.data_parallel * targs.expert_parallel
+    need = (targs.data_parallel * targs.expert_parallel
+            * targs.tensor_parallel)
     if world % need:
         raise ValueError(
-            f"--data_parallel x --expert_parallel = {need} does not divide "
-            f"the {world} processes: launch one process per card with "
-            "torchrun --nproc_per_node")
+            f"--data_parallel x --expert_parallel x --tensor_parallel = "
+            f"{need} does not divide the {world} processes: launch one "
+            "process per card with torchrun --nproc_per_node")
 
 
 def init_distributed(device="cuda"):
@@ -173,8 +175,9 @@ def init_distributed(device="cuda"):
 class _DeviceContext:
     """The mesh and its ParallelContext whenever a process group is up (any
     world size: a one-rank torchrun takes the sharded path too), else
-    None: data x fsdp x expert = the world, the ranks the parallel flags
-    leave over going to fsdp (llavamod_tpu/train/run.py `_DeviceContext`)."""
+    None: data x fsdp x expert x tensor = the world, the ranks the
+    parallel flags leave over going to fsdp (llavamod_tpu/train/run.py
+    `_DeviceContext`)."""
 
     def __init__(self, targs: TrainArgs, device):
         self.mesh = self.pctx = None
@@ -184,10 +187,12 @@ class _DeviceContext:
         from llavamod_tpu_torch.parallel.collectives import ParallelContext
         from llavamod_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
-        need = targs.data_parallel * targs.expert_parallel
+        need = (targs.data_parallel * targs.expert_parallel
+                * targs.tensor_parallel)
         self.mesh = make_mesh(MeshConfig(
             data=targs.data_parallel, fsdp=world // need,
-            expert=targs.expert_parallel), torch.device(device).type)
+            expert=targs.expert_parallel, tensor=targs.tensor_parallel),
+            torch.device(device).type)
         self.pctx = ParallelContext(self.mesh)
         rank0_print(f"[mesh] {dataclasses.asdict(self.pctx.cfg)}")
 
@@ -379,15 +384,18 @@ def build_data_module(stage: str, margs: ModelArgs, dargs: DataArgs,
     else:
         sampler = RandomSampler(len(dataset), seed=targs.seed)
     _, world = _launched()
-    if world > 1:
-        # every process loads only its rank-strided shard of the
+    rows = world // targs.tensor_parallel
+    if rows > 1:
+        # every process loads only its row rank's strided shard of the
         # (deterministic, identically seeded) global order (reference
-        # llava_trainer.py:62-90)
+        # llava_trainer.py:62-90); the ranks of a tensor group (consecutive
+        # ranks) read the same rows
         from llavamod_tpu_torch.train.sampler import ProcessShardSampler
         from llavamod_tpu_torch.utils.logging import process_rank
 
-        sampler = ProcessShardSampler(sampler, process_rank(), world)
-        rank0_print(f"[data] process-sharded sampler: {world} shards")
+        sampler = ProcessShardSampler(
+            sampler, process_rank() // targs.tensor_parallel, rows)
+        rank0_print(f"[data] process-sharded sampler: {rows} shards")
     return DataLoader(dataset, targs.per_device_train_batch_size, collator,
                       sampler=sampler, drop_last=True,
                       num_workers=targs.dataloader_num_workers)
@@ -762,6 +770,13 @@ def _run_stage(stage, margs, dargs, targs, salign, sdpo, tokenizer, device):
             and hasattr(teacher, "vision"):
         # the frozen tower is shared with the teacher: drop its own copy
         del teacher.vision
+    if targs.sequence_parallel and targs.tensor_parallel > 1:
+        cfg = cfg.replace(llm=cfg.llm.replace(seq_shard_activations=True))
+        if teacher_cfg is not None:
+            teacher_cfg = teacher_cfg.replace(
+                llm=teacher_cfg.llm.replace(seq_shard_activations=True))
+        rank0_print("[mesh] sequence parallelism on: residual stream "
+                    f"T-sharded over tensor={targs.tensor_parallel}")
     lora, lora_cfg = maybe_add_lora(model, margs, targs.seed)
     float_stash = quantize_stage_models(tcfg, salign or sdpo, model, teacher,
                                         lora_cfg)

@@ -24,12 +24,18 @@ cast, and the gradients reach the adapters through the merge.
 
 Under a parallel context (parallel/collectives.py, one process per card,
 the models wrapped by parallel/sharding.py `shard_params`) a step on the
-rank's rows is its share of the single-process step on the world's rows:
-the token-mean losses divide by the world's counts, the MoE blocks gate
-the world's tokens, the terms every rank computes whole (the router aux
-loss, the DPO loss over the gathered pair log-probs) count 1 / world on
-each rank, and FSDP2 sums the gradients over the ranks.  The metrics are
-the world's values on every rank.  The models are called through their
+rank's rows is its share of the single-process step on the rows of data x
+fsdp x expert (the rows group): the token-mean losses divide by the rows
+group's counts, the MoE blocks gate its tokens, the terms every rank
+computes whole (the router aux loss, the DPO loss over the gathered pair
+log-probs) count 1 / rows on each rank, and FSDP2 sums the gradients over
+the rows group.  The ranks of a tensor group hold the same rows and the
+same loss: a tensor-split parameter's gradient is the rank's slice of the
+whole one, and a replicated one's is whole on every tensor rank, except
+under sequence parallelism, where the decoder's replicated parameters
+(norms, router, output biases) see only the rank's T-shard and their
+gradients are summed over the group (`_sum_sequence_shards`).  The metrics
+are the world's values on every rank.  The models are called through their
 module call, so that a sharded model gathers its parameters, and its
 mixed-precision policy does the compute-dtype cast of `_cast_tree`.
 """
@@ -76,8 +82,8 @@ def _count_reduce(pctx):
 
 def _once(x: torch.Tensor, pctx) -> torch.Tensor:
     """A term every rank computes whole, weighted to count once in the sum
-    of the ranks' losses."""
-    return x if pctx is None else x / pctx.world
+    of the rows group's losses."""
+    return x if pctx is None else x / pctx.rows
 
 
 def _world_metrics(metrics: Metrics, pctx) -> Metrics:
@@ -230,7 +236,8 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
             loss, metrics = loss_fn(model, teacher, batch)
             loss.backward()
         return _apply_update(state, _world_metrics(metrics,
-                                                   parallel_context()))
+                                                   parallel_context()),
+                             student_cfg)
 
     return step
 
@@ -240,14 +247,36 @@ def _clear_grads(state: TrainState) -> None:
         p.grad = None
 
 
-def _apply_update(state: TrainState, metrics: Metrics):
+def _sum_sequence_shards(model: nn.Module, grads: Dict[str, torch.Tensor],
+                         cfg: LlavaConfig) -> None:
+    """Under sequence parallelism, sum over the tensor group, in place, the
+    gradients of the decoder's parameters that `tensor` leaves whole: each
+    rank's is the part of its T-shard."""
+    from llavamod_tpu_torch.parallel.collectives import tensor_sum
+    from llavamod_tpu_torch.parallel.sharding import local_tensor
+
+    pctx = parallel_context()
+    if pctx is None or pctx.tensor_size == 1 or \
+            not cfg.llm.seq_shard_activations:
+        return
+    splits = getattr(model, "tensor_split", {})
+    for n, g in grads.items():
+        if n.startswith("llm.") and n not in splits:
+            g = local_tensor(g)
+            g.copy_(tensor_sum(g, pctx))
+
+
+def _apply_update(state: TrainState, metrics: Metrics, cfg=None):
     """Hands the trainable parameters' gradients to the optimizer (AdamW,
     or MultiSteps' running mean) and clears them; returns the state one
     microbatch on and the metrics with `grad_norm`, the global norm of this
-    microbatch's gradients before clipping."""
+    microbatch's gradients before clipping.  `cfg`: the model's config
+    (sequence parallelism, `_sum_sequence_shards`)."""
     params = state.opt.params
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              for n, p in params.items()}
+    if cfg is not None:
+        _sum_sequence_shards(state.model, grads, cfg)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = state.opt.update(grads)
     _clear_grads(state)
@@ -378,7 +407,7 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
             metrics = (chunked(model, batch, n_ck) if n_ck > 1
                        else one_shot(model, batch))
         return _apply_update(state, _world_metrics(metrics,
-                                                   parallel_context()))
+                                                   parallel_context()), cfg)
 
     return step
 
@@ -480,6 +509,6 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
                 _cast_tree(model, dtype), _cast_tree(ref, dtype), segments:
             loss, metrics = loss_fn(model, ref, batch2b, pctx)
             loss.backward()
-        return _apply_update(state, metrics)
+        return _apply_update(state, metrics, policy_cfg)
 
     return step

@@ -9,8 +9,9 @@
     JAX's does (tests/test_parallel.py's cases and more), and `fsdp_dim`
     picks the dim FSDP2 splits from it;
   * `batch_spec`, `MeshConfig.size` and `MeshConfig.auto` as JAX's;
-  * `make_mesh` refuses tensor and pipeline parallelism with the ROADMAP
-    items that port them (13, 14) before it touches a process group;
+  * `make_mesh` refuses pipeline parallelism with the ROADMAP item that
+    ports it (14) before it touches a process group, and builds a tensor=2
+    mesh whose context holds the right groups (2 ranks under gloo);
   * the rows a rank's experts compute follow what the rank received, not
     the world's capacity: under a context of W ranks that mirror this
     process's rows, the expert batch keeps its size as W grows."""
@@ -132,13 +133,58 @@ def test_mesh_config_size_and_auto_match_jax():
     assert MeshConfig.auto() == MeshConfig()     # one process: fsdp=1
 
 
+def _tensor_mesh_groups(rank, world, store, out):
+    """One rank of a tensor=2 mesh: its context's groups as rank lists."""
+    import json
+
+    import torch.distributed as dist
+
+    from llavamod_tpu_torch.parallel.collectives import ParallelContext
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        ctx = ParallelContext(make_mesh(MeshConfig(tensor=2), "cpu"))
+        got = dict(
+            tensor=dist.get_process_group_ranks(ctx.tensor_group),
+            rows=dist.get_process_group_ranks(ctx.rows_group),
+            fsdp=dist.get_process_group_ranks(ctx.fsdp_group),
+            expert=dist.get_process_group_ranks(ctx.expert_group),
+            param_mesh=ctx.param_mesh.mesh.tolist(),
+            sizes=[ctx.tensor_size, ctx.tensor_rank, ctx.rows, ctx.row_rank])
+        with open(f"{out}{rank}.json", "w") as f:
+            json.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("axes,item", [(dict(tensor=2), 13),
                                        (dict(pipe=2), 14)])
-def test_make_mesh_refuses_tensor_and_pipeline(axes, item):
+def test_make_mesh_refuses_tensor_and_pipeline(axes, item, tmp_path):
+    """Pipeline parallelism (item 14) is refused before a process group is
+    touched.  Tensor parallelism (item 13) is ported: a tensor=2 mesh over
+    2 ranks gives each rank both in its tensor group, itself alone in its
+    rows, fsdp and expert groups and in its FSDP2 mesh."""
+    import json
+
+    import torch.multiprocessing as mp
+
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, item {item}"):
-        make_mesh(MeshConfig(**axes), "cpu")
+    if item == 14:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1, item {item}"):
+            make_mesh(MeshConfig(**axes), "cpu")
+        assert not torch.distributed.is_initialized()
+        return
+    out = str(tmp_path / "groups")
+    mp.spawn(_tensor_mesh_groups, args=(2, str(tmp_path / "store"), out),
+             nprocs=2)
+    for rank in range(2):
+        with open(f"{out}{rank}.json") as f:
+            got = json.load(f)
+        assert got == dict(tensor=[0, 1], rows=[rank], fsdp=[rank],
+                           expert=[rank], param_mesh=[[rank]],
+                           sizes=[2, rank, 1, 0])
     assert not torch.distributed.is_initialized()
 
 
@@ -178,6 +224,7 @@ class _Mirrors:
     def __init__(self, world):
         self.world, self.rank, self.segments, self.expert_size = (
             world, 0, 1, 1)
+        self.rows, self.tensor_size = world, 1
 
     def gather_rows(self, x):
         return torch.cat([x] * self.world), torch.arange(x.shape[0])

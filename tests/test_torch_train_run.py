@@ -674,8 +674,8 @@ PRESET = "tiny-dense-preset"     # a registered name: --s2 and
                      image_tower="tiny-vit", video_global_proj=True)), 6),
     (dict(targs=dict(data_parallel=2)), "mesh"),
     (dict(targs=dict(expert_parallel=2)), "mesh"),
-    (dict(targs=dict(sequence_parallel=True)), 13),
-    (dict(targs=dict(tensor_parallel=2)), 13),
+    (dict(targs=dict(sequence_parallel=True)), "runs"),
+    (dict(targs=dict(tensor_parallel=2)), "mesh"),
     (dict(targs=dict(pipeline_parallel=2)), 14),
     (dict(margs=dict(lora_enable=True), env=True), 15),
     (dict(targs=dict(fused_update=True, optimizer="adafactor"), env=True),
@@ -686,15 +686,17 @@ PRESET = "tiny-dense-preset"     # a registered name: --s2 and
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item,
                                                         monkeypatch):
-    """The options of items 13-15 (tensor, sequence and pipeline
-    parallelism; LoRA and the fused step with more than one process, here
-    under a torchrun environment of 2) raise NotImplementedError naming
-    the item, and a data or expert parallel mesh one process cannot fill
-    raises ValueError, before anything is built; item 6's options, once
-    refused the same way, run the align stage: LoRA writes `adapter/` and
-    the merged model (its FFN weights moved, its tower not), S2 doubles
-    the tower's feature width, and the video projector joins the model in
-    stage 1 (the align stage refuses it)."""
+    """The options of items 14-15 (pipeline parallelism; LoRA and the fused
+    step with more than one process, here under a torchrun environment of
+    2) raise NotImplementedError naming the item, and a data, expert or
+    tensor parallel mesh one process cannot fill raises ValueError, before
+    anything is built; item 6's options, once refused the same way, run
+    the align stage: LoRA writes `adapter/` and the merged model (its FFN
+    weights moved, its tower not), S2 doubles the tower's feature width,
+    and the video projector joins the model in stage 1 (the align stage
+    refuses it).  Item 13 is ported: --sequence_parallel without a tensor
+    split runs the align stage as it would without it (the JAX engine
+    turns it on only with --tensor_parallel > 1)."""
     from llavamod_tpu_torch.models.llm.config import llm_configs
     from llavamod_tpu_torch.models.vision import vit as tvit
 
@@ -748,6 +750,8 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
         assert {f"llm.layers.{i}.mlp.{w}" for i in range(cfg.llm.num_layers)
                 for w in ("gate", "up", "down")} <= moved
         assert not any(k.startswith("vision.") for k in moved)
+    elif item == "runs":
+        assert not cfg.llm.seq_shard_activations
     elif margs.get("s2"):
         assert cfg.s2_scales == (28, 56) and cfg.vision_feature_dim == 64
         assert model.projector.layers[0].kernel.shape[0] == 64
