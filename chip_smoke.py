@@ -53,10 +53,11 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      step is held against the first bf16 step, and the teacher forward is
      timed in both forms; one more step of each is profiled.  Then
      [train fused], the JAX package's configuration of record for stage 2:
-     Adafactor and the fused backward+update step, the recipe's
-     accumulation 8 folded into B=8, gating groups of one sequence, the
-     int8 options; one update at a constant lr of 1e-2 against the
-     unfused path (make_align_step + Adafactor + MultiSteps(8)) on the
+     Adafactor and the fused backward+update step, FUSED_ACCUM (4; the
+     recipe's accumulation is 8) microbatches folded into one batch,
+     gating groups of one sequence, the int8 options; one update at a
+     constant lr of 1e-2 against the unfused path (make_align_step +
+     Adafactor + MultiSteps(FUSED_ACCUM)) on the
      same microbatches (loss, grad_norm and the updated weights), then a
      warm-up, 2 timed updates, the share of bf16 entries one update at the
      recipe's lr leaves unchanged, and a profiled update, each launching
@@ -124,7 +125,17 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      second torchrun resumed from that checkpoint, whose update 2 must
      repeat the first run's (one microbatch of it profiled: the NCCL
      kernels' and FSDP2's copy-in / copy-out device ms); a failed worker
-     fails the smoke.  Then [tp]: first a probe of which collectives gloo
+     fails the smoke.  That torchrun's worker then runs [dist fused] and
+     [dist lora] (`[stages fused]`'s and `[lora]`'s argv, one after the
+     other in the same process and NCCL group), digests rank 0's model.pt
+     and adapter files and removes them; after their single-process runs
+     [dist fused] must give both updates and every model.pt entry bitwise
+     (K1 / K3 / K4 an update, update ms, peak GiB and the first update's
+     allocations by site beside the single process, the global-gating
+     warning), and [dist lora] the first microbatch, adapter_model.bin,
+     non_lora_trainables.bin and the merged model.pt bitwise (every
+     adapted base weight unchanged, every `b` moved, K1 / K3 / K4 a
+     microbatch, microbatch ms and peak).  Then [tp]: first a probe of which collectives gloo
      serves for CUDA tensors (2 ranks on cuda:0; a missing one fails the
      phase), then stage 2 again at `--tensor_parallel 2
      --sequence_parallel true` under one `torch.distributed.run
@@ -178,7 +189,8 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      adapted weight within one bf16 ulp (of the larger of the entry and
      the rank-r product) of the stage's merged output; the
      eval CLI with `--model-path out/adapter --model-base <base>` answers
-     the 20 questions token for token as the merged directory does (first
+     LORA_EVAL_QUESTIONS questions token for token as the merged directory
+     does (first
      batch's prefill logits bitwise), K1/K2 on every layer;
  10. [projectors] (last): two stage-1 runs from the stage-1 config on a
      preset of Qwen1.5-1.8B's widths cut to 6 of its 24 layers (the
@@ -258,9 +270,10 @@ INT8_GRAD_NORM_REL_TOL = 0.2
 INT8_LOGITS_REL_TOL = 0.25
 INT8_FIRST_TOKEN_MIN_ROWS = 4
 
-#  * [train fused]: one fused update (8 microbatches folded, gating groups
-#    of one sequence) against the unfused path (make_align_step,
-#    Adafactor, MultiSteps(8)) from the same weights and microbatches.  The
+#  * [train fused]: one fused update (FUSED_ACCUM microbatches folded,
+#    gating groups of one sequence) against the unfused path
+#    (make_align_step, Adafactor, MultiSteps(FUSED_ACCUM)) from the same
+#    weights and microbatches.  The
 #    forwards run the same kernels at the same shapes (one B=1 chunk per
 #    microbatch), so the mean loss moves only by the order of the
 #    microbatch sums (limit LOSS_REL_TOL); the gradients are summed in bf16
@@ -272,7 +285,7 @@ INT8_FIRST_TOKEN_MIN_ROWS = 4
 #    ~1e-2 rms(p) is 2-3 bf16 ulps of an entry, so where the two u differ
 #    by the gradients' rounding (~1e-2 relative) some 3-10% of entries
 #    round one ulp apart, ~0.05-0.15 of the update's norm; an update that
-#    missed one of the 8 microbatches, or used other Adafactor blocks or
+#    missed one of its microbatches, or used other Adafactor blocks or
 #    another lr, is off by 0.35 or more.
 FUSED_PARAM_REL_TOL = 0.25
 #  * [stages fused] auto-resume: the run resumed from the checkpoint after
@@ -329,7 +342,12 @@ NEW_TOKENS = 32
 SEED = 0
 TRAIN_T = 2048
 TRAIN_TIMED_STEPS = 3
-FUSED_ACCUM = 8                # the recipe's gradient_accumulation_steps
+# the recipe folds 8 microbatches (gradient_accumulation_steps); the smoke
+# folds 4 since PR 14, for the time limit: each comparison is like for
+# like (the check update against MultiSteps(FUSED_ACCUM)); the update's
+# Adafactor step spreads over fewer microbatches, so ms a microbatch reads
+# higher than at 8
+FUSED_ACCUM = 4
 FUSED_TIMED_UPDATES = 2
 FUSED_CHECK_LR = 1e-2
 RECIPE_LR = 2e-5
@@ -1542,14 +1560,16 @@ def train_fused_phase(cfg, student, teacher_cfg, teacher8, head8, tcfg8,
                       card):
     """[train fused]: the JAX package's configuration of record for stage 2
     (bench.py BENCH_CONFIG=flagship): Adafactor, the fused backward+update
-    step, the recipe's accumulation 8 folded into the batch (B=8, T=2048),
-    gating groups of one sequence, no remat, with the stage-2 config's int8
+    step, FUSED_ACCUM microbatches folded into the batch (B=FUSED_ACCUM,
+    T=2048; the recipe folds 8), gating groups of one sequence, no remat,
+    with the stage-2 config's int8
     options (the int8_head teacher, the student head in int8).  bench.py's
     student attention and embedding int8 (BENCH_STUDENT_ATTN_QUANT,
     BENCH_EMBED_QUANT) quantize outside the trainer and are left out.
 
     One update at a constant lr of 1e-2 is held against the unfused path
-    (make_align_step, Adafactor, MultiSteps(8)) on the same 8 microbatches
+    (make_align_step, Adafactor, MultiSteps(FUSED_ACCUM)) on the same
+    FUSED_ACCUM microbatches
     from the same weights; then, at the recipe's peak lr of 2e-5, a
     warm-up and 2 timed updates (peak memory over these three), one update
     whose bitwise-unchanged share of trainable entries is counted, and one
@@ -1616,7 +1636,7 @@ def train_fused_phase(cfg, student, teacher_cfg, teacher8, head8, tcfg8,
                 for n, p in params.items():
                     p.copy_(p0[n])
 
-        # the unfused reference: 8 microbatches through MultiSteps(8); the
+        # the unfused reference: the microbatches through MultiSteps; the
         # inner optimizer's return is the norm of the mean gradient
         t0 = time.perf_counter()
         state = TrainState.create(student, check)
@@ -2644,7 +2664,15 @@ def _trainable_state(out: str, keys) -> dict:
     return {k: state[k] for k in keys}
 
 
-def fused_stage(config, argv, data, root, tok, dev, card, adamw) -> dict:
+def fused_args(data: dict) -> list:
+    """[stages fused]'s flags on top of stage 2's: Adafactor and the fused
+    step on the repeated-sample dataset."""
+    return ["--data_path", data["align_same"], "--optimizer", "adafactor",
+            "--fused_update", "true"]
+
+
+def fused_stage(config, argv, data, root, tok, dev, card, adamw,
+                dist_raw) -> dict:
     """[stages fused]: stage 2 again from its config as written, plus
     `--optimizer adafactor --fused_update`, accumulation 2 and 4
     microbatches (2 updates), on the repeated-sample dataset, with a
@@ -2658,13 +2686,14 @@ def fused_stage(config, argv, data, root, tok, dev, card, adamw) -> dict:
 
     whole = os.path.join(root, "out_align_fused")
     cut = os.path.join(root, "out_align_fused_resumed")
-    extra = ["--data_path", data["align_same"], "--optimizer", "adafactor",
-             "--fused_update", "true", "--save_steps", "1"]
+    extra = fused_args(data) + ["--save_steps", "1"]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         res = drive_stage("align", config, argv + extra
                           + ["--output_dir", whole], tok, dev, card,
-                          tag="align fused")
+                          tag="align fused", memory_call=0)
+    dist = dist_fused_check(dist_raw.pop("fused"), res, whole, card,
+                            dist_raw["wall_s"])
     warned = any("global gating" in str(w.message) for w in caught)
     log(f"[stages] align fused: global-gating warning given: {warned}; peak "
         f"of the steps {res['step_peak_gib']:.2f} GiB vs "
@@ -2725,7 +2754,7 @@ def fused_stage(config, argv, data, root, tok, dev, card, adamw) -> dict:
     del saved, after1, w_whole, w_cut
     shutil.rmtree(cut)
     return dict(res, resume=dict(rel=rel, bitwise_equal=same / total,
-                                 seconds=resume_s), warned=warned)
+                                 seconds=resume_s), warned=warned, dist=dist)
 
 
 def check_stage1_outputs(policy: str, out: str, dev, margs=None,
@@ -2807,6 +2836,9 @@ def _moe_config(model_dir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 EVAL_QUESTIONS = 20
+# [lora]'s adapter and merged runs answer one batch alike (20 until PR 14,
+# cut for the time limit)
+LORA_EVAL_QUESTIONS = 8
 EVAL_TEMPLATE = "qwen"          # the "version" of the stage configs
 POPE_CATEGORIES = ("adversarial", "popular", "random")
 EVAL_OBJECTS = ("dog", "cat", "car", "person", "chair", "bicycle", "bottle",
@@ -3372,7 +3404,11 @@ def watched_lora(record: dict):
 
     def saving(output_dir, cfg, state, tcfg, *args, **kwargs):
         if state.lora is not None:
-            weights = dict(state.model.named_parameters())
+            from torch.distributed.tensor import DTensor
+
+            weights = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in state.model.named_parameters()
+                       if k in record["before"]}
             record.update(
                 unchanged=sum(bool(torch.equal(weights[t], record["before"][t]
                                                .to(weights[t].device)))
@@ -3393,7 +3429,7 @@ def watched_lora(record: dict):
 
 
 def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
-               card: str, plain_stage2: dict) -> dict:
+               card: str, plain_stage2: dict, dist_raw: dict) -> dict:
     """[lora]: stage 2 from its config as written plus `--lora_enable True`
     (r 128, alpha 256, FFN adapters, the experts' per expert) from stage
     2a's output: the numbers beside the same call's stage 2 without
@@ -3405,7 +3441,8 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
     rank-r product; the routers the run trained come through
     non_lora_trainables.bin bitwise.  Then `eval.cli generate
     --model-path out/adapter --model-base <base>` and the same on the
-    merged directory must answer the 20 questions token for token alike,
+    merged directory must answer LORA_EVAL_QUESTIONS questions token for
+    token alike,
     with the first batch's prefill logits bitwise equal."""
     from llavamod_tpu_torch.models.builder import save_model
     from llavamod_tpu_torch.models.lora import NON_LORA_FILE, load_lora_adapter
@@ -3436,6 +3473,8 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
         raise AssertionError(f"[lora] adapted weights moved or adapters did "
                              f"not: {record['unchanged']}, "
                              f"{record['b_moved']} of {n}")
+    dist = dist_lora_check(dist_raw, res, out, card)
+    del dist_raw
 
     # the base as run_stage built it: stage 2a's output, upcycled
     margs, _, targs, salign = parse_stage("align", config, argv)
@@ -3518,7 +3557,8 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
     torch.cuda.empty_cache()
     os.remove(os.path.join(out, "model.pt"))
 
-    questions, qfile, _ = write_eval_data(os.path.join(root, "lora_eval"))
+    questions, qfile, _ = write_eval_data(os.path.join(root, "lora_eval"),
+                                          LORA_EVAL_QUESTIONS)
     common = ["--question-file", qfile, "--image-folder", data["images"],
               "--conv-mode", EVAL_TEMPLATE, "--batch-size", str(MAX_BATCH),
               "--max-new-tokens", str(NEW_TOKENS)]
@@ -3531,7 +3571,8 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
         runner, rec, stats = drive_eval(
             f"[eval lora {name}]", model_args + common + ["--answers-file",
                                                           answers],
-            tok, card, _num_layers(base), int8_cache=False)
+            tok, card, _num_layers(base), int8_cache=False,
+            questions=LORA_EVAL_QUESTIONS)
         check_answers(f"[eval lora {name}]", answers, questions)
         # the rows alone prove little (the smoke's student answers with
         # spaces): the first batch's prefill logits are compared too
@@ -3563,7 +3604,7 @@ def lora_phase(config: str, argv: list, data: dict, root: str, tok, dev,
         targets=n, params=record["params"], bytes=record["bytes"],
         unchanged=record["unchanged"], b_moved=record["b_moved"]),
         base_s=base_s, merge_s=merge_s, merge_equal=equal,
-        merge_within_ulp=within, eval=runs)
+        merge_within_ulp=within, eval=runs, dist=dist)
 
 
 # ---------------------------------------------------------------------------
@@ -3860,24 +3901,45 @@ def dist_profile(prof, wall_ms: float) -> dict:
 
 
 def dist_worker(spec_path: str) -> int:
-    """The [dist] worker, one rank of `torch.distributed.run`: stage 2
-    through `run_stage` (which joins the NCCL group torchrun describes and
-    shards both models) with the stand-in tokenizer, each microbatch
+    """The worker of [dist], [dist fused] and [dist lora], one rank of
+    `torch.distributed.run`: stage 2 through `run_stage` (which joins the
+    NCCL group torchrun describes and shards both models) with the
+    stand-in tokenizer, once for the spec or once for each of its `runs`
+    in turn (one process start and NCCL group for them all), each step
     counted as in the stages phase; rank 0 writes the numbers to the
     spec's `result` file."""
-    from llavamod_tpu_torch.parallel import collectives
-    from llavamod_tpu_torch.parallel.sharding import is_sharded
-    from llavamod_tpu_torch.train import run, steps
-
     with open(spec_path) as f:
         spec = json.load(f)
+    runs = spec.get("runs")
+    results = ({r["name"]: _dist_stage(r) for r in runs} if runs
+               else _dist_stage(spec))
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(spec["result"], "w") as f:
+            json.dump({"runs": results} if runs else results, f)
+    return 0
+
+
+def _dist_stage(spec: dict) -> dict:
+    """One `run_stage("align")` of the worker on `spec` (config, argv,
+    profile_call, memory_call); its numbers."""
+    import warnings
+
+    from llavamod_tpu_torch.parallel import collectives
+    from llavamod_tpu_torch.parallel.sharding import is_sharded
+    from llavamod_tpu_torch.train import fused_steps, run, steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
     margs, dargs, targs, extra = parse_stage("align", spec["config"],
                                              spec["argv"])
     records, saves, sharded = [], [], []
     calls = {"gather_rows": 0, "exchange": 0}
-    originals = dict(save=run._save_periodic, make=steps.make_align_step,
+    makers = ((steps, "make_align_step"),
+              (fused_steps, "make_fused_align_step"))
+    originals = dict(save=run._save_periodic,
                      **{n: getattr(collectives.ParallelContext, n)
-                        for n in calls})
+                        for n in calls},
+                     **{n: getattr(mod, n) for mod, n in makers})
 
     def timed_save(*a, **k):
         torch.cuda.synchronize()
@@ -3892,46 +3954,65 @@ def dist_worker(spec_path: str) -> int:
             return originals[name](self, *a, **k)
         return call
 
-    def make(*a, **k):
-        step = originals["make"](*a, **k)
+    def checking(name):
+        def make(*a, **k):
+            step = originals[name](*a, **k)
 
-        def checked(state, teacher, batch):
-            if not sharded:
-                sharded.append(dict(student=is_sharded(state.model),
-                                    teacher=is_sharded(teacher)))
-            return step(state, teacher, batch)
-        return checked
+            def checked(state, teacher, batch):
+                if not sharded:
+                    sharded.append(dict(student=is_sharded(state.model),
+                                        teacher=is_sharded(teacher)))
+                return step(state, teacher, batch)
+            return checked
+        return make
 
     run._save_periodic = timed_save
-    steps.make_align_step = make
+    for mod, n in makers:
+        setattr(mod, n, checking(n))
     for n in calls:
         setattr(collectives.ParallelContext, n, counting(n))
     torch.cuda.reset_peak_memory_stats()
+    lora = {}
     try:
         with counted_steps(records, spec.get("profile_call"),
-                           spec.get("memory_call")):
+                           spec.get("memory_call")), \
+                watched_lora(lora), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
             _reset_launch_counts()
             run.run_stage("align", margs, dargs, targs, salign=extra,
                           tokenizer=StandInTokenizer(), device="cuda")
             launches = _launch_counts()
     finally:
         run._save_periodic = originals["save"]
-        steps.make_align_step = originals["make"]
+        for mod, n in makers:
+            setattr(mod, n, originals[n])
         for n in calls:
             setattr(collectives.ParallelContext, n, originals[n])
-    if int(os.environ.get("RANK", "0")) == 0:
-        peak = max([torch.cuda.max_memory_allocated() / 2**30]
-                   + [max(r["prior_peak_gib"], r["peak_gib"])
-                      for r in records])
-        with open(spec["result"], "w") as f:
-            json.dump(dict(records=records, launches=launches, peak_gib=peak,
-                           checkpoint_s=saves, sharded=sharded,
-                           collective_calls=calls,
-                           world=int(os.environ["WORLD_SIZE"]),
-                           torch=torch.__version__,
-                           nccl=".".join(map(str, torch.cuda.nccl.version()))),
-                      f)
-    return 0
+    peak = max([torch.cuda.max_memory_allocated() / 2**30]
+               + [max(r["prior_peak_gib"], r["peak_gib"]) for r in records])
+    lora.pop("before", None)
+    digests = {}
+    if spec.get("remove_after") and int(os.environ.get("RANK", "0")) == 0:
+        shutil.rmtree(spec["remove_after"])
+    if spec.get("digest_outputs") and int(os.environ.get("RANK", "0")) == 0:
+        from llavamod_tpu_torch.models.lora import NON_LORA_FILE
+
+        out = targs.output_dir
+        for name in ("model.pt", os.path.join("adapter", "adapter_model.bin"),
+                     os.path.join("adapter", NON_LORA_FILE)):
+            path = os.path.join(out, name)
+            if os.path.exists(path):
+                digests[os.path.basename(name)] = file_digests(path)
+                os.remove(path)
+    return dict(records=records, launches=launches, peak_gib=peak,
+                digests=digests,
+                checkpoint_s=saves, sharded=sharded, collective_calls=calls,
+                world=int(os.environ["WORLD_SIZE"]), lora=lora,
+                warned=any("global gating" in str(w.message)
+                           for w in caught),
+                torch=torch.__version__,
+                nccl=".".join(map(str, torch.cuda.nccl.version())))
 
 
 def _torchrun(spec: dict, root: str, tag: str) -> dict:
@@ -3965,14 +4046,17 @@ def _torchrun(spec: dict, root: str, tag: str) -> dict:
     return out
 
 
-def dist_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
+def dist_runs(config: str, argv: list, root: str, dev, card: str,
+              more: dict) -> dict:
     """[dist], before the single-process stage 2 (so that its checkpoint
     and the stages' files fit the disk together): stage 2 (`argv`: the
     stages phase's, from 2a's output) under a one-rank NCCL torchrun, with
     a sharded checkpoint after update 1; rank 0's model.pt through
     `load_pretrained_model` on the card (kept on the host for
     `dist_check`); a second torchrun resumed from the checkpoint, one
-    microbatch profiled.  The checkpoint is removed at the end."""
+    microbatch profiled, whose worker removes the checkpoint and goes on
+    to [dist fused] and [dist lora] (`more`: their argvs,
+    `dist_more_runs`)."""
     from llavamod_tpu_torch.models.builder import load_pretrained_model
     from llavamod_tpu_torch.train.args import AlignArgs
 
@@ -4008,7 +4092,9 @@ def dist_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    resumed = _torchrun(dict(spec, profile_call=1), root, "resumed")
+    more = dist_more_runs(config, more, root, first=dict(
+        spec, name="resumed", profile_call=1, remove_after=ckpt))
+    resumed = dict(more.pop("resumed"), wall_s=more["wall_s"])
     lines2 = _read_json_lines(os.path.join(out, "metrics.jsonl"))
     with open(os.path.join(out, "run_info.json")) as f:
         info2 = json.load(f)
@@ -4016,12 +4102,220 @@ def dist_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
                        weights_only=True, mmap=True)
     resumed_same = sum(torch.equal(v, state[k]) for k, v in again.items())
     del again
-    shutil.rmtree(ckpt)
     return dict(out=out, first=first, lines=lines, info=info, state=state,
                 loaded_on=loaded_on, ckpt_gb=ckpt_gb, resumed=resumed,
                 lines2=lines2, info2=info2, resumed_same=resumed_same,
                 per_mb=per_mb, tokens=targs.per_device_train_batch_size
-                * targs.model_max_length)
+                * targs.model_max_length, more=more)
+
+
+def file_digests(path: str) -> dict:
+    """{entry: 'dtype shape blake2b'} of every tensor of a torch.save'd
+    dict (model.pt, adapter_model.bin, ...): equal digests are bitwise
+    equal entries.  Hashed in threads (hashlib releases the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    state = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+
+    def digest(item):
+        k, v = item
+        raw = v.detach().contiguous().view(-1).view(torch.uint8).numpy()
+        return k, (f"{v.dtype} {tuple(v.shape)} "
+                   f"{hashlib.blake2b(raw, digest_size=20).hexdigest()}")
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(digest, state.items()))
+
+
+def _bitwise(a: dict, b: dict) -> tuple:
+    """(entries of `a` equal to `b`'s, entries of `b`) of two
+    `file_digests`; keys must agree."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"keys differ: {sorted(a.keys() ^ b.keys())[:4]}")
+    return sum(v == b[k] for k, v in a.items()), len(b)
+
+
+def dist_more_runs(config: str, argvs: dict, root: str, first: dict
+                   ) -> dict:
+    """[dist fused] and [dist lora], beside [dist] and before the single-
+    process stage 2b: one one-rank NCCL torchrun whose worker calls
+    `run_stage` for `first` ([dist]'s resumed run, whose checkpoint it
+    then removes), `argvs["fused"]` ([stages fused]'s argv: Adafactor, the
+    fused step, 2 updates of 2 folded microbatches, the repeated sample)
+    and `argvs["lora"]` ([lora]'s: `--lora_enable True`, r 128) in turn;
+    the fused run's first update records its allocations.  The worker
+    digests rank 0's model.pt and adapter files and removes them before
+    the next run writes (the card machine's disk); the metrics and
+    run_info.json are read here and the outputs removed:
+    `dist_fused_check` and `dist_lora_check` hold them against the
+    single-process runs of this call."""
+    outs = {n: os.path.join(root, f"out_align_{n}_dist") for n in argvs}
+    runs = [first] + [dict(name=n, config=config, digest_outputs=True,
+                           memory_call=0 if n == "fused" else None,
+                           argv=argvs[n] + ["--output_dir", outs[n]])
+                      for n in argvs]
+    raw = _torchrun(dict(runs=runs), root, "more")
+    log_time("[dist] resumed, [dist fused], [dist lora] torchrun")
+    got = {}
+    for n, out in outs.items():
+        with open(os.path.join(out, "run_info.json")) as f:
+            info = json.load(f)
+        got[n] = dict(raw["runs"][n], info=info,
+                      lines=_read_json_lines(os.path.join(out,
+                                                          "metrics.jsonl")))
+        shutil.rmtree(out)
+    got["resumed"] = raw["runs"][first["name"]]
+    got["wall_s"] = raw["wall_s"]
+    return got
+
+
+def _updates_rel(got: list, want: list) -> list:
+    return [{k: abs(g[k] - w[k]) / abs(w[k]) for k in ("loss", "grad_norm")}
+            for g, w in zip(got, want)]
+
+
+def dist_fused_check(raw: dict, single: dict, single_out: str, card: str,
+                     wall_s: float) -> dict:
+    """[dist fused] against the same call's single-process [stages fused]
+    (`single`, its output in `single_out` before anything is removed):
+    both updates' loss and grad_norm, rank 0's model.pt, K1 / K3 / K4 an
+    update, update ms, peak GiB and the first update's allocations by
+    site, the global-gating warning.  Prints the numbers; raises on a
+    failed check."""
+    recs, info = raw["records"], raw["info"]
+    per = single["launches_per_microbatch"]
+    lines = raw["lines"]
+    want = _read_json_lines(os.path.join(single_out, "metrics.jsonl"))
+    rel = _updates_rel(lines, want)
+    bitwise_metrics = all(g[k] == w[k] for g, w in zip(lines, want)
+                          for k in w if k not in ("step", "sec_per_step"))
+    same, n = _bitwise(raw["digests"]["model.pt"], file_digests(
+        os.path.join(single_out, "model.pt")))
+    ms = [r["ms"] for r in recs]
+    med = statistics.median(ms[1:])     # as drive_stage: after the first
+    mem, smem = recs[0]["memory"], single["memory"]
+    log(f"[dist fused] one-rank NCCL torchrun (with [dist]'s resumed run and"
+        f" [dist lora]) {wall_s:.1f} s; mesh {info.get('mesh')}, backend {info.get('backend')}, "
+        f"FSDP2-wrapped {raw['sharded']}; gating gathers "
+        f"{raw['collective_calls']['gather_rows']}, expert exchanges "
+        f"{raw['collective_calls']['exchange']}; global-gating warning given:"
+        f" {raw['warned']}; load and build {info['build_and_load_s']:.1f} s, "
+        f"saves {info['save_s']:.1f} s")
+    log(f"[dist fused] updates against the single-process [stages fused]: "
+        + "; ".join(f"update {i + 1} loss {g['loss']:.7f} vs {w['loss']:.7f}"
+                    f" (rel {r['loss']:.3e}), grad_norm {g['grad_norm']:.7f}"
+                    f" vs {w['grad_norm']:.7f} (rel {r['grad_norm']:.3e})"
+                    for i, (g, w, r) in enumerate(zip(lines, want, rel)))
+        + f"; tol {DIST_LOSS_REL_TOL}, {DIST_GRAD_NORM_REL_TOL}; every logged"
+        f" metric bitwise: {bitwise_metrics}")
+    log(f"[dist fused] rank 0's model.pt: {same} of {n} entries bitwise the "
+        f"single-process output")
+    log(f"[dist fused] update ms {' / '.join(f'{t:.1f}' for t in ms)} "
+        f"(median after the first {med:.1f}) against "
+        f"{single['median_ms']:.1f} single-process ({med / single['median_ms']:.3f}x); peak "
+        f"{raw['peak_gib']:.2f} GiB (of the updates "
+        f"{max(r['peak_gib'] for r in recs):.2f}) against "
+        f"{single['peak_gib']:.2f} ({single['step_peak_gib']:.2f}): "
+        f"{raw['peak_gib'] - single['peak_gib']:+.2f} GiB; on {card}")
+    log(f"[dist fused] the first update's own allocations at their peak: "
+        f"{mem['peak_gib']:.2f} GiB against {smem['peak_gib']:.2f} "
+        f"single-process; on {card}")
+    for name, m in (("dist", mem), ("single", smem)):
+        for r in m["sites"]:
+            log(f"[dist fused]   {name:6s} {r['gib']:7.3f} GiB {r['site']}")
+    log(f"[dist fused] launches per update {[r['launches'] for r in recs]} "
+        f"(the single process: {per} each)")
+    if not (info.get("backend") == "nccl" and raw["world"] == 1
+            and raw["sharded"] == [dict(student=True, teacher=True)]
+            and raw["collective_calls"]["gather_rows"] > 0):
+        raise AssertionError(f"[dist fused] did not run the sharded path: "
+                             f"{info} {raw['sharded']}")
+    if len(recs) != len(want) or any(r["launches"] != per for r in recs):
+        raise AssertionError(f"[dist fused] launches {recs}, need {per}")
+    if not (len(lines) == len(want) == 2 and raw["warned"]
+            and all(r["loss"] <= DIST_LOSS_REL_TOL
+                    and r["grad_norm"] <= DIST_GRAD_NORM_REL_TOL
+                    for r in rel)):
+        raise AssertionError(f"[dist fused] updates disagree: {rel} "
+                             f"warned {raw['warned']}")
+    if same != n:
+        raise AssertionError(f"[dist fused] model.pt: {same} of {n} bitwise")
+    return dict(update_ms=ms, median_ms=med,
+                single_median_ms=single["median_ms"],
+                peak_gib=raw["peak_gib"], single_peak_gib=single["peak_gib"],
+                launches=raw["launches"], launches_per_update=per, rel=rel,
+                bitwise_metrics=bitwise_metrics, model_bitwise=same,
+                entries=n, memory=mem, warned=raw["warned"],
+                load_s=info["build_and_load_s"])
+
+
+def dist_lora_check(raw: dict, single: dict, single_out: str,
+                    card: str) -> dict:
+    """[dist lora] against the same call's single-process [lora]
+    (`single`, its output in `single_out`): the first microbatch, the
+    adapters, rank 0's adapter files and merged model.pt, microbatch ms,
+    peak GiB and K1 / K3 / K4 a microbatch.  Raises on a failed check."""
+    from llavamod_tpu_torch.models.lora import NON_LORA_FILE
+
+    recs, info, rec = raw["records"], raw["info"], raw["lora"]
+    per = single["launches_per_microbatch"]
+    got = {k: v for k, v in raw["lines"][0].items()
+           if k not in ("step", "sec_per_step")}
+    sp = single["first"]
+    rel = {k: abs(got[k] - sp[k]) / abs(sp[k]) for k in ("loss",
+                                                         "grad_norm")}
+    bitwise_first = all(got[k] == sp[k] for k in sp)
+    files = {name: _bitwise(raw["digests"][name], file_digests(
+        os.path.join(single_out, path))) for name, path in (
+            ("adapter_model.bin", os.path.join("adapter",
+                                               "adapter_model.bin")),
+            (NON_LORA_FILE, os.path.join("adapter", NON_LORA_FILE)),
+            ("model.pt", "model.pt"))}
+    ms = [r["ms"] for r in recs]
+    med = statistics.median(ms[1:])
+    n = len(rec["targets"])
+    log(f"[dist lora] mesh {info.get('mesh')}, FSDP2-wrapped "
+        f"{raw['sharded']}; first microbatch against the single-process "
+        f"[lora]: loss {got['loss']:.7f} vs {sp['loss']:.7f} (rel "
+        f"{rel['loss']:.3e}), grad_norm {got['grad_norm']:.7f} vs "
+        f"{sp['grad_norm']:.7f} (rel {rel['grad_norm']:.3e}); tol "
+        f"{DIST_LOSS_REL_TOL}, {DIST_GRAD_NORM_REL_TOL}; every logged metric "
+        f"bitwise: {bitwise_first}")
+    log(f"[dist lora] adapted base weights bitwise unchanged before the "
+        f"final save {rec['unchanged']} of {n}; b adapters moved "
+        f"{rec['b_moved']} of {n}; rank 0's files bitwise the single "
+        f"process's: " + ", ".join(f"{k} {a} of {b}"
+                                   for k, (a, b) in files.items()))
+    log(f"[dist lora] microbatch ms {' / '.join(f'{t:.1f}' for t in ms)} "
+        f"(median after the first {med:.1f}) against "
+        f"{single['median_ms']:.1f} single-process "
+        f"({med / single['median_ms']:.3f}x); peak {raw['peak_gib']:.2f} GiB "
+        f"against {single['peak_gib']:.2f}; load and build "
+        f"{info['build_and_load_s']:.1f} s, saves {info['save_s']:.1f} s; "
+        f"on {card}")
+    log(f"[dist lora] launches per microbatch {[r['launches'] for r in recs]}"
+        f" (the single process: {per} each)")
+    if not (info.get("backend") == "nccl"
+            and raw["sharded"] == [dict(student=True, teacher=True)]):
+        raise AssertionError(f"[dist lora] did not run the sharded path: "
+                             f"{info} {raw['sharded']}")
+    if any(r["launches"] != per for r in recs) or \
+            len(recs) != STAGE_MICROBATCHES:
+        raise AssertionError(f"[dist lora] launches {recs}, need {per}")
+    if not (rel["loss"] <= DIST_LOSS_REL_TOL
+            and rel["grad_norm"] <= DIST_GRAD_NORM_REL_TOL
+            and rec["unchanged"] == rec["b_moved"] == n and n):
+        raise AssertionError(f"[dist lora] {rel} {rec}")
+    if any(a != b for a, b in files.values()):
+        raise AssertionError(f"[dist lora] files differ: {files}")
+    return dict(step_ms=ms, median_ms=med,
+                single_median_ms=single["median_ms"],
+                peak_gib=raw["peak_gib"], single_peak_gib=single["peak_gib"],
+                launches=raw["launches"], launches_per_microbatch=per,
+                rel=rel, bitwise_first=bitwise_first,
+                files_bitwise={k: list(v) for k, v in files.items()},
+                load_s=info["build_and_load_s"])
 
 
 def dist_check(raw: dict, single: dict, single_out: str, card: str) -> dict:
@@ -4118,8 +4412,9 @@ def dist_check(raw: dict, single: dict, single_out: str, card: str) -> dict:
     log(f"[dist] resumed from {info2['resumed_from']}: microbatches "
         f"{[ln['step'] for ln in again]}, loss / grad_norm rel to the first "
         f"run {[(f'{r['loss']:.2e}', f'{r['grad_norm']:.2e}') for r in rel2]}"
-        f" (tol {RESUME_LOSS_REL_TOL}, {RESUME_GRAD_NORM_REL_TOL}); "
-        f"torchrun {resumed['wall_s']:.1f} s")
+        f" (tol {RESUME_LOSS_REL_TOL}, {RESUME_GRAD_NORM_REL_TOL}); the "
+        f"torchrun of this run, [dist fused] and [dist lora] "
+        f"{resumed['wall_s']:.1f} s")
     log(f"[dist] profiled microbatch: {prof['wall_ms']:.1f} ms wall, "
         f"{prof['busy_ms']:.1f} ms device busy over {prof['kernels']} "
         f"kernels; NCCL {prof['nccl_ms']:.3f} ms over {prof['nccl_kernels']} "
@@ -4675,10 +4970,14 @@ def stages_phase(card: str, dev):
             if stage == "align":
                 # [dist] first: its checkpoint and the stages' files must fit
                 # the disk together; dist_check compares after stage 2
-                dist_raw = dist_runs(os.path.join(here, config),
-                                     argvs["align"] + common
-                                     + ["--data_path", data["align"]], root,
-                                     dev, card)
+                dist_raw = dist_runs(
+                    os.path.join(here, config), argvs["align"] + common
+                    + ["--data_path", data["align"]], root, dev, card,
+                    dict(fused=argvs["align"] + common + fused_args(data),
+                         lora=argvs["align"] + common + [
+                             "--data_path", data["align"], "--lora_enable",
+                             "True"]))
+                more_raw = dist_raw.pop("more")
                 log_time("[dist] runs")
                 tp_raw = tp_runs(os.path.join(here, config),
                                  argvs["align"] + common
@@ -4724,13 +5023,18 @@ def stages_phase(card: str, dev):
                 del tp_raw
                 results["align_fused"] = fused_stage(
                     os.path.join(here, config), argvs["align"] + common,
-                    data, root, tok, dev, card, results["align"])
+                    data, root, tok, dev, card, results["align"],
+                    more_raw)
+                results["align_fused_dist"] = results["align_fused"].pop(
+                    "dist")
                 log_time("[stages fused]")
                 # (removes stage 2a's output once it has rebuilt the base)
                 results["align_lora"] = lora_phase(
                     os.path.join(here, config), argvs["align"] + common
                     + ["--data_path", data["align"]], data, root, tok, dev,
-                    card, results["align"])
+                    card, results["align"], more_raw.pop("lora"))
+                results["align_lora_dist"] = results["align_lora"].pop("dist")
+                del more_raw
                 log_time("[lora]")
             if stage == "dpo":
                 moe = _moe_config(outs["dpo"])
@@ -4846,7 +5150,8 @@ def main() -> int:
     stage_n = {path: stages[stage]["launches"] for stage, path in (
         ("pretrain", "pretrain"), ("align", "align_run"), ("dpo", "dpo"),
         ("align_fused", "align_fused"), ("align_d2d", "align_d2d"),
-        ("align_dist", "align_dist"))}
+        ("align_dist", "align_dist"), ("align_fused_dist", "align_fused_dist"),
+        ("align_lora_dist", "align_lora_dist"))}
     stage_n["align_dist_resumed"] = stages["align_dist"]["resumed_launches"]
     stage_n["align_tp"] = stages["align_tp"]["launches"]     # rank 0's
     stage_n["serve_int8"] = served8["launches"]

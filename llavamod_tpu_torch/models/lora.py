@@ -118,9 +118,21 @@ def lora_merged(model: nn.Module, lora: Optional[LoraAdapters],
                 cfg: Optional[LoraConfig]):
     """Within the block, each target of `model` reads as its merged weight
     (a differentiable function of the adapters); a no-op without adapters.
-    The forward and the backward both run inside the block."""
+    The forward and the backward both run inside the block.  On a model
+    that FSDP2 sharded (parallel/sharding.py) a unit registers its
+    gathered parameters on each call, which would drop a swap made
+    before it: there the merge runs in a forward pre-hook of the unit
+    that owns the target, after FSDP2's gather, on every call (the
+    recompute of a rematerialised layer included), and a forward hook
+    puts the gathered weight back before FSDP2 reshards."""
     if lora is None:
         yield model
+        return
+    from llavamod_tpu_torch.parallel.sharding import is_sharded
+
+    if is_sharded(model):
+        with _merged_per_unit(model, lora, cfg):
+            yield model
         return
     saved = []
     for key in lora.targets:
@@ -136,6 +148,61 @@ def lora_merged(model: nn.Module, lora: Optional[LoraAdapters],
             mod._parameters[name] = p
 
 
+def _owning_unit(model: nn.Module, key: str) -> str:
+    """The name of the innermost FSDP2 unit that holds parameter `key`."""
+    from llavamod_tpu_torch.parallel.sharding import is_sharded
+
+    parts = key.split(".")[:-1]
+    for i in range(len(parts), 0, -1):
+        name = ".".join(parts[:i])
+        if is_sharded(model.get_submodule(name)):
+            return name
+    return ""
+
+
+@contextlib.contextmanager
+def _merged_per_unit(model: nn.Module, lora: LoraAdapters, cfg: LoraConfig):
+    """The hooks of `lora_merged` on a sharded model.  A recompute that
+    torch.utils.checkpoint stops early (once it has every tensor the
+    backward needs) never reaches the forward hook: its merged weights stay
+    in place until FSDP2's post-backward reshard registers the sharded
+    parameters again, and the next call of the unit starts afresh."""
+    by_unit: Dict[str, list] = {}
+    for key in lora.targets:
+        by_unit.setdefault(_owning_unit(model, key), []).append(key)
+    handles, pending = [], {}
+    for unit_name, keys in by_unit.items():
+        unit = model.get_submodule(unit_name) if unit_name else model
+        targets = [(model.get_submodule(k.rpartition(".")[0]),
+                    k.rpartition(".")[2], lora.pair(k)) for k in keys]
+
+        def merge(module, args, targets=targets, unit_name=unit_name):
+            swapped = []
+            for mod, name, pair in targets:
+                base = mod._parameters[name]
+                mod._parameters[name] = merged_weight(base, pair, cfg)
+                swapped.append((mod, name, base, mod._parameters[name]))
+            pending[unit_name] = swapped
+
+        def restore(module, args, output, unit_name=unit_name):
+            for mod, name, base, _ in pending.pop(unit_name, ()):
+                mod._parameters[name] = base
+
+        handles.append(unit.register_forward_pre_hook(merge))
+        handles.append(unit.register_forward_hook(restore, prepend=True))
+    try:
+        yield model
+    finally:
+        for h in handles:
+            h.remove()
+        # a call that raised: put back the weights it merged, where FSDP2
+        # has not registered its own since
+        for swapped in pending.values():
+            for mod, name, base, merged in swapped:
+                if mod._parameters[name] is merged:
+                    mod._parameters[name] = base
+
+
 @torch.no_grad()
 def merge_lora_(model: nn.Module, lora: LoraAdapters,
                 cfg: LoraConfig) -> nn.Module:
@@ -145,6 +212,22 @@ def merge_lora_(model: nn.Module, lora: LoraAdapters,
         w = weights[key]
         w.copy_(merged_weight(w, lora.pair(key), cfg))
     return model
+
+
+@torch.no_grad()
+def merge_lora_state_(state: Dict[str, torch.Tensor], lora: LoraAdapters,
+                      cfg: LoraConfig, device=None) -> Dict[str, torch.Tensor]:
+    """`merge_lora_` on a state dict of host tensors (the whole model and
+    adapters a sharded run gathers on rank 0), in place: each target's
+    merged weight is computed on `device`, where the run's weights live,
+    so that it has the bits a single process's `merge_lora_` gives."""
+    for key in lora.targets:
+        w = state[key]
+        pair = lora.pair(key)
+        delta = torch.matmul(pair.a.to(device), pair.b.to(device))
+        state[key] = (w.to(device) + cfg.scaling * delta.to(w.dtype)).to(
+            w.device)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -302,32 +385,41 @@ class _Partial(Mapping):
         return len(self.state)
 
 
-def save_non_lora_trainables(adapter_dir: str, model: nn.Module) -> str:
+def save_non_lora_trainables(adapter_dir: str, model: nn.Module,
+                             full: Optional[Dict[str, torch.Tensor]] = None
+                             ) -> str:
     """Write `adapter_dir/non_lora_trainables.bin`: every trainable
     parameter of `model` (requires_grad, which excludes the adapted
     targets) in the reference's layout (train.py:535-545): PEFT's
     'base_model.model.' before the HF names, the router as
     '...mlp.deepspeed_moe.gate.wg.weight' (interop/hf.py), the projector as
     in mm_projector.bin; any other module under its own state-dict key.
-    Tensors keep their dtype."""
+    Tensors keep their dtype.  `full`: the model's whole state dict, read
+    in place of `model`'s own tensors (a sharded model's, gathered)."""
     from llavamod_tpu_torch.interop.hf import decoder_params_to_hf
     from llavamod_tpu_torch.train.checkpoint import mm_projector_state
 
     cfg = model.cfg
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    if full is None:
+        full = model.state_dict()
+
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in full.items()
+                if k.startswith(prefix)}
+
     state: Dict[str, torch.Tensor] = {}
     llm_keep = [k[len("llm."):] for k in trainable if k.startswith("llm.")]
     if llm_keep:
-        hf = decoder_params_to_hf(_Partial(model.llm.state_dict(), llm_keep),
-                                  cfg.llm)
+        hf = decoder_params_to_hf(_Partial(part("llm."), llm_keep), cfg.llm)
         state.update({_PEFT_PREFIX + k: v for k, v in hf.items()
                       if v.device.type != "meta"})
     if any(k.startswith("projector.") for k in trainable):
         state.update({_PEFT_PREFIX + k: v for k, v in mm_projector_state(
-            model.projector.state_dict(), cfg.projector_type).items()})
+            part("projector."), cfg.projector_type).items()})
     for k in trainable:
         if not k.startswith(("llm.", "projector.")):
-            state[_PEFT_PREFIX + k] = model.get_parameter(k)
+            state[_PEFT_PREFIX + k] = full[k]
     state = {k: v.detach().to("cpu").contiguous() for k, v in state.items()}
     os.makedirs(adapter_dir, exist_ok=True)
     path = os.path.join(adapter_dir, NON_LORA_FILE)

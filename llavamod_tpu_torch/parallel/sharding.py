@@ -61,6 +61,7 @@ yields its own rows, which runtime/prefetch.py puts on the rank's card.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -200,6 +201,81 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+@contextlib.contextmanager
+def gathered(*modules: Optional[nn.Module]):
+    """Within the block the FSDP2 units among `modules` hold their whole
+    parameters (one all-gather each, in the compute dtype), registered on
+    the modules as plain parameters; they are resharded on exit.  Other
+    modules (and None) are left as they are."""
+    units = [m for m in modules if m is not None and is_sharded(m)]
+    for unit in units:
+        unit.unshard()
+    try:
+        yield
+    finally:
+        for unit in reversed(units):
+            unit.reshard()
+
+
+def hand_driven(model: nn.Module) -> None:
+    """Leave the gathers, reshards and gradient reductions of every FSDP2
+    unit of `model` to the caller (`gathered`, `reduce_to_shard`): a
+    module call that still fires a unit's hooks then neither reshards nor
+    reduces.  For a step that drives its own layer loop and takes its
+    gradients with `torch.autograd.grad` (train/fused_steps.py)."""
+    if is_sharded(model):
+        model.set_reshard_after_forward(False, recurse=True)
+        model.set_reshard_after_backward(False, recurse=True)
+        model.set_requires_gradient_sync(False, recurse=True)
+
+
+def reduce_to_shard(grad: torch.Tensor, param: torch.Tensor, name: str,
+                    pctx, tensor_partial: bool = False) -> torch.Tensor:
+    """The rank's shard, in f32, of the sum of `grad` (the gradient of the
+    whole, gathered parameter `name` from this rank's rows) over the ranks
+    that hold other rows of it, as FSDP2 reduces a unit's gradients:
+    reduce-scatter over fsdp along the parameter's FSDP2 dim (padded where
+    fsdp does not divide it, as FSDP2 pads), then all-reduce over the
+    replicas (data x expert; data for an expert rank's own experts).
+    `tensor_partial`: `grad` is this rank's part of a sum over the tensor
+    group (a replicated parameter under sequence parallelism), summed there
+    first.  `param` is the sharded parameter, whose local shape the result
+    has."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from llavamod_tpu_torch.parallel.collectives import is_expert_key
+
+    dist = torch.distributed
+    g = grad.float()
+    if tensor_partial and pctx.tensor_size > 1:
+        g = g.clone()
+        dist.all_reduce(g, group=pctx.tensor_group)
+    local = local_tensor(param)
+    dim = next((pl.dim for pl in getattr(param, "placements", ())
+                if isinstance(pl, Shard)), None) \
+        if isinstance(param, DTensor) else None
+    if dim is not None and pctx.fsdp_size > 1:
+        f = pctx.fsdp_size
+        n = g.shape[dim]
+        per = -(-n // f)
+        x = g.movedim(dim, 0)
+        if per * f != n:
+            x = torch.cat([x, x.new_zeros((per * f - n,) + x.shape[1:])])
+        out = x.new_empty((per,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=pctx.fsdp_group)
+        g = out[:local.shape[dim]].movedim(0, dim)
+    if is_expert_key(name):
+        group, size = pctx.expert_param_mesh.get_group("data"), \
+            pctx.cfg.data
+    else:
+        group, size = pctx.param_mesh.get_group("data_expert"), \
+            pctx.cfg.data * pctx.expert_size
+    if size > 1:
+        g = g.contiguous()
+        dist.all_reduce(g, group=group)
+    return g.contiguous()
 
 
 def _has_params(module: Optional[nn.Module]) -> bool:
@@ -418,3 +494,80 @@ def shard_params(mesh, model: nn.Module,
         unit.set_gradient_divide_factor(1.0)
         unit.set_force_sum_reduction_for_comms(True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# LoRA adapters (models/lora.py) beside a sharded model
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def shard_lora(lora: nn.Module, model: nn.Module, ctx) -> None:
+    """Keep the rank's part of every adapter of `lora`, in place, for a
+    model that `shard_params` sharded.  The port departs from the JAX rule
+    table here (which places the `lora/...` leaves by their own paths, so
+    that `up/a` [D, r] takes (fsdp, tensor)): the adapters stay plain
+    tensors outside FSDP2, and
+
+      * a and b follow their base's tensor split, so that each merge is the
+        rank's slice of the whole merged weight: a column-parallel base
+        [D, F / tensor] keeps b's [r, F / tensor] slice, a row-parallel one
+        [F / tensor, D] a's [F / tensor, r] slice (recorded on
+        `lora.tensor_split`, keyed as the adapters' state dict);
+      * an expert adapter [E, ...] keeps the expert rank's E / expert
+        experts;
+      * everything else is whole on every rank of the rows group (the
+        record's r = 128 FFN adapters are ~174 M entries), its gradient
+        summed there (`reduce_adapter_grads`)."""
+    from llavamod_tpu_torch.parallel.collectives import is_expert_key
+
+    splits = getattr(model, "tensor_split", {})
+    own: Dict[str, TensorSplit] = {}
+    for key in lora.targets:
+        pair = lora.get_submodule(key)
+        if is_expert_key(key) and ctx.expert_size > 1:
+            _keep_local_experts(pair, ctx.expert_rank, ctx.expert_size)
+        split = splits.get(key)
+        if split is None or ctx.tensor_size == 1:
+            continue
+        column = split.dim == pair.b.dim() - 1
+        which, dim = ("b", pair.b.dim() - 1) if column else \
+            ("a", pair.a.dim() - 2)
+        t = getattr(pair, which)
+        part = take_slice(t, TensorSplit(dim), ctx.tensor_rank,
+                          ctx.tensor_size).contiguous().clone()
+        pair._parameters[which] = nn.Parameter(part,
+                                               requires_grad=t.requires_grad)
+        own[f"{key}.{which}"] = TensorSplit(dim)
+    lora.tensor_split = own
+
+
+@torch.no_grad()
+def reduce_adapter_grads(lora: nn.Module, grads: Dict[str, torch.Tensor],
+                         pctx, prefix: str = "lora.") -> None:
+    """Sum, in place, the adapters' gradients (`grads` keyed `prefix` +
+    the adapters' state-dict keys) over the ranks whose rows reached them:
+    first over tensor for the unsplit operand of a split merge (a rank's
+    is its F slice's part of the product), then over the rows group, or
+    for an expert adapter over data x fsdp (the ranks that hold the same
+    experts)."""
+    from llavamod_tpu_torch.parallel.collectives import is_expert_key
+
+    dist = torch.distributed
+    own = getattr(lora, "tensor_split", {})
+    split_targets = {k.rpartition(".")[0] for k in own}
+    for n, g in grads.items():
+        if not n.startswith(prefix):
+            continue
+        key = n[len(prefix):]
+        target = key.rpartition(".")[0]
+        if pctx.tensor_size > 1 and target in split_targets \
+                and key not in own:
+            dist.all_reduce(g, group=pctx.tensor_group)
+        if is_expert_key(key):
+            for axis, size in (("data", pctx.cfg.data),
+                               ("fsdp", pctx.fsdp_size)):
+                if size > 1:
+                    dist.all_reduce(
+                        g, group=pctx.expert_param_mesh.get_group(axis))
+        elif pctx.rows > 1:
+            dist.all_reduce(g, group=pctx.rows_group)

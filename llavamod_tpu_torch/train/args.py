@@ -122,9 +122,8 @@ class TrainArgs:
     # mesh axes under torchrun, one process per card (train/run.py
     # `_DeviceContext`: data x fsdp x expert x tensor = the world, the
     # ranks left over go to fsdp): data, expert, tensor and sequence
-    # parallelism run; pipeline parallelism raises (ROADMAP Queue 1, item
-    # 14), as do --fused_update and --lora_enable under torch.distributed
-    # (item 15)
+    # parallelism run, --fused_update and --lora_enable on any of them;
+    # pipeline parallelism raises (ROADMAP Queue 1, item 14)
     expert_parallel: int = 1            # ranks that split the experts
     tensor_parallel: int = 1            # ranks that split heads, F, vocab
     data_parallel: int = 1              # replicas (HSDP over data x expert)

@@ -15,7 +15,8 @@
     `gather_full_state` assembles the whole model on rank 0 for the final
     save, which is the single-process format: FSDP2's shards, the experts
     of the expert ranks and the slices of the tensor ranks (a fused int8
-    `wqkv` / `gate_up` put back block by block);
+    `wqkv` / `gate_up` put back block by block); `gather_lora` the LoRA
+    adapters alike;
   * auto-resume as the reference's train/train.py:527-530: when the output
     directory holds `checkpoint-*`, training restarts from the newest one;
   * the stage-1 `mm_projector.bin` in the reference's key layout: for
@@ -99,16 +100,21 @@ def maybe_auto_resume(output_dir: str, state, pctx=None
 
 def _rank_state(state, accumulator: bool) -> dict:
     """This rank's part of the training state: the model's shards (and its
-    buffers) and the optimizer's state, all local tensors; the MultiSteps
-    accumulator only with `accumulator` (it is zero at an update
-    boundary)."""
+    buffers), the LoRA adapters' part (parallel/sharding.py `shard_lora`)
+    and the optimizer's state (the fused step's Adafactor statistics, the
+    factored rows and columns, are shards of the whole ones), all local
+    tensors; the MultiSteps accumulator only with `accumulator` (it is
+    zero at an update boundary)."""
     from llavamod_tpu_torch.parallel.sharding import local_tensor
 
     model = {k: local_tensor(v) for k, v in state.model.state_dict().items()}
     opt = state.opt.state_dict()
     if not accumulator:
         opt.pop("acc", None)
-    return {"model": model, "opt": opt}
+    out = {"model": model, "opt": opt}
+    if state.lora is not None:
+        out["lora"] = dict(state.lora.state_dict())
+    return out
 
 
 def _mesh_record(pctx) -> dict:
@@ -189,6 +195,37 @@ def gather_full_state(model, pctx) -> Optional[Dict[str, torch.Tensor]]:
         if pctx.rank == 0:
             out[k] = full.detach().cpu()
     return out if pctx.rank == 0 else None
+
+
+@torch.no_grad()
+def gather_lora(lora, pctx):
+    """The whole LoRA adapters (models/lora.py `LoraAdapters`, host
+    tensors) on rank 0, None on the other ranks.  Every rank takes part:
+    an expert adapter is gathered over the expert ranks, a tensor-split
+    one (`lora.tensor_split`) over the tensor ranks."""
+    import torch.distributed as dist
+
+    from llavamod_tpu_torch.models.lora import LoraAdapters
+    from llavamod_tpu_torch.parallel.collectives import is_expert_key
+    from llavamod_tpu_torch.parallel.sharding import join_slices
+
+    splits = getattr(lora, "tensor_split", {})
+    whole = {}
+    for k, v in lora.state_dict().items():
+        if is_expert_key(k) and pctx.expert_size > 1:
+            parts = [torch.empty_like(v) for _ in range(pctx.expert_size)]
+            dist.all_gather(parts, v.contiguous(), group=pctx.expert_group)
+            v = torch.cat(parts)
+        if k in splits and pctx.tensor_size > 1:
+            parts = [torch.empty_like(v) for _ in range(pctx.tensor_size)]
+            dist.all_gather(parts, v.contiguous(), group=pctx.tensor_group)
+            v = join_slices(parts, splits[k])
+        if pctx.rank == 0:
+            whole[k] = v.detach().cpu()
+    if pctx.rank != 0:
+        return None
+    return LoraAdapters({t: (whole[f"{t}.a"], whole[f"{t}.b"])
+                         for t in lora.targets})
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,9 @@ sum is summed over the world and divided by the ranks that hold a copy of
 it: a parameter that `tensor` leaves whole is held by every tensor rank);
 Adafactor's means over a sharded dim, and over a whole tensor, sum over
 the shard groups (train/adafactor.py `shards`), the tensor group of a
-tensor-split dim included.
+tensor-split dim included.  LoRA adapters beside a sharded model
+(parallel/sharding.py `shard_lora`) are plain tensors, whole or the
+rank's experts and tensor slice; their state is theirs alike.
 """
 
 from __future__ import annotations
@@ -286,7 +288,10 @@ class Optimizer:
         group_cls = _GROUP_CLASSES[cfg.optimizer]
         # sharded parameters: {key: (global shape, {dim: [(group, size)]})}
         # and the weight of a shard's square sum in the world's norm
-        splits = getattr(model, "tensor_split", {})
+        splits = dict(getattr(model, "tensor_split", {}))
+        if lora is not None:
+            splits.update({"lora." + k: v for k, v in
+                           getattr(lora, "tensor_split", {}).items()})
         self.shards = {n: pctx.shard_groups(
             n, named[n], splits[n].dim if n in splits else None)
             for n, lb in labels.items()

@@ -46,10 +46,14 @@ each rank's loader reads the `ProcessShardSampler` shard of its row rank
 (parallel/sharding.py), a step on the rows of data x fsdp x expert is the
 single-process step on them (train/steps.py), periodic checkpoints are
 sharded (train/checkpoint.py) and rank 0 writes the final model in the
-single-process format, the metrics and run_info.json.  Every branch of the
-JAX engine that the port does not run yet raises NotImplementedError
-naming the ROADMAP Queue 1 item that ports it: pipeline parallelism (14),
-and `--fused_update` or `--lora_enable` under torch.distributed (15).
+single-process format, the metrics and run_info.json.  `--fused_update`
+drives each unit's gather and gradient reduction itself
+(train/fused_steps.py); `--lora_enable` keeps the adapters beside the
+sharded model, split as their bases are (parallel/sharding.py
+`shard_lora`), and rank 0 writes `adapter/` and the merged model.  The
+one branch of the JAX engine that the port does not run yet raises
+NotImplementedError naming the ROADMAP Queue 1 item that ports it:
+pipeline parallelism (14).
 
 Per run the output directory gets `metrics.jsonl` (one line per
 `logging_steps` steps: microbatches, or fused updates), `run_info.json`
@@ -133,11 +137,7 @@ def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
     built."""
     if targs.pipeline_parallel > 1:
         raise not_ported("pipeline parallelism", 14)
-    launched, world = _launched()
-    if launched and targs.fused_update:
-        raise not_ported("--fused_update under torch.distributed", 15)
-    if launched and margs.lora_enable:
-        raise not_ported("--lora_enable under torch.distributed", 15)
+    _, world = _launched()
     need = (targs.data_parallel * targs.expert_parallel
             * targs.tensor_parallel)
     if world % need:
@@ -196,18 +196,23 @@ class _DeviceContext:
         self.pctx = ParallelContext(self.mesh)
         rank0_print(f"[mesh] {dataclasses.asdict(self.pctx.cfg)}")
 
-    def shard_models(self, model, teacher, tcfg: TrainConfig):
+    def shard_models(self, model, teacher, tcfg: TrainConfig, lora=None):
         """Both models sharded over the mesh, parameters gathered in the
-        compute dtype."""
+        compute dtype; LoRA adapters cut to the rank's part."""
         if self.pctx is None:
             return
-        from llavamod_tpu_torch.parallel.sharding import shard_params
+        from llavamod_tpu_torch.parallel.sharding import (
+            shard_lora,
+            shard_params,
+        )
         from llavamod_tpu_torch.train.steps import _DTYPES
 
         dtype = _DTYPES[tcfg.compute_dtype]
         for m in (model, teacher):
             if m is not None:
                 shard_params(self.mesh, m, dtype, ctx=self.pctx)
+        if lora is not None:
+            shard_lora(lora, model, self.pctx)
 
 
 # ---------------------------------------------------------------------------
@@ -609,26 +614,38 @@ def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
     tensors in `non_lora_trainables.bin`, and are then merged into the
     model saved; stage 1 also exports mm_projector.bin (reference
     train.py:535-557).  Under torch.distributed every rank takes part in
-    gathering the model and rank 0 writes it, in the same format."""
+    gathering the model and the adapters, and rank 0 writes them, in the
+    same format, the merge computed on its card."""
     from llavamod_tpu_torch.models.builder import save_model
     from llavamod_tpu_torch.train.checkpoint import (
         gather_full_state,
+        gather_lora,
         save_mm_projector,
     )
 
-    if state.lora is not None:
-        from llavamod_tpu_torch.models.lora import (
-            merge_lora_,
-            save_lora_adapter,
-            save_non_lora_trainables,
-        )
+    from llavamod_tpu_torch.models.lora import (
+        merge_lora_,
+        merge_lora_state_,
+        save_lora_adapter,
+        save_non_lora_trainables,
+    )
 
-        adapter = os.path.join(output_dir, "adapter")
-        save_lora_adapter(adapter, state.lora, lora_cfg)
-        save_non_lora_trainables(adapter, state.model)
-        merge_lora_(state.model, state.lora, lora_cfg)
-    full = (state.model.state_dict() if pctx is None
-            else gather_full_state(state.model, pctx))
+    adapter = os.path.join(output_dir, "adapter")
+    if pctx is None:
+        if state.lora is not None:
+            save_lora_adapter(adapter, state.lora, lora_cfg)
+            save_non_lora_trainables(adapter, state.model)
+            merge_lora_(state.model, state.lora, lora_cfg)
+        full = state.model.state_dict()
+    else:
+        full = gather_full_state(state.model, pctx)
+        lora = (gather_lora(state.lora, pctx) if state.lora is not None
+                else None)
+        if lora is not None:            # rank 0
+            save_lora_adapter(adapter, lora, lora_cfg)
+            save_non_lora_trainables(adapter, state.model, full)
+            merge_lora_state_(full, lora, lora_cfg, device=next(
+                state.lora.parameters()).device)
     if full is not None:
         full = float_state(full, stash)
         save_model(output_dir, state.model, full)
@@ -802,9 +819,10 @@ def _run_stage(stage, margs, dargs, targs, salign, sdpo, tokenizer, device):
                         f"microbatches folded per update; running "
                         f"{loop_total} update steps (= {total_steps} "
                         f"microbatches)")
-        state = init_fused_state(model, cfg, tcfg)
+    dev.shard_models(model, teacher, tcfg, lora)
+    if fused:
+        state = init_fused_state(model, cfg, tcfg, pctx=pctx)
     else:
-        dev.shard_models(model, teacher, tcfg)
         state = TrainState.create(model, tcfg, lora_cfg, lora, pctx)
     state, resumed = maybe_auto_resume(targs.output_dir, state, pctx)
     if resumed:

@@ -20,7 +20,8 @@ in another dtype (f32 masters), and the gradients flow back to them through
 the cast, as the JAX `_cast_tree`.  With LoRA (`lora_cfg`, the adapters in
 `state.lora`) the adapted weights are merged on the fly each step
 (models/lora.py `lora_merged`, the JAX `_effective_params`), before the
-cast, and the gradients reach the adapters through the merge.
+cast (on a sharded model, after each unit's gather in the compute dtype),
+and the gradients reach the adapters through the merge.
 
 Under a parallel context (parallel/collectives.py, one process per card,
 the models wrapped by parallel/sharding.py `shard_params`) a step on the
@@ -34,7 +35,9 @@ same loss: a tensor-split parameter's gradient is the rank's slice of the
 whole one, and a replicated one's is whole on every tensor rank, except
 under sequence parallelism, where the decoder's replicated parameters
 (norms, router, output biases) see only the rank's T-shard and their
-gradients are summed over the group (`_sum_sequence_shards`).  The metrics
+gradients are summed over the group (`_sum_sequence_shards`).  The LoRA
+adapters sit outside FSDP2 (parallel/sharding.py `shard_lora`): their
+gradients are summed by hand (`reduce_adapter_grads`).  The metrics
 are the world's values on every rank.  The models are called through their
 module call, so that a sharded model gathers its parameters, and its
 mixed-precision policy does the compute-dtype cast of `_cast_tree`.
@@ -277,6 +280,11 @@ def _apply_update(state: TrainState, metrics: Metrics, cfg=None):
              for n, p in params.items()}
     if cfg is not None:
         _sum_sequence_shards(state.model, grads, cfg)
+    pctx = parallel_context()
+    if pctx is not None and state.lora is not None:
+        from llavamod_tpu_torch.parallel.sharding import reduce_adapter_grads
+
+        reduce_adapter_grads(state.lora, grads, pctx)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = state.opt.update(grads)
     _clear_grads(state)

@@ -32,9 +32,9 @@ from the JAX package's init by interop/from_jax.py.
     updates (AdamW and Adafactor); the sharded checkpoint at tensor=2
     resumes update 2 to the same metrics and weights;
   * refusals: heads, KV heads, F or vocab that `tensor` does not divide,
-    T % tensor under SP, --fused_update / --lora_enable under
-    torch.distributed (item 15), and the KV-cache path under a tensor
-    split (item 16)."""
+    T % tensor under SP, pipeline parallelism (item 14) and the KV-cache
+    path under a tensor split (item 16); --fused_update / --lora_enable
+    under torch.distributed pass (item 15)."""
 
 import copy
 import json
@@ -549,6 +549,10 @@ def test_sequence_parallel_refuses_t_that_tensor_does_not_divide():
 @pytest.mark.parametrize("flag", ["fused_update", "lora_enable"])
 def test_fused_update_and_lora_stay_refused_under_torch_distributed(
         flag, monkeypatch):
+    """Item 15 is ported: under a torchrun environment of 2 at (tensor=2,
+    SP) `refuse_unported` lets --fused_update and --lora_enable through
+    (tests/test_torch_{fused,lora}_distributed.py run them), while
+    pipeline parallelism still names item 14."""
     from llavamod_tpu_torch.train.args import ModelArgs, TrainArgs
     from llavamod_tpu_torch.train.run import refuse_unported
 
@@ -557,16 +561,15 @@ def test_fused_update_and_lora_stay_refused_under_torch_distributed(
     targs = TrainArgs(output_dir="unused", tensor_parallel=2,
                       sequence_parallel=True,
                       fused_update=flag == "fused_update")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, item 15"):
-        refuse_unported(margs, targs)
+    refuse_unported(margs, targs)
     refuse_unported(ModelArgs(), TrainArgs(output_dir="unused",
                                            tensor_parallel=2,
                                            sequence_parallel=True))
     with pytest.raises(NotImplementedError,
                        match="ROADMAP Queue 1, item 14"):
-        refuse_unported(ModelArgs(), TrainArgs(output_dir="unused",
-                                               pipeline_parallel=2))
+        refuse_unported(margs, TrainArgs(
+            output_dir="unused", pipeline_parallel=2,
+            fused_update=flag == "fused_update"))
 
 
 def test_generation_under_a_tensor_split_is_refused():

@@ -143,6 +143,14 @@ def _targs(out, **kw):
     return TrainArgs(**base)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def _lines(out):
     with open(os.path.join(out, "metrics.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -677,26 +685,30 @@ PRESET = "tiny-dense-preset"     # a registered name: --s2 and
     (dict(targs=dict(sequence_parallel=True)), "runs"),
     (dict(targs=dict(tensor_parallel=2)), "mesh"),
     (dict(targs=dict(pipeline_parallel=2)), 14),
-    (dict(margs=dict(lora_enable=True), env=True), 15),
+    (dict(margs=dict(lora_enable=True), env=True), "torchrun"),
     (dict(targs=dict(fused_update=True, optimizer="adafactor"), env=True),
-     15),
+     "torchrun"),
+    (dict(margs=dict(lora_enable=True),
+          targs=dict(fused_update=True, optimizer="adafactor")), "fused_lora"),
 ], ids=["lora", "s2", "video", "data_parallel", "expert_parallel",
         "sequence_parallel", "tensor_parallel", "pipeline_parallel",
-        "lora_multi_process", "fused_multi_process"])
+        "lora_multi_process", "fused_multi_process", "fused_lora"])
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item,
                                                         monkeypatch):
-    """The options of items 14-15 (pipeline parallelism; LoRA and the fused
-    step with more than one process, here under a torchrun environment of
-    2) raise NotImplementedError naming the item, and a data, expert or
-    tensor parallel mesh one process cannot fill raises ValueError, before
-    anything is built; item 6's options, once refused the same way, run
-    the align stage: LoRA writes `adapter/` and the merged model (its FFN
-    weights moved, its tower not), S2 doubles the tower's feature width,
-    and the video projector joins the model in stage 1 (the align stage
-    refuses it).  Item 13 is ported: --sequence_parallel without a tensor
-    split runs the align stage as it would without it (the JAX engine
-    turns it on only with --tensor_parallel > 1)."""
+    """Pipeline parallelism (item 14) raises NotImplementedError naming
+    the item, and a data, expert or tensor parallel mesh one process cannot
+    fill raises ValueError, before anything is built; the fused step with
+    LoRA is a ValueError, as in the JAX engine; item 6's options, once
+    refused the same way, run the align stage: LoRA writes `adapter/` and
+    the merged model (its FFN weights moved, its tower not), S2 doubles the
+    tower's feature width, and the video projector joins the model in stage
+    1 (the align stage refuses it).  Item 13 is ported: --sequence_parallel
+    without a tensor split runs the align stage as it would without it (the
+    JAX engine turns it on only with --tensor_parallel > 1).  Item 15 is
+    ported: LoRA and the fused step, once refused under torchrun, run the
+    align stage under a one-rank torchrun environment (gloo, FSDP2 on both
+    models) to its end."""
     from llavamod_tpu_torch.models.llm.config import llm_configs
     from llavamod_tpu_torch.models.vision import vit as tvit
 
@@ -724,8 +736,11 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
             _targs(out, **targs), salign=salign, tokenizer=StubTok(),
             device="cpu")
 
-    if option.get("env"):
-        monkeypatch.setenv("WORLD_SIZE", "2")
+    if option.get("env"):           # a one-rank torchrun environment
+        for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                         MASTER_ADDR="127.0.0.1",
+                         MASTER_PORT=str(_free_port())).items():
+            monkeypatch.setenv(k, v)
     if item == "mesh":
         with pytest.raises(ValueError, match="torchrun --nproc_per_node"):
             run()
@@ -737,10 +752,19 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
             run()
         assert not out.exists()
         return
+    if item == "fused_lora":
+        with pytest.raises(ValueError, match="does not support LoRA"):
+            run()
+        return
     last = run()
     assert last["num_tokens"] > 1 and np.isfinite(last["loss"])
     assert _info(out)["optimizer_updates"] == 2
     cfg, model = tbuilder.load_model(str(out), device="cpu")
+    if item == "torchrun":
+        assert not torch.distributed.is_initialized()
+        assert _info(out)["backend"] == "gloo"
+        assert _info(out)["mesh"] == dict(data=1, fsdp=1, expert=1, tensor=1,
+                                          pipe=1)
     if margs.get("lora_enable"):
         adapter = torch.load(out / "adapter" / "adapter_model.bin",
                              weights_only=True)
@@ -752,6 +776,11 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
         assert not any(k.startswith("vision.") for k in moved)
     elif item == "runs":
         assert not cfg.llm.seq_shard_activations
+    elif item == "torchrun":        # the fused step: 2 folded updates
+        assert _info(out)["microbatches"] == 4
+        before, after = _state(dirs["port"]), _state(out)
+        assert any(not torch.equal(before[k], after[k]) for k in before
+                   if k.startswith("llm.layers."))
     elif margs.get("s2"):
         assert cfg.s2_scales == (28, 56) and cfg.vision_feature_dim == 64
         assert model.projector.layers[0].kernel.shape[0] == 64
