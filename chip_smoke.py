@@ -152,7 +152,21 @@ Needs a CUDA card and nvcc; exits non-zero without them.  It
      planted faults that must exceed it), the microbatch ms, each rank's
      peak and the tensor group's collectives in a profiled microbatch
      (host ops, device copies: gloo stages CUDA tensors through the host,
-     so the times are the path's floor cost, not a scaling number);
+     so the times are the path's floor cost, not a scaling number).
+     The same worker then runs [tp generate]: the student [tp] has just
+     trained generates 16 greedy tokens for 8 image prompts under its
+     tensor=2 context (the cache on each rank's 8 of 16 KV heads, K1 on
+     every layer in the prefill, K2 on every layer in each decode step),
+     token for token the single-process generation of rank 0's model.pt;
+     and [pp]: stage 2 at `--pipeline_parallel 2 --pipeline_microbatches
+     2` at B = 2 (full depth: 12 student and 16 teacher layers a stage;
+     gating groups of one sequence), each rank's K1 / K3 / K4 a step
+     exact (40 / 12 / 12 a one-row microbatch), the first step against the
+     same argv's single-process run without the pipeline (DIST_LOSS_REL_TOL,
+     DIST_GRAD_NORM_REL_TOL), the parameters outside the layers equal on
+     the two stages after update 1, rank 0's model.pt (the stages joined)
+     held as [tp]'s, each rank's peak and the transport's host ms; gloo's
+     point-to-point on CUDA tensors is probed by a torchrun of its own;
   7. eval: on stage 3's trained student, still in the temporary directory,
      the port's eval CLI (`eval/cli.py generate`) answers 20 POPE-format
      questions over the stage images in batches of 8 (the last padded),
@@ -4458,7 +4472,7 @@ def dist_check(raw: dict, single: dict, single_out: str, card: str) -> dict:
 TP_PROBE_OPS = ("all_reduce", "all_reduce_int32", "all_reduce_max",
                 "all_gather", "all_gather_into_tensor",
                 "reduce_scatter_tensor", "all_to_all_single", "broadcast",
-                "fsdp2_one_rank")
+                "fsdp2_one_rank", "send_recv_staged")
 
 
 def tp_probe() -> dict:
@@ -4524,6 +4538,18 @@ def tp_probe() -> dict:
             return torch.equal(y.cpu(), torch.arange(4.))
         if name == "fsdp2_one_rank":
             return fsdp2()
+        if name == "send_recv_staged":
+            # the pipeline's transport under gloo: a CUDA tensor through a
+            # host buffer, rank 0 -> 1 -> 0 (parallel/collectives.py)
+            buf = (x * 10).cpu() if rank == 0 else torch.empty(4)
+            if rank == 0:
+                dist.send(buf, 1)
+                dist.recv(buf, 1)
+                return torch.equal(buf.to(dev).cpu(), torch.arange(4.) * 10
+                                   + 1)
+            dist.recv(buf, 0)
+            dist.send(buf + 1, 0)
+            return torch.equal(buf, torch.arange(4.) * 10)
         raise KeyError(name)
 
     result = {}
@@ -4536,9 +4562,287 @@ def tp_probe() -> dict:
     return result
 
 
+P2P_OPS = ("send_recv_cuda", "batch_isend_irecv_cuda")
+
+
+def p2p_probe_worker(result: str) -> int:
+    """One of two ranks (gloo, both on cuda:0) trying gloo's point-to-point
+    on CUDA tensors, each op's outcome appended to `<result>.<rank>` before
+    the next starts: gloo's send and recv read and write the buffer's
+    address from the host, so the attempt may kill the process, which is
+    why it runs apart from the [tp] worker."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    rank = dist.get_rank()
+    dev = torch.device("cuda", 0)
+    path = f"{result}.{rank}"
+    for name in P2P_OPS:
+        with open(path, "a") as f:
+            f.write(json.dumps({"op": name, "state": "started"}) + "\n")
+        try:
+            x = (torch.arange(4., device=dev) + 5 if rank == 0
+                 else torch.zeros(4, device=dev))
+            if name == "send_recv_cuda":
+                (dist.send(x, 1) if rank == 0 else dist.recv(x, 0))
+            else:
+                op = (dist.P2POp(dist.isend, x, 1) if rank == 0
+                      else dist.P2POp(dist.irecv, x, 0))
+                for w in dist.batch_isend_irecv([op]):
+                    w.wait()
+            torch.cuda.synchronize()
+            ok = rank == 0 or torch.equal(x.cpu(), torch.arange(4.) + 5)
+            state = "ok" if ok else "wrong values"
+        except Exception as exc:  # the probe reports every failure
+            state = f"{type(exc).__name__}: {str(exc)[:160]}"
+        with open(path, "a") as f:
+            f.write(json.dumps({"op": name, "state": state}) + "\n")
+    dist.destroy_process_group()
+    return 0
+
+
+def p2p_probe_start(root: str):
+    """Start `p2p_probe_worker` under its own two-rank torchrun."""
+    result = os.path.join(root, "p2p_probe")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", os.path.abspath(__file__), "--p2p-probe",
+         result], env=env, cwd=here, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    return proc, result
+
+
+def p2p_probe_result(proc, result: str) -> dict:
+    """{op: {rank: outcome}}, each rank's last word on each op (an op that
+    started and never ended killed its process), and the exit code."""
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = "timed out"
+    out = {}
+    for r in (0, 1):
+        try:
+            with open(f"{result}.{r}") as f:
+                for line in f:
+                    e = json.loads(line)
+                    st = e["state"]
+                    out.setdefault(e["op"], {})[f"rank {r}"] = (
+                        "the process died inside it" if st == "started"
+                        else st)
+        except OSError:
+            pass
+    out["exit"] = rc
+    return out
+
+
 TP_RANKS = 2
 TP_PROFILE_CALL = 2        # the first microbatch of update 2
 TP_FLAGS = ["--tensor_parallel", str(TP_RANKS), "--sequence_parallel", "true"]
+
+
+# [pp]: stage 2b at --pipeline_parallel 2 in the [tp] worker (full depth:
+# 12 of the student's 24 layers and 16 of the teacher's 32 a stage), B = 2
+# rows as 2 microbatches of one row, gating groups of one sequence, one
+# update; [tp generate]: the [tp] student's greedy generation
+PP_RANKS = 2
+PP_MICROBATCHES = 2
+PP_ROWS = 2
+PP_STEPS = 2
+PP_FLAGS = ["--pipeline_parallel", str(PP_RANKS), "--pipeline_microbatches",
+            str(PP_MICROBATCHES), "--per_device_train_batch_size",
+            str(PP_ROWS), "--max_steps", str(PP_STEPS)]
+GEN_ROWS = 8
+GEN_NEW_TOKENS = 16
+GEN_PROMPT = 704
+
+
+@contextlib.contextmanager
+def sequence_gating(tokens: int):
+    """Within the block the stage's upcycled student gates groups of
+    `tokens` (one sequence): a pipeline microbatch of one row then gates
+    as the single process does."""
+    from llavamod_tpu_torch.train import run
+
+    orig = run.maybe_upcycle
+
+    def upcycle(cfg, model, margs):
+        cfg, model = orig(cfg, model, margs)
+        cfg = cfg.replace(llm=cfg.llm.replace(moe_gating_group_size=tokens))
+        model.cfg, model.llm.cfg = cfg, cfg.llm
+        return cfg, model
+
+    run.maybe_upcycle = upcycle
+    try:
+        yield
+    finally:
+        run.maybe_upcycle = orig
+
+
+def generate_batch(cfg, dev):
+    """[tp generate]'s batch: GEN_ROWS left-padded prompts of 640-704 real
+    tokens in GEN_PROMPT slots, each an image (576 slots) after its first
+    real token, seeded text ids and pixels (bf16 on `dev`)."""
+    from llavamod_tpu_torch.train.steps import batch_from_arrays
+
+    rng = np.random.RandomState(SEED + 15)
+    b, t, n_img = GEN_ROWS, GEN_PROMPT, cfg.num_image_tokens
+    s = cfg.vision.image_size
+    lengths = rng.randint(n_img + 64, t + 1, size=b)
+    ids = rng.randint(10, 1000, size=(b, t)).astype(np.int32)
+    seg = np.zeros((b, t), np.int32)
+    mask = np.zeros((b, t), bool)
+    pos = np.zeros((b, t), np.int32)
+    for i, n in enumerate(lengths):
+        first = t - n
+        seg[i, first:] = 1
+        ids[i, :first] = 0
+        img = slice(first + 1, first + 1 + n_img)
+        mask[i, img] = True
+        pos[i, img] = i * n_img + np.arange(n_img)
+        ids[i, img] = 0
+    batch = batch_from_arrays(dict(
+        input_ids=ids, segment_ids=seg, image_mask=mask, image_pos=pos,
+        pixels=rng.randn(b, 1, 3, s, s).astype(np.float32),
+        pixel_valid=np.ones((b, 1), bool),
+        labels=np.full((b, t), -100, np.int32)), device=dev)
+    return batch._replace(pixels=batch.pixels.to(torch.bfloat16))
+
+
+def counted_generation(model, batch, gcfg) -> dict:
+    """`generation.generate` of `model` on `batch` (under the active
+    context), each prefill and run of decode steps timed (the card
+    synchronised) with its K1 / K2 launches, and the (query, KV) heads
+    every K2 call was handed."""
+    from llavamod_tpu_torch import generation
+    from llavamod_tpu_torch.models.llm import decoder
+
+    rec = dict(prefill=[], decode=[], heads=set())
+    orig = dict(prefill=generation._prefill,
+                decode=generation._decode_steps, flash=decoder.flash_decode)
+
+    def timed(kind, fn, steps):
+        def run(*a, **k):
+            before = _eval_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec[kind].append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, steps=steps(a),
+                launches={n: c - before[n]
+                          for n, c in _eval_counts().items()}))
+            return out
+        return run
+
+    def flash(q, k, *a, **kw):
+        rec["heads"].add((int(q.shape[1]), int(k.shape[1])))
+        return orig["flash"](q, k, *a, **kw)
+
+    generation._prefill = timed("prefill", orig["prefill"], lambda a: 1)
+    generation._decode_steps = timed("decode", orig["decode"],
+                                     lambda a: a[3])
+    decoder.flash_decode = flash
+    try:
+        ids = generation.generate(model, batch, gcfg)
+    finally:
+        generation._prefill = orig["prefill"]
+        generation._decode_steps = orig["decode"]
+        decoder.flash_decode = orig["flash"]
+    return dict(tokens=ids.tolist(), prefill=rec["prefill"],
+                decode=rec["decode"], heads=sorted(rec["heads"]))
+
+
+def tp_generate_phase(model, pctx) -> dict:
+    """[tp generate] in the [tp] worker: the student `model` that [tp] has
+    just trained (FSDP2 units, the rank's tensor slices) generates
+    GEN_NEW_TOKENS greedy tokens for `generate_batch` under its context."""
+    from llavamod_tpu_torch.generation import GenerationConfig
+    from llavamod_tpu_torch.parallel.collectives import active
+
+    batch = generate_batch(model.cfg, torch.device("cuda", 0))
+    gcfg = GenerationConfig(max_new_tokens=GEN_NEW_TOKENS)
+    t0 = time.perf_counter()
+    with active(pctx):
+        out = counted_generation(model, batch, gcfg)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def pp_phase(spec: dict) -> dict:
+    """[pp] in the [tp] worker: stage 2b at --pipeline_parallel 2 through
+    `run_stage` on the same gloo group, each step counted as in the stages
+    phase; after update 1 every parameter outside the decoder layers
+    compared between the two stages (stage 1 against stage 0's,
+    broadcast); the pipeline transport's transfers and host ms."""
+    import torch.distributed as dist
+
+    from llavamod_tpu_torch.parallel import collectives
+    from llavamod_tpu_torch.parallel.pipeline import is_stage_key
+    from llavamod_tpu_torch.parallel.sharding import local_tensor
+    from llavamod_tpu_torch.train import run, steps
+
+    margs, dargs, targs, extra = parse_stage("align", spec["config"],
+                                             spec["pp_argv"])
+    records, replicas, stage = [], {}, {}
+
+    @torch.no_grad()
+    def compare(model):
+        pctx = collectives.current()
+        same = total = trained = 0
+        for n, p in model.named_parameters():
+            if is_stage_key(n):
+                continue
+            t = local_tensor(p).detach()
+            ref = t.clone()
+            dist.broadcast(ref, pctx.pipe_ranks[0], group=pctx.pipe_group)
+            same += bool(torch.equal(ref, t))
+            total += 1
+            trained += p.requires_grad
+        replicas.update(same=same, total=total, trained=trained)
+        stage.update(rank=pctx.pipe_rank,
+                     layers=list(model.llm.layers.indices))
+
+    original = steps.make_align_step
+
+    def make(*a, **k):
+        step = original(*a, **k)
+        calls = []
+
+        def checked(state, teacher, batch):
+            out = step(state, teacher, batch)
+            calls.append(1)
+            if len(calls) == targs.gradient_accumulation_steps:
+                compare(out[0].model)
+            steps_transport.update(collectives.transport)
+            return out
+        return checked
+
+    steps_transport = {}
+    collectives.reset_transport()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with sequence_gating(targs.model_max_length), counted_steps(records):
+        original = steps.make_align_step
+        steps.make_align_step = make
+        try:
+            _reset_launch_counts()
+            run.run_stage("align", margs, dargs, targs, salign=extra,
+                          tokenizer=StandInTokenizer(), device="cuda")
+            launches = _launch_counts()
+        finally:
+            steps.make_align_step = original
+    peak = max([torch.cuda.max_memory_allocated() / 2**30]
+               + [max(r["prior_peak_gib"], r["peak_gib"]) for r in records])
+    return dict(records=records, launches=launches, peak_gib=peak,
+                replicas=replicas, stage=stage, transport=steps_transport,
+                save_transport={k: v - steps_transport[k] for k, v in
+                                collectives.transport.items()},
+                seconds=time.perf_counter() - t0)
 
 
 def tp_collectives(rows) -> dict:
@@ -4595,7 +4899,7 @@ def tp_worker(spec_path: str) -> int:
                              f"tensors: {probe}")
     margs, dargs, targs, extra = parse_stage("align", spec["config"],
                                              spec["argv"])
-    records, heads, replicas = [], set(), {}
+    records, heads, replicas, held = [], set(), {}, {}
     originals = dict(attn=decoder.dot_product_attention)
 
     def attn(q, k, v, *a, **kw):
@@ -4629,6 +4933,7 @@ def tp_worker(spec_path: str) -> int:
             calls.append(1)
             if len(calls) == targs.gradient_accumulation_steps:
                 compare(out[0].model)
+            held.update(model=out[0].model, pctx=collectives.current())
             return out
         return checked
 
@@ -4649,10 +4954,30 @@ def tp_worker(spec_path: str) -> int:
         decoder.dot_product_attention = originals["attn"]
     peak = max([torch.cuda.max_memory_allocated() / 2**30]
                + [max(r["prior_peak_gib"], r["peak_gib"]) for r in records])
+    tp_s = time.perf_counter() - t0
+    # the sharded checkpoint's record, then its room on the disk for [pp]
+    ckpt = os.path.join(targs.output_dir, f"checkpoint-{STAGE_ACCUM}")
+    dist.barrier()
+    ckpt_info = None
+    remove = threading.Thread(target=shutil.rmtree, args=(ckpt,))
+    if rank == 0:
+        with open(os.path.join(ckpt, "mesh.json")) as f:
+            ckpt_info = dict(files=sorted(os.listdir(ckpt)),
+                             gb=dir_bytes(ckpt) / 1e9, mesh=json.load(f))
+        remove.start()
+    generated = tp_generate_phase(held["model"], held["pctx"])
+    held.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        remove.join()
+    dist.barrier()
+    pp = pp_phase(spec)
     with open(f"{spec['result']}.{rank}", "w") as f:
         json.dump(dict(records=records, launches=launches, peak_gib=peak,
                        heads=sorted(heads), replicas=replicas, rank=rank,
                        probe=probe, worker_s=time.perf_counter() - t0,
+                       tp_s=tp_s, ckpt=ckpt_info, generate=generated, pp=pp,
                        world=dist.get_world_size(),
                        backend=dist.get_backend(), torch=torch.__version__),
                   f)
@@ -4661,18 +4986,31 @@ def tp_worker(spec_path: str) -> int:
 
 
 def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
-    """[tp], before the single-process stage 2 (the gloo probe first, in
-    the worker): stage 2 (`argv`: the stages phase's) with --tensor_parallel 2 --sequence_parallel true under
-    one `torch.distributed.run --standalone --nproc_per_node 2`, both ranks
-    on the one card over gloo, a sharded checkpoint after update 1 (written,
-    not resumed here: the CPU tests resume it at tensor=2), microbatch
-    TP_PROFILE_CALL profiled; rank 0's model.pt through
-    `load_pretrained_model` on the card, kept on the host for `tp_check`.
-    The output directory is removed at the end."""
+    """[tp], [tp generate] and [pp], before the single-process stage 2 (the
+    gloo probe first, in the worker): stage 2 (`argv`: the stages phase's)
+    with --tensor_parallel 2 --sequence_parallel true under one
+    `torch.distributed.run --standalone --nproc_per_node 2`, both ranks on
+    the one card over gloo, a sharded checkpoint after update 1 (written,
+    recorded and removed by the worker, not resumed here: the CPU tests
+    resume it at tensor=2), microbatch TP_PROFILE_CALL profiled; then in
+    the same worker the trained student's greedy generation and stage 2 at
+    --pipeline_parallel 2 (PP_FLAGS).  Here: rank 0's [tp] model.pt
+    through `load_pretrained_model` on the card, kept on the host for
+    `tp_check`, and its single-process generation of the same batch;
+    rank 0's [pp] model.pt, and the single-process reference of [pp] (the
+    same argv without the pipeline, the same gating groups); gloo's
+    point-to-point on CUDA tensors probed by a torchrun of its own
+    alongside.  The output directories are removed at the end."""
+    from llavamod_tpu_torch.generation import GenerationConfig
     from llavamod_tpu_torch.models.builder import load_pretrained_model
+    from llavamod_tpu_torch.models.llm.decoder import quantize_head_int8
+    from llavamod_tpu_torch.parallel.collectives import active
+    from llavamod_tpu_torch.train import run
     from llavamod_tpu_torch.train.args import AlignArgs
 
     out = os.path.join(root, "out_align_tp")
+    out_pp = os.path.join(root, "out_align_pp")
+    pp_argv = argv + PP_FLAGS + ["--output_dir", out_pp]
     argv = argv + TP_FLAGS + ["--output_dir", out, "--save_steps",
                               str(STAGE_ACCUM)]
     margs, _, targs, extra = parse_stage("align", config, argv)
@@ -4681,7 +5019,8 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
     teacher_layers = _num_layers(extra.ref_model_name_or_path)
     per_mb = {"flash_fwd": layers * (2 if targs.remat else 1)
               + teacher_layers, "flash_dq": layers, "flash_dkv": layers}
-    spec = dict(config=config, argv=argv, profile_call=TP_PROFILE_CALL,
+    spec = dict(config=config, argv=argv, pp_argv=pp_argv,
+                profile_call=TP_PROFILE_CALL,
                 result=os.path.join(root, "tp_result.json"))
     spec_path = os.path.join(root, "tp_spec.json")
     with open(spec_path, "w") as f:
@@ -4689,6 +5028,7 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    probe_proc, probe_path = p2p_probe_start(root)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4696,6 +5036,10 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
          "--tp-worker", spec_path], env=env, cwd=here, capture_output=True,
         text=True, timeout=DIST_TIMEOUT_S)
     wall = time.perf_counter() - t0
+    p2p = p2p_probe_result(probe_proc, probe_path)
+    log(f"[pp] gloo point-to-point on CUDA tensors (cuda:0, 2 ranks, a "
+        f"torchrun of its own): {json.dumps(p2p)}; the pipeline's transport "
+        f"under gloo stages through host buffers")
     for line in proc.stdout.splitlines():
         if line.startswith(("[probe]", "[mesh]", "[ckpt]", "[run]", "[data]",
                             "[step")):
@@ -4711,27 +5055,97 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
     lines = _read_json_lines(os.path.join(out, "metrics.jsonl"))
     with open(os.path.join(out, "run_info.json")) as f:
         info = json.load(f)
-    ckpt = os.path.join(out, f"checkpoint-{STAGE_ACCUM}")
-    ckpt_files = sorted(os.listdir(ckpt))
-    ckpt_gb = dir_bytes(ckpt) / 1e9
-    with open(os.path.join(ckpt, "mesh.json")) as f:
-        ckpt_mesh = json.load(f)
-    shutil.rmtree(ckpt)
+    ckpt = ranks[0]["ckpt"]
     _, model, _, _, _ = load_pretrained_model(out, device=dev,
                                               tokenizer=StandInTokenizer())
     state = {k: v.detach().to("cpu", copy=True)
              for k, v in model.state_dict().items()}
     loaded_on = str(next(model.parameters()).device)
-    del model
+    # the single-process generation of rank 0's model.pt, its head in the
+    # int8 form the stage trained with (--policy_head_quant)
+    llm = model.llm
+    with torch.no_grad():
+        head = quantize_head_int8(llm.lm_head.weight)
+    del llm.lm_head._parameters["weight"]
+    llm.lm_head.weight = head
+    with active(None):
+        single_gen = counted_generation(
+            model, generate_batch(model.cfg, dev),
+            GenerationConfig(max_new_tokens=GEN_NEW_TOKENS))
+    del model, llm, head
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(out)
+    pp = dict(ranks=[r.pop("pp") for r in ranks],
+              lines=_read_json_lines(os.path.join(out_pp, "metrics.jsonl")),
+              p2p=p2p, layers=layers, teacher_layers=teacher_layers,
+              remat=targs.remat)
+    with open(os.path.join(out_pp, "run_info.json")) as f:
+        pp["info"] = json.load(f)
+    pp["state"] = torch.load(os.path.join(out_pp, "model.pt"),
+                             map_location="cpu", weights_only=True)
+    shutil.rmtree(out_pp)
+    pp["single"] = pp_reference(config, pp_argv, root)
+    generated = dict(ranks=[r.pop("generate") for r in ranks],
+                     single=single_gen, layers=layers)
     return dict(ranks=ranks, lines=lines, info=info, state=state,
-                loaded_on=loaded_on, ckpt_gb=ckpt_gb, ckpt_mesh=ckpt_mesh,
-                ckpt_files=ckpt_files, wall_s=wall, per_mb=per_mb,
-                probe=ranks[0]["probe"], lr=targs.learning_rate,
+                loaded_on=loaded_on, ckpt_gb=ckpt["gb"],
+                ckpt_mesh=ckpt["mesh"], ckpt_files=ckpt["files"],
+                wall_s=wall, per_mb=per_mb, probe=ranks[0]["probe"],
+                lr=targs.learning_rate,
                 tokens=targs.per_device_train_batch_size
-                * targs.model_max_length)
+                * targs.model_max_length, pp=pp, generate=generated)
+
+
+def pp_reference(config: str, pp_argv: list, root: str) -> dict:
+    """[pp]'s single-process reference: `run_stage` with [pp]'s argv
+    without the pipeline flags (the same rows at B = PP_ROWS, the same
+    gating groups, one update), each step counted; its metrics and the
+    state dict its final save would write (kept on the host in its place),
+    the output removed."""
+    from llavamod_tpu_torch.train import run
+
+    out = os.path.join(root, "out_align_pp_single")
+    argv = [a for i, a in enumerate(pp_argv)
+            if a not in ("--pipeline_parallel", "--pipeline_microbatches")
+            and pp_argv[i - 1] not in ("--pipeline_parallel",
+                                       "--pipeline_microbatches")]
+    margs, dargs, targs, extra = parse_stage(
+        "align", config, argv + ["--output_dir", out])
+    assert targs.pipeline_parallel == 1
+    records, final = [], {}
+
+    def keep_state(output_dir, cfg, state, tcfg, stash, *a, **k):
+        # what `final_save` would write, kept on the host
+        final.update(run.float_state(
+            {k: v.detach().to("cpu", copy=True)
+             for k, v in state.model.state_dict().items()}, stash))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    orig_save = run.final_save
+    run.final_save = keep_state
+    try:
+        with sequence_gating(targs.model_max_length), counted_steps(records):
+            _reset_launch_counts()
+            run.run_stage("align", margs, dargs, targs, salign=extra,
+                          tokenizer=StandInTokenizer(), device="cuda")
+            launches = _launch_counts()
+    finally:
+        run.final_save = orig_save
+    seconds = time.perf_counter() - t0
+    peak = max([torch.cuda.max_memory_allocated() / 2**30]
+               + [max(r["prior_peak_gib"], r["peak_gib"]) for r in records])
+    res = dict(records=records, launches=launches, peak_gib=peak,
+               seconds=seconds,
+               lines=_read_json_lines(os.path.join(out, "metrics.jsonl")),
+               state=final)
+    shutil.rmtree(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def _upcycled_start(key: str, start: dict, like: torch.Tensor
@@ -4782,6 +5196,70 @@ def update_agreement(state: dict, ref: dict, start: dict, keys, dev
         del s, t, x0, ulp, u, moved
     torch.cuda.empty_cache()
     return out
+
+
+def model_pt_agreement(tag: str, state: dict, ref: dict, start: dict, dev,
+                       how: str):
+    """Rank 0's model.pt `state` against the single-process output `ref`
+    of the same run: frozen llm.* entries bitwise, each trained entry by
+    its update from the upcycled `start` (`update_agreement`: the share of
+    moved elements more than one bf16 ulp off, TP_UPDATE_DISAGREE_MAX,
+    with two planted faults that must exceed it).  Prints the numbers and
+    raises on a failed check; returns (the bitwise llm.* keys, the llm.*
+    keys, the update summary)."""
+    if state.keys() != ref.keys():
+        raise AssertionError(f"{tag} model.pt keys differ from the single "
+                             "process's")
+    llm = [k for k in state if k.startswith("llm.")]
+    trained = [k for k in llm if any(m in k.replace(".", "/")
+                                     for m in RECORD_TRAIN_SET)]
+    same = [k for k in llm if torch.equal(state[k], ref[k])]
+    frozen_moved = [k for k in llm if k not in trained and k not in same]
+    # the start is stage 2a's output as the stage loaded it (in the
+    # stage's dtype): its frozen entries are the single-process output's
+    start_frozen = [k for k in llm if k not in trained and k in start
+                    and not torch.equal(start[k].to(ref[k].dtype), ref[k])]
+    agree = update_agreement(state, ref, start, trained, dev)
+    worst = max(agree, key=lambda k: agree[k]["share"])
+    upd = dict(moved=sum(a["moved"] for a in agree.values()),
+               disagree=sum(a["disagree"] for a in agree.values()),
+               max_share=agree[worst]["share"], max_share_entry=worst,
+               max_rel=max(a["rel"] for a in agree.values()),
+               router_fault_min_share=min(a["share_router_fault"]
+                                          for a in agree.values()
+                                          if "share_router_fault" in a),
+               negated_min_share=min(a["share_negated"]
+                                     for a in agree.values()))
+    log(f"{tag} rank 0's model.pt {how}: {len(state)} entries; of the "
+        f"{len(llm)} llm.* entries {len(same)} bitwise the single-process "
+        f"stage 2 output (frozen ones not bitwise: {len(frozen_moved)}; "
+        f"frozen ones not stage 2a's: {len(start_frozen)})")
+    log(f"{tag} the {len(trained)} trained entries' updates from the "
+        f"upcycled start against the single-process run's: "
+        f"{upd['disagree']:,} of {upd['moved']:,} moved elements more than "
+        f"one bf16 ulp apart; the largest share of an entry "
+        f"{upd['max_share']:.3e} ({worst}; limit {TP_UPDATE_DISAGREE_MAX}), "
+        f"the largest ||u_tp - u|| / ||u|| {upd['max_rel']:.3e}; planted "
+        f"faults, the least share over the entries they touch: routers left "
+        f"at the start {upd['router_fault_min_share']:.3f}, updates negated "
+        f"{upd['negated_min_share']:.3f}")
+    for k in sorted(agree, key=lambda k: -agree[k]["share"])[:4]:
+        log(f"{tag}   {k}: {agree[k]['disagree']:,} of "
+            f"{agree[k]['moved']:,} moved ({agree[k]['share']:.3e}), rel "
+            f"{agree[k]['rel']:.3e}")
+    blind = [k for k, a in agree.items()
+             if a["share_negated"] <= TP_UPDATE_DISAGREE_MAX
+             or a.get("share_router_fault", 1.0) <= TP_UPDATE_DISAGREE_MAX]
+    if blind or not all(a["moved"] for a in agree.values()) or start_frozen:
+        raise AssertionError(f"{tag} the update check cannot see a fault in "
+                             f"{blind[:8]} (start {start_frozen[:8]}): "
+                             f"{agree}")
+    far = [k for k, a in agree.items()
+           if a["share"] > TP_UPDATE_DISAGREE_MAX]
+    if far or frozen_moved:
+        raise AssertionError(f"{tag} model.pt entries off the single-process "
+                             f"output: {far[:8]} {frozen_moved[:8]}")
+    return same, llm, upd
 
 
 def tp_check(raw: dict, single: dict, single_out: str, start_out: str,
@@ -4875,58 +5353,10 @@ def tp_check(raw: dict, single: dict, single_out: str, start_out: str,
     start = torch.load(os.path.join(start_out, "model.pt"), map_location="cpu",
                        weights_only=True, mmap=True)
     state = raw["state"]
-    if state.keys() != ref.keys():
-        raise AssertionError("[tp] model.pt keys differ from stage 2's")
-    llm = [k for k in state if k.startswith("llm.")]
-    trained = [k for k in llm if any(m in k.replace(".", "/")
-                                     for m in RECORD_TRAIN_SET)]
-    same = [k for k in llm if torch.equal(state[k], ref[k])]
-    frozen_moved = [k for k in llm if k not in trained and k not in same]
-    # the start is stage 2a's output as the stage loaded it (in the
-    # stage's dtype): its frozen entries are the single-process output's
-    start_frozen = [k for k in llm if k not in trained and k in start
-                    and not torch.equal(start[k].to(ref[k].dtype), ref[k])]
-    agree = update_agreement(state, ref, start, trained, dev)
+    same, llm, upd = model_pt_agreement(
+        "[tp]", state, ref, start, dev,
+        f"through load_pretrained_model on {raw['loaded_on']}")
     del ref, start
-    worst = max(agree, key=lambda k: agree[k]["share"])
-    upd = dict(moved=sum(a["moved"] for a in agree.values()),
-               disagree=sum(a["disagree"] for a in agree.values()),
-               max_share=agree[worst]["share"], max_share_entry=worst,
-               max_rel=max(a["rel"] for a in agree.values()),
-               router_fault_min_share=min(a["share_router_fault"]
-                                          for a in agree.values()
-                                          if "share_router_fault" in a),
-               negated_min_share=min(a["share_negated"]
-                                     for a in agree.values()))
-    log(f"[tp] rank 0's model.pt through load_pretrained_model on "
-        f"{raw['loaded_on']}: {len(state)} entries; of the {len(llm)} llm.* "
-        f"entries {len(same)} bitwise the single-process stage 2 output "
-        f"(frozen ones not bitwise: {len(frozen_moved)}; frozen ones not "
-        f"stage 2a's: {len(start_frozen)})")
-    log(f"[tp] the {len(trained)} trained entries' updates from the "
-        f"upcycled start against the single-process run's: "
-        f"{upd['disagree']:,} of {upd['moved']:,} moved elements more than "
-        f"one bf16 ulp apart; the largest share of an entry "
-        f"{upd['max_share']:.3e} ({worst}; limit {TP_UPDATE_DISAGREE_MAX}), "
-        f"the largest ||u_tp - u|| / ||u|| {upd['max_rel']:.3e}; planted "
-        f"faults, the least share over the entries they touch: routers left "
-        f"at the start {upd['router_fault_min_share']:.3f}, updates negated "
-        f"{upd['negated_min_share']:.3f}")
-    for k in sorted(agree, key=lambda k: -agree[k]["share"])[:4]:
-        log(f"[tp]   {k}: {agree[k]['disagree']:,} of {agree[k]['moved']:,} "
-            f"moved ({agree[k]['share']:.3e}), rel {agree[k]['rel']:.3e}")
-    blind = [k for k, a in agree.items()
-             if a["share_negated"] <= TP_UPDATE_DISAGREE_MAX
-             or a.get("share_router_fault", 1.0) <= TP_UPDATE_DISAGREE_MAX]
-    if blind or not all(a["moved"] for a in agree.values()) or start_frozen:
-        raise AssertionError(f"[tp] the update check cannot see a fault in "
-                             f"{blind[:8]} (start {start_frozen[:8]}): "
-                             f"{agree}")
-    far = [k for k, a in agree.items()
-           if a["share"] > TP_UPDATE_DISAGREE_MAX]
-    if far or frozen_moved:
-        raise AssertionError(f"[tp] model.pt entries off the single-process "
-                             f"output: {far[:8]} {frozen_moved[:8]}")
     return dict(step_ms=ms, median_ms=med,
                 tokens_per_s=raw["tokens"] / med * 1e3,
                 single_median_ms=single["median_ms"],
@@ -4938,6 +5368,156 @@ def tp_check(raw: dict, single: dict, single_out: str, start_out: str,
                 torchrun_s=raw["wall_s"], profile=prof, probe=raw["probe"],
                 model_llm_bitwise=len(same), model_llm_entries=len(llm),
                 model_trained_updates=upd)
+
+
+def pp_check(raw: dict, start_out: str, card: str, dev) -> dict:
+    """[pp] against its single-process reference of this call (`raw`'s
+    `single`: [pp]'s argv without the pipeline), stage 2a's output in
+    `start_out` the upcycled start: prints the numbers and raises on a
+    failed check."""
+    ranks, single, info, lines = (raw["ranks"], raw["single"], raw["info"],
+                                  raw["lines"])
+    layers, teacher_layers = raw["layers"], raw["teacher_layers"]
+    per_row = {"flash_fwd": layers // PP_RANKS * (2 if raw["remat"] else 1)
+               + teacher_layers // PP_RANKS,
+               "flash_dq": layers // PP_RANKS,
+               "flash_dkv": layers // PP_RANKS}
+    per_step = {k: v * PP_MICROBATCHES for k, v in per_row.items()}
+    whole_row = {"flash_fwd": layers * (2 if raw["remat"] else 1)
+                 + teacher_layers, "flash_dq": layers, "flash_dkv": layers}
+    got = {k: v for k, v in lines[0].items()
+           if k not in ("step", "sec_per_step")}
+    sp = {k: v for k, v in single["lines"][0].items()
+          if k not in ("step", "sec_per_step")}
+    rel = {k: abs(got[k] - sp[k]) / abs(sp[k]) for k in ("loss",
+                                                         "grad_norm")}
+    bitwise = all(got[k] == sp[k] for k in sp)
+    ms = [[x["ms"] for x in r["records"]] for r in ranks]
+    single_ms = [x["ms"] for x in single["records"]]
+    log(f"[pp] stage 2b at pipe={PP_RANKS}, {PP_MICROBATCHES} microbatches "
+        f"of {PP_ROWS // PP_MICROBATCHES} row (B={PP_ROWS}, T={TRAIN_T}), "
+        f"gating groups of one sequence, "
+        f"two ranks on the one card over gloo, mesh {info.get('mesh')}; "
+        f"stages' layers {[r['stage'].get('layers') for r in ranks]}; on "
+        f"{card}")
+    log(f"[pp] step ms per rank {[' / '.join(f'{t:.1f}' for t in m) for m in ms]}"
+        f" against {' / '.join(f'{t:.1f}' for t in single_ms)} single-process"
+        f" (step 2: {ms[0][-1] / single_ms[-1]:.3f}x); peak GiB per rank "
+        f"{' / '.join(f'{r['peak_gib']:.2f}' for r in ranks)} (both on the "
+        f"one card: {sum(r['peak_gib'] for r in ranks):.2f}) against "
+        f"{single['peak_gib']:.2f} single-process; the [pp] phase "
+        f"{' / '.join(f'{r['seconds']:.1f}' for r in ranks)} s a rank (load, "
+        f"{PP_STEPS} steps, save), the reference {single['seconds']:.1f} s; "
+        f"on {card}")
+    for r in ranks:
+        t, j = r["transport"], r["save_transport"]
+        log(f"[pp] rank {r['stage'].get('rank')}: launches per step "
+            f"{[x['launches'] for x in r['records']]} (need {per_step}: "
+            f"{per_row} a one-row microbatch); transport over the "
+            f"{PP_STEPS} steps {t['sends']} sends, {t['recvs']} receives, "
+            f"{t['broadcasts']} broadcasts, {t['bytes'] / 1e6:.1f} MB sent, "
+            f"{t['host_ms']:.1f} host ms ({t['host_ms'] / PP_STEPS:.1f} a "
+            f"step); the final save's join {j['sends']} sends, {j['recvs']}"
+            f" receives, {j['bytes'] / 1e6:.1f} MB, {j['host_ms']:.1f} host "
+            f"ms")
+    log(f"[pp] first step against the single process at B={PP_ROWS}: loss "
+        f"{got['loss']:.7f} vs {sp['loss']:.7f} (rel {rel['loss']:.3e}, tol "
+        f"{DIST_LOSS_REL_TOL}), grad_norm {got['grad_norm']:.7f} vs "
+        f"{sp['grad_norm']:.7f} (rel {rel['grad_norm']:.3e}, tol "
+        f"{DIST_GRAD_NORM_REL_TOL}); every metric bitwise: {bitwise}")
+    reps = [r["replicas"] for r in ranks]
+    log(f"[pp] after update 1, parameters outside the layers equal on the "
+        f"two stages: {reps[1]['same']} of {reps[1]['total']} "
+        f"({reps[1]['trained']} of them trained)")
+    sums = {k: sum(r["records"][0]["launches"][k] for r in ranks)
+            / PP_MICROBATCHES for k in per_row}
+    if not (info.get("mesh") == dict(data=1, fsdp=1, expert=1, tensor=1,
+                                     pipe=PP_RANKS)
+            and info["optimizer_updates"] == 1):
+        raise AssertionError(f"[pp] did not run the pipeline mesh: {info}")
+    for r in ranks:
+        if len(r["records"]) != PP_STEPS or any(
+                x["launches"] != per_step for x in r["records"]):
+            raise AssertionError(f"[pp] rank launches {r['records']}, need "
+                                 f"{per_step}")
+    if sums != whole_row or single["launches"] != {
+            k: v * PP_STEPS for k, v in whole_row.items()}:
+        raise AssertionError(f"[pp] the stages' launches {sums} a row, the "
+                             f"single process's {single['launches']}")
+    if not (rel["loss"] <= DIST_LOSS_REL_TOL
+            and rel["grad_norm"] <= DIST_GRAD_NORM_REL_TOL):
+        raise AssertionError(f"[pp] first step disagrees: {rel}")
+    if not all(np.isfinite(v) for ln in lines for v in ln.values()):
+        raise AssertionError(f"[pp] run: {lines}")
+    if reps[1]["same"] != reps[1]["total"] or not reps[1]["total"]:
+        raise AssertionError(f"[pp] replicated parameters differ: {reps}")
+    if not all(r["peak_gib"] < 80 for r in ranks) or \
+            sum(r["peak_gib"] for r in ranks) >= 80:
+        raise AssertionError(f"[pp] peaks {[r['peak_gib'] for r in ranks]}")
+    start = torch.load(os.path.join(start_out, "model.pt"), map_location="cpu",
+                       weights_only=True, mmap=True)
+    same, llm, upd = model_pt_agreement(
+        "[pp]", raw["state"], single["state"], start, dev,
+        "(its stages' layers joined)")
+    del start
+    return dict(step_ms=ms, single_step_ms=single_ms,
+                peak_gib=[r["peak_gib"] for r in ranks],
+                single_peak_gib=single["peak_gib"],
+                launches=ranks[0]["launches"], launches_per_step=per_step,
+                first=got, single_first=sp, rel=rel, bitwise=bitwise,
+                replicas=reps[1], transport=[r["transport"] for r in ranks],
+                save_transport=[r["save_transport"] for r in ranks],
+                seconds=[r["seconds"] for r in ranks],
+                single_seconds=single["seconds"], p2p=raw["p2p"],
+                model_llm_bitwise=len(same), model_llm_entries=len(llm),
+                model_trained_updates=upd)
+
+
+def tp_generate_check(raw: dict, card: str) -> dict:
+    """[tp generate] against the single-process generation of rank 0's
+    model.pt: prints the numbers and raises on a failed check."""
+    ranks, single, layers = raw["ranks"], raw["single"], raw["layers"]
+    steps = GEN_NEW_TOKENS - 1
+    want = dict(prefill={"flash_fwd": layers, "flash_decode": 0},
+                decode={"flash_fwd": 0, "flash_decode": layers * steps})
+    tokens = np.asarray(single["tokens"])
+    for r in ranks + [single]:
+        r["per_step_ms"] = sum(d["ms"] for d in r["decode"]) / steps
+    for i, r in enumerate(ranks):
+        same = np.asarray(r["tokens"]) == tokens
+        log(f"[tp generate] rank {i}: {GEN_ROWS} rows x {GEN_NEW_TOKENS} "
+            f"greedy tokens, {int(same.sum())} of {same.size} equal to the "
+            f"single process's (rows equal: {int(same.all(1).sum())}); "
+            f"prefill {r['prefill'][0]['ms']:.1f} ms, K1 "
+            f"{r['prefill'][0]['launches']['flash_fwd']}; decode "
+            f"{r['per_step_ms']:.2f} ms a step, K2 "
+            f"{sum(d['launches']['flash_decode'] for d in r['decode'])} over "
+            f"{steps} steps; K2 (query, KV) heads {r['heads']}; on {card}")
+    log(f"[tp generate] single process: prefill "
+        f"{single['prefill'][0]['ms']:.1f} ms, decode "
+        f"{single['per_step_ms']:.2f} ms a step; K2 heads {single['heads']}")
+    for r in ranks:
+        got = dict(prefill=r["prefill"][0]["launches"], decode={
+            k: sum(d["launches"][k] for d in r["decode"])
+            for k in ("flash_fwd", "flash_decode")})
+        got["prefill"] = {k: got["prefill"][k] for k in want["prefill"]}
+        if got != want or r["heads"] != [[16 // TP_RANKS, 16 // TP_RANKS]]:
+            raise AssertionError(f"[tp generate] launches {got} heads "
+                                 f"{r['heads']}, need {want}")
+        if r["tokens"] != single["tokens"]:
+            raise AssertionError(f"[tp generate] tokens differ from the "
+                                 f"single process's: {r['tokens']} vs "
+                                 f"{single['tokens']}")
+    return dict(tokens_equal=True, rows=GEN_ROWS, new_tokens=GEN_NEW_TOKENS,
+                prefill_ms=[r["prefill"][0]["ms"] for r in ranks],
+                decode_ms_per_step=[r["per_step_ms"] for r in ranks],
+                single_prefill_ms=single["prefill"][0]["ms"],
+                single_decode_ms_per_step=single["per_step_ms"],
+                launches=dict(  # rank 0's, measured
+                    flash_fwd=ranks[0]["prefill"][0]["launches"]["flash_fwd"],
+                    flash_decode=sum(d["launches"]["flash_decode"]
+                                     for d in ranks[0]["decode"])),
+                heads=ranks[0]["heads"])
 
 
 def stages_phase(card: str, dev):
@@ -4983,7 +5563,7 @@ def stages_phase(card: str, dev):
                                  argvs["align"] + common
                                  + ["--data_path", data["align"]], root,
                                  dev, card)
-                log_time("[tp] run")
+                log_time("[tp], [tp generate] and [pp] runs")
             results[stage] = drive_stage(
                 stage, os.path.join(here, config), argv, tok, dev, card,
                 memory_call=0 if stage == "align" else None)
@@ -5017,6 +5597,10 @@ def stages_phase(card: str, dev):
                 results["align_dist"] = dist_check(
                     dist_raw, results["align"], outs["align"], card)
                 del dist_raw
+                results["generate_tp"] = tp_generate_check(
+                    tp_raw.pop("generate"), card)
+                results["align_pp"] = pp_check(tp_raw.pop("pp"),
+                                               outs["align_d2d"], card, dev)
                 results["align_tp"] = tp_check(
                     tp_raw, results["align"], outs["align"],
                     outs["align_d2d"], card, dev)
@@ -5071,6 +5655,8 @@ def main() -> int:
         return dist_worker(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--tp-worker":
         return tp_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--p2p-probe":
+        return p2p_probe_worker(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this check needs a GPU",
               file=sys.stderr)
@@ -5154,6 +5740,8 @@ def main() -> int:
         ("align_lora_dist", "align_lora_dist"))}
     stage_n["align_dist_resumed"] = stages["align_dist"]["resumed_launches"]
     stage_n["align_tp"] = stages["align_tp"]["launches"]     # rank 0's
+    stage_n["align_pp"] = stages["align_pp"]["launches"]     # rank 0's
+    stage_n["generate_tp"] = stages["generate_tp"]["launches"]  # a rank's
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
     stage_n["train_fused"] = trained["fused"]["launches"]

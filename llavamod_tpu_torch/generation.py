@@ -4,17 +4,35 @@ llavamod_tpu/generation.py).
 One prefill (multimodal splice included) fills a preallocated cache of
 `t + max_new_tokens` slots, then one decoder step per token; greedy or
 temperature/top-k/top-p sampling; early stop via a done mask.  Everything
-runs under torch.inference_mode().
+runs under torch.inference_mode() (a sharded model under no_grad).
 
 Prompts must be LEFT-padded (segment 0 on the left) so every sequence's
 next-token slot is the last position; positions are segment-aware so RoPE
 sees 0 at each sequence's first real token.  The cache `length` is one
 scalar shared by all rows; decode positions are prompt_len + i.
+
+Under a parallel context (parallel/collectives.py `active`) with a model
+that parallel/sharding.py `shard_params` sharded over a (data, fsdp,
+expert, tensor) mesh, each rank generates for its rows (the ranks of a
+tensor group hold the same rows): the cache holds the rank's KV heads,
+kernel K2 runs on them, the vocab-parallel logits are gathered whole on
+every tensor rank before `_sample`, and with temperature > 0 tensor rank
+0's token is broadcast to its group (the generators of the ranks need not
+agree; greedy decoding picks the same token on every rank).  Every rank
+runs the same number of prefill and decode forwards, so the FSDP2 gathers
+and the expert exchange stay in lockstep: the loop runs exactly
+`max_new_tokens - 1` steps, and `generate_stream` stops early only when
+the done rows of every rank agree.  The prefill goes through the model's
+module call (FSDP2 gathers the tower, the projector and each layer in
+their hooks) and the root unit (embedding, final norm, head) is held
+gathered around the prefill and each run of decode steps.  Pipeline
+parallelism takes no cache (ROADMAP Queue 1, item 17).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +41,12 @@ import torch
 from llavamod_tpu_torch.models import llava
 from llavamod_tpu_torch.models.llm import decoder
 from llavamod_tpu_torch.models.llava import Llava, MultimodalBatch
+from llavamod_tpu_torch.parallel.collectives import (
+    current as parallel_context,
+    tensor_gather,
+    tensor_size,
+)
+from llavamod_tpu_torch.parallel.sharding import gathered, is_sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +83,28 @@ def _sample(logits: torch.Tensor, gcfg: GenerationConfig,
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def _next_logits(model: Llava, hidden: torch.Tensor) -> torch.Tensor:
+    """[B, 1, D] -> logits [B, V], whole on every tensor rank."""
+    logits = llava.logits(model, model.cfg, hidden)[:, 0]
+    pctx = parallel_context()
+    if tensor_size(pctx) > 1:
+        logits = tensor_gather(logits, pctx, -1)
+    return logits
+
+
+def _pick(logits: torch.Tensor, gcfg: GenerationConfig,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """`_sample`, with tensor rank 0's sampled token on its whole group."""
+    tok = _sample(logits, gcfg, generator)
+    pctx = parallel_context()
+    if gcfg.temperature > 0.0 and tensor_size(pctx) > 1:
+        import torch.distributed as dist
+
+        src = dist.get_process_group_ranks(pctx.tensor_group)[0]
+        dist.broadcast(tok, src, group=pctx.tensor_group)
+    return tok
 
 
 def _stop_machinery(gcfg: GenerationConfig, b: int, device):
@@ -112,13 +158,16 @@ def _prefill(model: Llava, batch: MultimodalBatch, gcfg: GenerationConfig,
                                dtype=_CACHE_DTYPES[gcfg.cache_dtype],
                                device=dev)
     # attn_impl="fresh": the cache is empty, so prefill attention runs on the
-    # chunk's own K/V (kernel K1 on the card) while the cache is written
-    out = llava.forward(model, cfg, batch._replace(positions=positions),
-                        cache=cache, train=False, attn_impl="fresh")
-    last_logits = llava.logits(model, cfg, out.hidden[:, -1:])[:, 0]
+    # chunk's own K/V (kernel K1 on the card) while the cache is written; a
+    # sharded model through its module call
+    fwd = model if is_sharded(model) else functools.partial(
+        llava.forward, model, cfg)
+    out = fwd(batch._replace(positions=positions), cache=cache, train=False,
+              attn_impl="fresh")
+    last_logits = _next_logits(model, out.hidden[:, -1:])
 
     is_eos, push_window, window_stopped, win = _stop_machinery(gcfg, b, dev)
-    first = _sample(last_logits, gcfg, generator)
+    first = _pick(last_logits, gcfg, generator)
     window = push_window(torch.full((b, win), -1, dtype=torch.int32,
                                     device=dev), first)
     done = is_eos(first) | window_stopped(window)
@@ -139,8 +188,8 @@ def _decode_steps(model: Llava, gcfg: GenerationConfig, state: _DecodeState,
         dout = decoder.forward(model.llm, cfg.llm, inputs_embeds=emb,
                                positions=(state.prompt_len + state.step)[:, None],
                                segment_ids=ones, cache=state.cache, train=False)
-        logits = llava.logits(model, cfg, dout.hidden[:, -1:])[:, 0]
-        nxt = _sample(logits, gcfg, generator)
+        logits = _next_logits(model, dout.hidden[:, -1:])
+        nxt = _pick(logits, gcfg, generator)
         nxt = torch.where(state.done, gcfg.pad_token_id, nxt).to(torch.int32)
         state.window = push_window(state.window, nxt)
         state.done = state.done | is_eos(nxt) | window_stopped(state.window)
@@ -150,15 +199,21 @@ def _decode_steps(model: Llava, gcfg: GenerationConfig, state: _DecodeState,
     return torch.stack(toks, dim=1)
 
 
-@torch.inference_mode()
+def _no_grad(model: Llava):
+    """inference_mode, or for a sharded model no_grad (FSDP2's gathers
+    cannot write inference tensors)."""
+    return torch.no_grad() if is_sharded(model) else torch.inference_mode()
+
+
 def generate(model: Llava, batch: MultimodalBatch, gcfg: GenerationConfig,
              generator: Optional[torch.Generator] = None) -> np.ndarray:
     """Returns generated ids [B, max_new_tokens] (pad after EOS)."""
-    state = _prefill(model, batch, gcfg, generator)
-    parts = [state.tok[:, None]]
-    if gcfg.max_new_tokens > 1:
-        parts.append(_decode_steps(model, gcfg, state,
-                                   gcfg.max_new_tokens - 1, generator))
+    with _no_grad(model), gathered(model):
+        state = _prefill(model, batch, gcfg, generator)
+        parts = [state.tok[:, None]]
+        if gcfg.max_new_tokens > 1:
+            parts.append(_decode_steps(model, gcfg, state,
+                                       gcfg.max_new_tokens - 1, generator))
     gen = torch.cat(parts, dim=1)
     return truncate_at_stops(gen.cpu().numpy(), gcfg)
 
@@ -171,20 +226,33 @@ def generate_stream(model: Llava, batch: MultimodalBatch,
     decoded ids; stops early once every sequence hit EOS/a stop string.
     The concatenation of all yields == generate(...) before stop-truncation,
     so callers apply truncate_at_stops to the accumulated ids."""
-    with torch.inference_mode():
+    with _no_grad(model), gathered(model):
         state = _prefill(model, batch, gcfg, generator)
         first = state.tok.cpu().numpy()[:, None]
     yield first
     produced = 1
     while produced < gcfg.max_new_tokens:
-        if bool(state.done.all()):
+        if _all_done(state.done):
             break
         step = min(chunk, gcfg.max_new_tokens - produced)
-        with torch.inference_mode():
+        with _no_grad(model), gathered(model):
             toks = _decode_steps(model, gcfg, state, step, generator)
             toks = toks.cpu().numpy()
         yield toks
         produced += step
+
+
+def _all_done(done: torch.Tensor) -> bool:
+    """Every row done, on every rank of an active parallel context (the
+    ranks then stop at the same step)."""
+    pctx = parallel_context()
+    if pctx is None:
+        return bool(done.all())
+    import torch.distributed as dist
+
+    flag = done.all().to(torch.int32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
 
 
 def truncate_at_stops(gen: np.ndarray, gcfg: GenerationConfig) -> np.ndarray:

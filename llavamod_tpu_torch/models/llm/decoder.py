@@ -46,7 +46,17 @@ is reduce-scattered over T.  The embedding is vocab-parallel, and
 losses (ops/losses.py).  A row-parallel W8A8 product quantizes each row
 with the whole row's scale (a max over the group) and sums the ranks'
 int32 products before the f32 rescale, so it gives the single-process
-bits.  The KV-cache (generation) path takes no tensor split.
+bits.  The KV-cache (generation) path runs under a tensor split too: the
+cache holds the rank's KH / tensor KV heads (`init_cache`), kernel K2 runs
+on them and `wo` is row-parallel; with a cache the residual stream is never
+T-sharded (a decode step has T = 1), as the JAX package applies its
+sequence constraint only without one.
+
+Pipeline parallelism (parallel/pipeline.py): under a parallel context
+whose pipe group has more than one rank the decoder holds only its stage's
+layers, and the no-cache layer loop is the GPipe microbatch pipeline
+(`pipeline.pipeline_layers`); the un-pipelined paths (a KV cache, or
+`scan_layers` off) raise under pipe > 1.
 
 int8 W8A8: `quantize_decoder_int8` replaces float weights, in place, with
 `Int8Weight`s (models/params.py) under the JAX paths ('layers.3.attn.wqkv
@@ -73,6 +83,7 @@ from torch.utils.checkpoint import (
 
 from llavamod_tpu_torch.models.llm.config import DecoderConfig
 from llavamod_tpu_torch.models.params import Initializer, Int8Weight, ParamGroup
+from llavamod_tpu_torch.parallel import pipeline
 from llavamod_tpu_torch.parallel.collectives import (
     column_in,
     copy_in,
@@ -204,8 +215,10 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> KVCache:
     """dtype: a torch float dtype, or 'int8' for a quantized cache with
     per-position/head symmetric scales.  The zero-filled segment row is what
-    gives cached decode its causality: unwritten slots stay segment 0."""
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    gives cached decode its causality: unwritten slots stay segment 0.
+    Under a tensor split the cache holds the rank's KH / tensor KV heads."""
+    kh = cfg.num_kv_heads // tensor_size(parallel_context())
+    shape = (cfg.num_layers, batch, kh, max_len, cfg.head_dim)
     seg = torch.zeros((batch, max_len), dtype=torch.int32, device=device)
     if dtype == "int8" or dtype == torch.int8:
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -1016,9 +1029,6 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
     output are the rank's T-shards (positions and segment ids are whole)."""
     pctx, tp, seq = _tp(cfg)
     if tp > 1:
-        if cache is not None:
-            raise NotImplementedError("generation under a tensor mesh is not "
-                                      "ported yet (ROADMAP Queue 1, item 16)")
         x = column_in(x, pctx, seq)
     b, t, d = x.shape
     h, kh, dh = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
@@ -1253,7 +1263,9 @@ def forward(
     boundaries, or also the matmul outputs with remat_policy='dots'
     (no-cache path only, as in the JAX package).  Under a tensor split the
     returned hidden is whole on every tensor rank, for the vocab-parallel
-    head (its gradient is reduced over the group).
+    head (its gradient is reduced over the group).  Under pipe > 1 the
+    layers run as the stages of a GPipe pipeline (parallel/pipeline.py)
+    and the hidden is the same on every stage.
     """
     if inputs_embeds is None:
         inputs_embeds = embed(model, cfg, input_ids)
@@ -1273,6 +1285,9 @@ def forward(
                    else torch.ones((b, t), dtype=torch.int32, device=dev))
         cache.segment[:, start:start + t] = seg_new
 
+    if cache is not None and cfg.seq_shard_activations:
+        # a cached call keeps the whole sequence on every tensor rank
+        cfg = cfg.replace(seq_shard_activations=False)
     pctx, tp, seq = _tp(cfg)
     x = inputs_embeds
     if seq:
@@ -1282,7 +1297,21 @@ def forward(
     moe_losses: List[torch.Tensor] = []
     router_probs: List[torch.Tensor] = []
     rematted = remat and cache is None and torch.is_grad_enabled()
-    for i, layer in enumerate(model.layers):
+    if pipeline.pipe_size() > 1:
+        if cache is not None or not cfg.scan_layers:
+            from llavamod_tpu_torch.models.builder import not_ported
+
+            raise not_ported("the un-pipelined decoder (a KV cache, or "
+                             "scan_layers off) under pipeline parallelism",
+                             17)
+        # router probes are not collected under the pipeline
+        x, aux_total = pipeline.pipeline_layers(
+            cfg, model.layers, x, positions, segment_ids, train, attn_impl,
+            remat, prefix_mask)
+        layers = ()
+    else:
+        layers = model.layers
+    for i, layer in enumerate(layers):
         args = (cfg, x, positions, segment_ids, i, cache, train, attn_impl,
                 prefix_mask)
         if rematted:

@@ -34,7 +34,7 @@ import json
 import os
 import re
 from collections.abc import Mapping
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -386,8 +386,8 @@ class _Partial(Mapping):
 
 
 def save_non_lora_trainables(adapter_dir: str, model: nn.Module,
-                             full: Optional[Dict[str, torch.Tensor]] = None
-                             ) -> str:
+                             full: Optional[Dict[str, torch.Tensor]] = None,
+                             trainable: Optional[List[str]] = None) -> str:
     """Write `adapter_dir/non_lora_trainables.bin`: every trainable
     parameter of `model` (requires_grad, which excludes the adapted
     targets) in the reference's layout (train.py:535-545): PEFT's
@@ -395,12 +395,16 @@ def save_non_lora_trainables(adapter_dir: str, model: nn.Module,
     '...mlp.deepspeed_moe.gate.wg.weight' (interop/hf.py), the projector as
     in mm_projector.bin; any other module under its own state-dict key.
     Tensors keep their dtype.  `full`: the model's whole state dict, read
-    in place of `model`'s own tensors (a sharded model's, gathered)."""
+    in place of `model`'s own tensors (a sharded model's, gathered), and
+    `trainable` the keys of the trainable parameters of the whole model
+    (a pipeline stage holds its own layers only; default: `model`'s)."""
     from llavamod_tpu_torch.interop.hf import decoder_params_to_hf
     from llavamod_tpu_torch.train.checkpoint import mm_projector_state
 
     cfg = model.cfg
-    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    if trainable is None:
+        trainable = [n for n, p in model.named_parameters()
+                     if p.requires_grad]
     if full is None:
         full = model.state_dict()
 

@@ -3,15 +3,21 @@ on them.
 
 `ParallelContext(mesh)` holds, for one rank of a `make_mesh` mesh:
 
-  * `param_mesh` — 2-D (data x expert, fsdp) of the rank's tensor index:
-    FSDP2 shards every parameter but the experts over fsdp and replicates
-    it over data and expert (HSDP);
+  * `param_mesh` — 2-D (data x expert, fsdp) of the rank's pipe and tensor
+    index: FSDP2 shards every parameter but the experts over fsdp and
+    replicates it over data and expert (HSDP);
   * `expert_param_mesh` — 2-D (data, fsdp) of the rank's own expert slot
-    and tensor index: the experts a rank keeps (E / expert of them) are
-    sharded over fsdp and replicated over data;
-  * the `expert`, `fsdp` and `tensor` groups, and the rows group: the
-    ranks of data x fsdp x expert at the rank's tensor index, which own
-    distinct rows (the ranks along `tensor` hold the same rows).
+    and pipe and tensor index: the experts a rank keeps (E / expert of
+    them) are sharded over fsdp and replicated over data;
+  * the `expert`, `fsdp`, `tensor` and `pipe` groups, and the rows group:
+    the ranks of data x fsdp x expert at the rank's pipe and tensor index,
+    which own distinct rows (the ranks along `tensor` and along `pipe`
+    hold the same rows);
+  * the pipeline's transport between the stages (`send_stage`,
+    `recv_stage`, `broadcast_stage`): NCCL's point-to-point on the card's
+    memory, or under gloo, which reads and writes host memory only, through
+    a host buffer.  The stages' order of transfers is the schedule's
+    (parallel/pipeline.py), never autograd's.
 
 While a context is `active`, the MoE block gates the rows group's tokens as
 one set (`gather_rows`) and sends each kept token to the rank that owns its
@@ -44,6 +50,7 @@ reduction) takes the cotangent of the sum.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -52,6 +59,15 @@ import torch.distributed as dist
 from llavamod_tpu_torch.parallel.mesh import mesh_config, rank_grid
 
 _ACTIVE: List["ParallelContext"] = []
+
+# the pipeline's point-to-point traffic since the last `reset_transport`:
+# transfers, bytes sent and the host time spent in them
+transport: Dict[str, float] = dict(sends=0, recvs=0, broadcasts=0, bytes=0,
+                                   host_ms=0.0)
+
+
+def reset_transport() -> None:
+    transport.update(sends=0, recvs=0, broadcasts=0, bytes=0, host_ms=0.0)
 
 
 def current() -> Optional["ParallelContext"]:
@@ -317,18 +333,18 @@ class ParallelContext:
         self.cfg = cfg = mesh_config(mesh)
         self.world, self.rank = dist.get_world_size(), dist.get_rank()
         self.device_type = mesh.device_type
-        grid = rank_grid(cfg)[0]                                # [D, F, X, T]
-        d, f, x, t = grid.shape
+        grid = rank_grid(cfg)                                # [P, D, F, X, T]
+        p, d, f, x, t = grid.shape
         # every rank builds each mesh whole (its groups are made by all
-        # ranks) and keeps the slice of its own tensor index
+        # ranks) and keeps the slice of its own pipe and tensor index
         self.param_mesh = DeviceMesh(
             self.device_type,
-            grid.permute(3, 0, 2, 1).reshape(t, d * x, f),
-            mesh_dim_names=("tensor", "data_expert", "fsdp"))[
+            grid.permute(0, 4, 1, 3, 2).reshape(p, t, d * x, f),
+            mesh_dim_names=("pipe", "tensor", "data_expert", "fsdp"))[
                 "data_expert", "fsdp"]
         self.expert_param_mesh = DeviceMesh(
-            self.device_type, grid.permute(3, 2, 0, 1),
-            mesh_dim_names=("tensor", "expert", "data", "fsdp"))[
+            self.device_type, grid.permute(0, 4, 3, 1, 2),
+            mesh_dim_names=("pipe", "tensor", "expert", "data", "fsdp"))[
                 "data", "fsdp"]
         self.expert_group = mesh.get_group("expert")
         self.fsdp_group = mesh.get_group("fsdp")
@@ -338,13 +354,69 @@ class ParallelContext:
         self.tensor_group = mesh.get_group("tensor")
         self.tensor_size = cfg.tensor
         self.tensor_rank = mesh.get_local_rank("tensor")
-        # the ranks owning distinct rows: the world when tensor = 1
-        self.rows = self.world // cfg.tensor
-        self.row_rank = self.rank // cfg.tensor
-        self.rows_group = None if cfg.tensor == 1 else DeviceMesh(
-            self.device_type, grid.permute(3, 0, 1, 2).reshape(t, d * f * x),
-            mesh_dim_names=("tensor", "rows")).get_group("rows")
+        # the pipeline's stages (parallel/pipeline.py): the ranks along pipe
+        # hold the same rows and the same (data, fsdp, expert, tensor) index
+        self.pipe_group = mesh.get_group("pipe")
+        self.pipe_size = cfg.pipe
+        self.pipe_rank = mesh.get_local_rank("pipe")
+        self.pipe_ranks = dist.get_process_group_ranks(self.pipe_group)
+        # the rank's place inside its stage: 0 for the stage's first rank
+        self.stage_rank = self.rank % (self.world // cfg.pipe)
+        # the ranks owning distinct rows: the world when tensor = pipe = 1
+        self.rows = self.world // (cfg.tensor * cfg.pipe)
+        self.row_rank = self.stage_rank // cfg.tensor
+        self.rows_group = None if cfg.tensor == 1 and cfg.pipe == 1 else \
+            DeviceMesh(self.device_type,
+                       grid.permute(0, 4, 1, 2, 3).reshape(p, t, d * f * x),
+                       mesh_dim_names=("pipe", "tensor", "rows")
+                       ).get_group("rows")
         self.segments = 1
+
+    # ---- the pipeline's transport ------------------------------------------
+
+    def _staged(self) -> bool:
+        """gloo's point-to-point reads and writes host memory only: a CUDA
+        tensor goes through a host buffer (NCCL takes the device's)."""
+        return dist.get_backend(self.pipe_group) == "gloo"
+
+    def send_stage(self, x: torch.Tensor, stage: int) -> None:
+        """Send `x` to the rank of pipe stage `stage` (blocking)."""
+        t0 = time.perf_counter()
+        x = x.detach().contiguous()
+        if self._staged() and x.device.type != "cpu":
+            x = x.cpu()
+        elif not self._staged() and x.device.type == "cpu":
+            x = x.to(self.device_type)
+        dist.send(x, self.pipe_ranks[stage], group=self.pipe_group)
+        transport["sends"] += 1
+        transport["bytes"] += x.numel() * x.element_size()
+        transport["host_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def recv_stage(self, shape, dtype, device, stage: int) -> torch.Tensor:
+        """Receive a tensor of `shape` and `dtype` from the rank of pipe
+        stage `stage` (blocking), on `device`."""
+        t0 = time.perf_counter()
+        where = "cpu" if self._staged() else self.device_type
+        buf = torch.empty(shape, dtype=dtype, device=where)
+        dist.recv(buf, self.pipe_ranks[stage], group=self.pipe_group)
+        out = buf.to(device)
+        transport["recvs"] += 1
+        transport["host_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def broadcast_stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
+        """`x` of pipe stage `stage` on every stage (in place)."""
+        t0 = time.perf_counter()
+        dist.broadcast(x, self.pipe_ranks[stage], group=self.pipe_group)
+        transport["broadcasts"] += 1
+        transport["host_ms"] += (time.perf_counter() - t0) * 1e3
+        return x
+
+    def pipe_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of `x` over the pipe group (no gradient)."""
+        y = x.detach().clone()
+        dist.all_reduce(y, group=self.pipe_group)
+        return y
 
     # ---- the world's rows -------------------------------------------------
 

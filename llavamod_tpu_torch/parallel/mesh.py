@@ -6,7 +6,9 @@ package puts all parallelism in one `jax.sharding.Mesh`; here it is one
 `torch.distributed.device_mesh.DeviceMesh` over the world's ranks, one rank
 per card, with the same five axes in the same order:
 
-  pipe   — pipeline parallelism (ROADMAP Queue 1, item 14)
+  pipe   — pipeline parallelism: each rank along it keeps a contiguous
+           block of the decoder's layers and runs them as one stage of a
+           GPipe microbatch schedule (parallel/pipeline.py)
   data   — data parallelism: every rank owns distinct rows
   fsdp   — parameter / gradient / optimizer sharding (ZeRO-3, FSDP2)
   expert — expert parallelism: each rank along it keeps E / expert experts
@@ -15,9 +17,12 @@ per card, with the same five axes in the same order:
            holds the same rows (with sequence parallelism, a T-shard of
            the residual stream between the blocks)
 
-Every axis but pipe runs: the global batch is the rows of data x fsdp x
-expert, and a step on it computes the single-process step on those rows
-(parallel/sharding.py, parallel/collectives.py).
+The global batch is the rows of data x fsdp x expert, and a step on it
+computes the single-process step on those rows (parallel/sharding.py,
+parallel/collectives.py); the ranks along pipe and along tensor hold the
+same rows.  `pipe` is outermost, as in the JAX package: its traffic is one
+point-to-point transfer of a microbatch's activations per stage boundary,
+the lightest of the axes, so the ranks of one stage are consecutive.
 """
 
 from __future__ import annotations
@@ -60,22 +65,14 @@ def world_size() -> int:
     return 1
 
 
-def check_ported(cfg: MeshConfig) -> None:
-    """Raise for the axes whose parallelism is not ported yet."""
-    from llavamod_tpu_torch.models.builder import not_ported
-
-    if cfg.pipe > 1:
-        raise not_ported("pipeline parallelism", 14)
-
-
 def make_mesh(cfg: Optional[MeshConfig] = None, device_type: str = "cuda"):
     """The world's ranks as a DeviceMesh of shape (pipe, data, fsdp, expert,
-    tensor) named AXES; rank = (((d * fsdp + f) * expert + e) * tensor + t)
-    for pipe = 1.  Needs an initialised process group of `cfg.size` ranks."""
+    tensor) named AXES; rank = ((((p * data + d) * fsdp + f) * expert + e)
+    * tensor + t).  Needs an initialised process group of `cfg.size`
+    ranks."""
     from torch.distributed.device_mesh import init_device_mesh
 
     cfg = cfg or MeshConfig.auto()
-    check_ported(cfg)
     n = world_size()
     assert cfg.size == n, f"mesh {cfg} needs {cfg.size} ranks, have {n}"
     return init_device_mesh(

@@ -15,7 +15,10 @@ of which tensor belongs to which axis:
   norms / biases / small params     -> replicated
   batch activations [B, T, ...]     -> (('data','fsdp'), None, ...)
 
-`shard_params(mesh, model)` first keeps the rank's slice of every LLM
+`shard_params(mesh, model)` first keeps, under pipe > 1, only the decoder
+layers of the rank's pipeline stage (parallel/pipeline.py
+`keep_stage_layers`: a contiguous block of layer repeats, the rule's
+`pipe` lead of the stacked layer tree), then the rank's slice of every LLM
 tensor that the rule names `tensor` for (`tensor_split`, Megatron-LM's
 layout: attention in-projections on their output dim and `wo` on its input
 dim, so each rank holds H / tensor query and KH / tensor KV heads;
@@ -45,9 +48,18 @@ FSDP2:
   * the dim FSDP2 splits is the rule's fsdp entry (`fsdp_dim`), or dim 0
     where the rule names none or `fit_spec_to_shape` drops it (FSDP2
     splits only dim 0 unevenly);
-  * every mesh of the FSDP2 units is the one of the rank's tensor index:
-    FSDP2 shards and reduces over data x fsdp x expert only, and sees the
-    tensor slice as the whole parameter.
+  * every mesh of the FSDP2 units is the one of the rank's pipe and tensor
+    index: FSDP2 shards and reduces over data x fsdp x expert only, and
+    sees the tensor slice as the whole parameter;
+  * everything outside the decoder layers (embedding, tower, projector,
+    final norm, head) is whole on every pipe stage, as the rule table
+    replicates it over pipe; its gradients are stage 0's, handed to the
+    other stages (parallel/pipeline.py `replicated_grads`).  Both models
+    keep their stage's layers, the frozen teacher included.  Where the port
+    departs from the JAX engine: under LoRA the JAX engine leaves the layer
+    trees unstacked, so they (and their adapters) are replicated over pipe
+    and gathered by GSPMD each step; here a stage keeps its layers and
+    their adapters in every case (`shard_lora`).
 
 Gradients are summed over the ranks (no averaging): each rank's loss is
 its share of the single-process loss (train/steps.py).  Parameters are
@@ -447,6 +459,10 @@ def shard_params(mesh, model: nn.Module,
     ctx = ctx or ParallelContext(mesh)
     sizes = axis_sizes(mesh)
     llm = getattr(model, "llm", None)
+    if llm is not None and ctx.pipe_size > 1:
+        from llavamod_tpu_torch.parallel.pipeline import keep_stage_layers
+
+        keep_stage_layers(llm, ctx.pipe_size, ctx.pipe_rank)
     layers = list(llm.layers) if llm is not None else []
     for layer in layers:
         if getattr(layer, "is_moe", False):
@@ -517,11 +533,15 @@ def shard_lora(lora: nn.Module, model: nn.Module, ctx) -> None:
         experts;
       * everything else is whole on every rank of the rows group (the
         record's r = 128 FFN adapters are ~174 M entries), its gradient
-        summed there (`reduce_adapter_grads`)."""
+        summed there (`reduce_adapter_grads`);
+      * under pipe > 1 a stage keeps the adapters of its own layers only
+        (`shard_params` kept those layers)."""
     from llavamod_tpu_torch.parallel.collectives import is_expert_key
 
     splits = getattr(model, "tensor_split", {})
     own: Dict[str, TensorSplit] = {}
+    if ctx.pipe_size > 1:
+        _keep_stage_adapters(lora, model)
     for key in lora.targets:
         pair = lora.get_submodule(key)
         if is_expert_key(key) and ctx.expert_size > 1:
@@ -539,6 +559,16 @@ def shard_lora(lora: nn.Module, model: nn.Module, ctx) -> None:
                                                requires_grad=t.requires_grad)
         own[f"{key}.{which}"] = TensorSplit(dim)
     lora.tensor_split = own
+
+
+def _keep_stage_adapters(lora: nn.Module, model: nn.Module) -> None:
+    """Drop, in place, the adapters whose target the stage's `model` does
+    not hold."""
+    params = {n for n, _ in model.named_parameters()}
+    for key in [k for k in lora.targets if k not in params]:
+        owner, _, leaf = key.rpartition(".")
+        delattr(lora.get_submodule(owner), leaf)
+    lora.targets = [k for k in lora.targets if k in params]
 
 
 @torch.no_grad()

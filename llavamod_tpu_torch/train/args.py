@@ -120,16 +120,16 @@ class TrainArgs:
     attn_impl: str = "auto"
     vocab_chunk: int = 2048
     # mesh axes under torchrun, one process per card (train/run.py
-    # `_DeviceContext`: data x fsdp x expert x tensor = the world, the
-    # ranks left over go to fsdp): data, expert, tensor and sequence
-    # parallelism run, --fused_update and --lora_enable on any of them;
-    # pipeline parallelism raises (ROADMAP Queue 1, item 14)
+    # `_DeviceContext`: pipe x data x fsdp x expert x tensor = the world,
+    # the ranks left over go to fsdp): data, expert, tensor, sequence and
+    # pipeline parallelism run, --lora_enable on any of them, --fused_update
+    # on all but the pipeline
     expert_parallel: int = 1            # ranks that split the experts
     tensor_parallel: int = 1            # ranks that split heads, F, vocab
     data_parallel: int = 1              # replicas (HSDP over data x expert)
     sequence_parallel: bool = False     # T-sharded stream (tensor > 1)
-    pipeline_parallel: int = 1          # item 14
-    pipeline_microbatches: int = 0      # item 14
+    pipeline_parallel: int = 1          # GPipe stages (parallel/pipeline.py)
+    pipeline_microbatches: int = 0      # 0 = one microbatch per stage
     # accepted and without effect: the JAX package pre-stacks the layer
     # trees for its lax.scan layer loop, a TPU workaround the port does not
     # carry (its layers are a Python loop over modules)

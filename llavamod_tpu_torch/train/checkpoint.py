@@ -14,9 +14,11 @@
     slices are its local tensors, saved under its own keys).
     `gather_full_state` assembles the whole model on rank 0 for the final
     save, which is the single-process format: FSDP2's shards, the experts
-    of the expert ranks and the slices of the tensor ranks (a fused int8
-    `wqkv` / `gate_up` put back block by block); `gather_lora` the LoRA
-    adapters alike;
+    of the expert ranks, the slices of the tensor ranks (a fused int8
+    `wqkv` / `gate_up` put back block by block) and the layers of the
+    pipeline stages; `gather_lora` the LoRA adapters alike.  Under pipe > 1
+    a stage's ranks write its own layers under their global keys, so the
+    sharded checkpoint holds every stage's layers;
   * auto-resume as the reference's train/train.py:527-530: when the output
     directory holds `checkpoint-*`, training restarts from the newest one;
   * the stage-1 `mm_projector.bin` in the reference's key layout: for
@@ -173,7 +175,9 @@ def gather_full_state(model, pctx) -> Optional[Dict[str, torch.Tensor]]:
     dtypes, the keys of the unsharded model), None on the other ranks.
     Every rank takes part: each parameter is gathered over its shards, an
     expert tensor also over the expert ranks, and a tensor-split one
-    (`model.tensor_split`, parallel/sharding.py) over the tensor ranks."""
+    (`model.tensor_split`, parallel/sharding.py) over the tensor ranks;
+    under pipe > 1 each stage's first rank then hands its layers to rank 0
+    (`_join_stages`)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -192,9 +196,67 @@ def gather_full_state(model, pctx) -> Optional[Dict[str, torch.Tensor]]:
             parts = [torch.empty_like(full) for _ in range(pctx.tensor_size)]
             dist.all_gather(parts, full.contiguous(), group=pctx.tensor_group)
             full = join_slices(parts, splits[k])
-        if pctx.rank == 0:
+        if pctx.stage_rank == 0:
             out[k] = full.detach().cpu()
+    return _join_stages(out, pctx)
+
+
+def _join_stages(out: Dict[str, torch.Tensor], pctx
+                 ) -> Optional[Dict[str, torch.Tensor]]:
+    """Under pipe > 1 the whole state dict on rank 0 from every stage's
+    first rank's `out` (its own layers, whole): the stages' layer entries
+    go to rank 0 over the pipe group, in the order of the layers, where
+    stage 0's stood.  Returns `out` on rank 0, None elsewhere."""
+    import torch.distributed as dist
+
+    from llavamod_tpu_torch.parallel.pipeline import is_stage_key
+
+    if pctx.pipe_size > 1 and pctx.stage_rank == 0:
+        if pctx.pipe_rank > 0:
+            own = {k: v for k, v in out.items() if is_stage_key(k)}
+            dist.send_object_list(
+                [[(k, tuple(v.shape), v.dtype) for k, v in own.items()]],
+                dst=pctx.pipe_ranks[0], group=pctx.pipe_group)
+            for v in own.values():
+                pctx.send_stage(v, 0)
+        else:
+            joined = {k: v for k, v in out.items() if is_stage_key(k)}
+            for stage in range(1, pctx.pipe_size):
+                meta = [None]
+                dist.recv_object_list(meta, src=pctx.pipe_ranks[stage],
+                                      group=pctx.pipe_group)
+                for k, shape, dtype in meta[0]:
+                    joined[k] = pctx.recv_stage(shape, dtype, "cpu", stage)
+            layers, done = sorted(joined, key=_layer_order), False
+            ordered = {}
+            for k, v in out.items():
+                if not is_stage_key(k):
+                    ordered[k] = v
+                elif not done:
+                    ordered.update((n, joined[n]) for n in layers)
+                    done = True
+            out = ordered
     return out if pctx.rank == 0 else None
+
+
+def _layer_order(key: str):
+    m = re.search(r"layers\.(\d+)\.", key)
+    return int(m.group(1))
+
+
+def stage_trainables(model, pctx) -> Optional[list]:
+    """The keys of the trainable parameters of the whole model on rank 0:
+    `model`'s, and under pipe > 1 every stage's (each stage holds its own
+    layers only); every rank takes part."""
+    import torch.distributed as dist
+
+    keys = [n for n, p in model.named_parameters() if p.requires_grad]
+    if pctx is None or pctx.pipe_size == 1:
+        return keys
+    parts = [None] * pctx.pipe_size
+    dist.all_gather_object(parts, keys, group=pctx.pipe_group)
+    seen = dict.fromkeys(k for part in parts for k in part)
+    return list(seen)
 
 
 @torch.no_grad()
@@ -202,7 +264,8 @@ def gather_lora(lora, pctx):
     """The whole LoRA adapters (models/lora.py `LoraAdapters`, host
     tensors) on rank 0, None on the other ranks.  Every rank takes part:
     an expert adapter is gathered over the expert ranks, a tensor-split
-    one (`lora.tensor_split`) over the tensor ranks."""
+    one (`lora.tensor_split`) over the tensor ranks, and under pipe > 1
+    the stages' adapters are joined on rank 0."""
     import torch.distributed as dist
 
     from llavamod_tpu_torch.models.lora import LoraAdapters
@@ -220,12 +283,14 @@ def gather_lora(lora, pctx):
             parts = [torch.empty_like(v) for _ in range(pctx.tensor_size)]
             dist.all_gather(parts, v.contiguous(), group=pctx.tensor_group)
             v = join_slices(parts, splits[k])
-        if pctx.rank == 0:
+        if pctx.stage_rank == 0:
             whole[k] = v.detach().cpu()
-    if pctx.rank != 0:
+    whole = _join_stages(whole, pctx)
+    if whole is None:
         return None
+    targets = [k[:-len(".a")] for k in whole if k.endswith(".a")]
     return LoraAdapters({t: (whole[f"{t}.a"], whole[f"{t}.b"])
-                         for t in lora.targets})
+                         for t in targets})
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,9 @@ mesh's ParallelContext), every state tensor is the rank's shard of the
 parameter's: AdamW and MultiSteps are elementwise and run on the local
 shards; the global norm counts every gradient entry once (a shard's square
 sum is summed over the world and divided by the ranks that hold a copy of
-it: a parameter that `tensor` leaves whole is held by every tensor rank);
+it: a parameter that `tensor` leaves whole is held by every tensor rank,
+one outside the decoder layers by every pipe stage, a layer's by its own
+stage only);
 Adafactor's means over a sharded dim, and over a whole tensor, sum over
 the shard groups (train/adafactor.py `shards`), the tensor group of a
 tensor-split dim included.  LoRA adapters beside a sharded model
@@ -298,12 +300,16 @@ class Optimizer:
             if lb != "frozen"} if pctx is not None else {}
         self.norm_weights = None
         if pctx is not None:
+            from llavamod_tpu_torch.parallel.pipeline import is_stage_key
+
             self.norm_weights = {}
             for n, (_, dims) in self.shards.items():
                 held = 1
                 for groups in dims.values():
                     for _, size in groups:
                         held *= size
+                if is_stage_key(n):         # on one pipeline stage only
+                    held *= pctx.pipe_size
                 self.norm_weights[n] = held / pctx.world
         self.groups = {
             lab: group_cls({n: named[n] for n, lb in labels.items()

@@ -37,12 +37,22 @@ the residual stream T-sharded between the blocks):
         --stage align --config configs/dense2sparse_qwen2_0_5b.json \\
         --expert_parallel 2 --tensor_parallel 2 --sequence_parallel true ...
 
+and with `--pipeline_parallel N` pipeline parallelism (a GPipe schedule of
+`--pipeline_microbatches M` microbatches, M = N when 0, over N stages that
+each keep a contiguous block of the decoder's layers, parallel/pipeline.py;
+`--fused_update` cannot run under it, as in the JAX engine):
+
+    torchrun --nproc_per_node 4 -m llavamod_tpu_torch.train.run \
+        --stage align --config configs/dense2sparse_qwen2_0_5b.json \
+        --pipeline_parallel 2 --pipeline_microbatches 4 ...
+
 `init_distributed` joins the process group (NCCL on cuda:$LOCAL_RANK; gloo
 when the caller asked for the CPU; a group the caller started is taken as
-it is), `_DeviceContext` builds the mesh (data x fsdp x expert x tensor =
-the world, every remaining rank on fsdp) whenever a process group is up,
-each rank's loader reads the `ProcessShardSampler` shard of its row rank
-(the ranks of a tensor group read the same rows), both models are sharded
+it is), `_DeviceContext` builds the mesh (pipe x data x fsdp x expert x
+tensor = the world, every remaining rank on fsdp) whenever a process group
+is up, each rank's loader reads the `ProcessShardSampler` shard of its row
+rank (the ranks of a tensor group and of a pipe group read the same rows),
+both models are sharded
 (parallel/sharding.py), a step on the rows of data x fsdp x expert is the
 single-process step on them (train/steps.py), periodic checkpoints are
 sharded (train/checkpoint.py) and rank 0 writes the final model in the
@@ -50,10 +60,8 @@ single-process format, the metrics and run_info.json.  `--fused_update`
 drives each unit's gather and gradient reduction itself
 (train/fused_steps.py); `--lora_enable` keeps the adapters beside the
 sharded model, split as their bases are (parallel/sharding.py
-`shard_lora`), and rank 0 writes `adapter/` and the merged model.  The
-one branch of the JAX engine that the port does not run yet raises
-NotImplementedError naming the ROADMAP Queue 1 item that ports it:
-pipeline parallelism (14).
+`shard_lora`), and rank 0 writes `adapter/` and the merged model.  Every
+branch of the JAX engine runs.
 
 Per run the output directory gets `metrics.jsonl` (one line per
 `logging_steps` steps: microbatches, or fused updates), `run_info.json`
@@ -80,7 +88,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from llavamod_tpu_torch.models.builder import not_ported
 from llavamod_tpu_torch.train.args import (
     AlignArgs,
     DataArgs,
@@ -132,19 +139,27 @@ def _launched() -> Tuple[bool, int]:
 
 
 def refuse_unported(margs: ModelArgs, targs: TrainArgs) -> None:
-    """Raise on every option of the JAX engine that the port does not run
-    yet, and on a mesh the processes cannot fill, before anything is
-    built."""
-    if targs.pipeline_parallel > 1:
-        raise not_ported("pipeline parallelism", 14)
+    """Raise, before anything is built, on a combination of options the JAX
+    engine refuses too (the fused step under the pipeline) and on a mesh
+    the processes cannot fill."""
+    if targs.fused_update and targs.pipeline_parallel > 1:
+        raise ValueError("--fused_update drives its own reverse layer scan "
+                         "and cannot run under --pipeline_parallel; drop one "
+                         "of the two")
     _, world = _launched()
-    need = (targs.data_parallel * targs.expert_parallel
-            * targs.tensor_parallel)
+    need = _mesh_need(targs)
     if world % need:
         raise ValueError(
-            f"--data_parallel x --expert_parallel x --tensor_parallel = "
-            f"{need} does not divide the {world} processes: launch one "
-            "process per card with torchrun --nproc_per_node")
+            f"--data_parallel x --expert_parallel x --tensor_parallel x "
+            f"--pipeline_parallel = {need} does not divide the {world} "
+            "processes: launch one process per card with torchrun "
+            "--nproc_per_node")
+
+
+def _mesh_need(targs: TrainArgs) -> int:
+    """The ranks the parallel flags name (fsdp takes the rest)."""
+    return (targs.data_parallel * targs.expert_parallel
+            * targs.tensor_parallel * targs.pipeline_parallel)
 
 
 def init_distributed(device="cuda"):
@@ -175,7 +190,7 @@ def init_distributed(device="cuda"):
 class _DeviceContext:
     """The mesh and its ParallelContext whenever a process group is up (any
     world size: a one-rank torchrun takes the sharded path too), else
-    None: data x fsdp x expert x tensor = the world, the ranks the
+    None: pipe x data x fsdp x expert x tensor = the world, the ranks the
     parallel flags leave over going to fsdp (llavamod_tpu/train/run.py
     `_DeviceContext`)."""
 
@@ -187,12 +202,11 @@ class _DeviceContext:
         from llavamod_tpu_torch.parallel.collectives import ParallelContext
         from llavamod_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 
-        need = (targs.data_parallel * targs.expert_parallel
-                * targs.tensor_parallel)
+        need = _mesh_need(targs)
         self.mesh = make_mesh(MeshConfig(
             data=targs.data_parallel, fsdp=world // need,
-            expert=targs.expert_parallel, tensor=targs.tensor_parallel),
-            torch.device(device).type)
+            expert=targs.expert_parallel, tensor=targs.tensor_parallel,
+            pipe=targs.pipeline_parallel), torch.device(device).type)
         self.pctx = ParallelContext(self.mesh)
         rank0_print(f"[mesh] {dataclasses.asdict(self.pctx.cfg)}")
 
@@ -389,17 +403,20 @@ def build_data_module(stage: str, margs: ModelArgs, dargs: DataArgs,
     else:
         sampler = RandomSampler(len(dataset), seed=targs.seed)
     _, world = _launched()
-    rows = world // targs.tensor_parallel
+    stage_ranks = world // targs.pipeline_parallel
+    rows = stage_ranks // targs.tensor_parallel
     if rows > 1:
         # every process loads only its row rank's strided shard of the
         # (deterministic, identically seeded) global order (reference
         # llava_trainer.py:62-90); the ranks of a tensor group (consecutive
-        # ranks) read the same rows
+        # ranks) and of a pipe group (the same place in every stage) read
+        # the same rows
         from llavamod_tpu_torch.train.sampler import ProcessShardSampler
         from llavamod_tpu_torch.utils.logging import process_rank
 
         sampler = ProcessShardSampler(
-            sampler, process_rank() // targs.tensor_parallel, rows)
+            sampler, process_rank() % stage_ranks // targs.tensor_parallel,
+            rows)
         rank0_print(f"[data] process-sharded sampler: {rows} shards")
     return DataLoader(dataset, targs.per_device_train_batch_size, collator,
                       sampler=sampler, drop_last=True,
@@ -621,6 +638,7 @@ def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
         gather_full_state,
         gather_lora,
         save_mm_projector,
+        stage_trainables,
     )
 
     from llavamod_tpu_torch.models.lora import (
@@ -641,9 +659,11 @@ def final_save(output_dir: str, cfg, state, tcfg: TrainConfig,
         full = gather_full_state(state.model, pctx)
         lora = (gather_lora(state.lora, pctx) if state.lora is not None
                 else None)
+        trainable = (stage_trainables(state.model, pctx)
+                     if state.lora is not None else None)
         if lora is not None:            # rank 0
             save_lora_adapter(adapter, lora, lora_cfg)
-            save_non_lora_trainables(adapter, state.model, full)
+            save_non_lora_trainables(adapter, state.model, full, trainable)
             merge_lora_state_(full, lora, lora_cfg, device=next(
                 state.lora.parameters()).device)
     if full is not None:
@@ -794,6 +814,15 @@ def _run_stage(stage, margs, dargs, targs, salign, sdpo, tokenizer, device):
                 llm=teacher_cfg.llm.replace(seq_shard_activations=True))
         rank0_print("[mesh] sequence parallelism on: residual stream "
                     f"T-sharded over tensor={targs.tensor_parallel}")
+    if targs.pipeline_parallel > 1:
+        mb = targs.pipeline_microbatches
+        cfg = cfg.replace(llm=cfg.llm.replace(pipeline_microbatches=mb))
+        if teacher_cfg is not None:
+            teacher_cfg = teacher_cfg.replace(
+                llm=teacher_cfg.llm.replace(pipeline_microbatches=mb))
+        rank0_print(f"[mesh] pipeline parallelism on: "
+                    f"pipe={targs.pipeline_parallel}, "
+                    f"microbatches={mb or targs.pipeline_parallel}")
     lora, lora_cfg = maybe_add_lora(model, margs, targs.seed)
     float_stash = quantize_stage_models(tcfg, salign or sdpo, model, teacher,
                                         lora_cfg)

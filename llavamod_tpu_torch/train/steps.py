@@ -37,8 +37,12 @@ under sequence parallelism, where the decoder's replicated parameters
 (norms, router, output biases) see only the rank's T-shard and their
 gradients are summed over the group (`_sum_sequence_shards`).  The LoRA
 adapters sit outside FSDP2 (parallel/sharding.py `shard_lora`): their
-gradients are summed by hand (`reduce_adapter_grads`).  The metrics
-are the world's values on every rank.  The models are called through their
+gradients are summed by hand (`reduce_adapter_grads`).  Under pipeline
+parallelism the ranks along pipe hold the same rows and the same loss as
+well: each stage's layers take their own gradients, and the gradients of
+everything outside the layers are stage 0's, handed to every stage
+(parallel/pipeline.py `replicated_grads`).  The metrics are the world's
+values on every rank.  The models are called through their
 module call, so that a sharded model gathers its parameters, and its
 mixed-precision policy does the compute-dtype cast of `_cast_tree`.
 """
@@ -285,6 +289,10 @@ def _apply_update(state: TrainState, metrics: Metrics, cfg=None):
         from llavamod_tpu_torch.parallel.sharding import reduce_adapter_grads
 
         reduce_adapter_grads(state.lora, grads, pctx)
+    if pctx is not None and pctx.pipe_size > 1:
+        from llavamod_tpu_torch.parallel.pipeline import replicated_grads
+
+        replicated_grads(grads, pctx)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = state.opt.update(grads)
     _clear_grads(state)

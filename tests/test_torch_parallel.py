@@ -133,8 +133,9 @@ def test_mesh_config_size_and_auto_match_jax():
     assert MeshConfig.auto() == MeshConfig()     # one process: fsdp=1
 
 
-def _tensor_mesh_groups(rank, world, store, out):
-    """One rank of a tensor=2 mesh: its context's groups as rank lists."""
+def _tensor_mesh_groups(rank, world, store, out, axes):
+    """One rank of a tensor=2 or pipe=2 mesh: its context's groups as rank
+    lists."""
     import json
 
     import torch.distributed as dist
@@ -144,14 +145,16 @@ def _tensor_mesh_groups(rank, world, store, out):
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        ctx = ParallelContext(make_mesh(MeshConfig(tensor=2), "cpu"))
+        ctx = ParallelContext(make_mesh(MeshConfig(**axes), "cpu"))
         got = dict(
             tensor=dist.get_process_group_ranks(ctx.tensor_group),
             rows=dist.get_process_group_ranks(ctx.rows_group),
             fsdp=dist.get_process_group_ranks(ctx.fsdp_group),
             expert=dist.get_process_group_ranks(ctx.expert_group),
+            pipe=dist.get_process_group_ranks(ctx.pipe_group),
             param_mesh=ctx.param_mesh.mesh.tolist(),
-            sizes=[ctx.tensor_size, ctx.tensor_rank, ctx.rows, ctx.row_rank])
+            sizes=[ctx.tensor_size, ctx.tensor_rank, ctx.rows, ctx.row_rank,
+                   ctx.pipe_size, ctx.pipe_rank, ctx.stage_rank])
         with open(f"{out}{rank}.json", "w") as f:
             json.dump(got, f)
     finally:
@@ -161,30 +164,33 @@ def _tensor_mesh_groups(rank, world, store, out):
 @pytest.mark.parametrize("axes,item", [(dict(tensor=2), 13),
                                        (dict(pipe=2), 14)])
 def test_make_mesh_refuses_tensor_and_pipeline(axes, item, tmp_path):
-    """Pipeline parallelism (item 14) is refused before a process group is
-    touched.  Tensor parallelism (item 13) is ported: a tensor=2 mesh over
-    2 ranks gives each rank both in its tensor group, itself alone in its
-    rows, fsdp and expert groups and in its FSDP2 mesh."""
+    """Tensor parallelism (item 13) and pipeline parallelism (item 14) are
+    ported: a tensor=2 mesh over 2 ranks gives each rank both in its tensor
+    group, itself alone in its rows, fsdp, expert and pipe groups and in
+    its FSDP2 mesh; a pipe=2 mesh gives each rank both in its pipe group
+    (stage = rank), itself alone in every other group and one row rank of
+    its own (the stages hold the same rows)."""
     import json
 
     import torch.multiprocessing as mp
 
     assert not torch.distributed.is_initialized()
-    if item == 14:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1, item {item}"):
-            make_mesh(MeshConfig(**axes), "cpu")
-        assert not torch.distributed.is_initialized()
-        return
     out = str(tmp_path / "groups")
-    mp.spawn(_tensor_mesh_groups, args=(2, str(tmp_path / "store"), out),
-             nprocs=2)
+    mp.spawn(_tensor_mesh_groups, args=(2, str(tmp_path / "store"), out,
+                                        axes), nprocs=2)
     for rank in range(2):
         with open(f"{out}{rank}.json") as f:
             got = json.load(f)
-        assert got == dict(tensor=[0, 1], rows=[rank], fsdp=[rank],
-                           expert=[rank], param_mesh=[[rank]],
-                           sizes=[2, rank, 1, 0])
+        if item == 13:
+            assert got == dict(tensor=[0, 1], rows=[rank], fsdp=[rank],
+                               expert=[rank], pipe=[rank],
+                               param_mesh=[[rank]],
+                               sizes=[2, rank, 1, 0, 1, 0, rank])
+        else:
+            assert got == dict(tensor=[rank], rows=[rank], fsdp=[rank],
+                               expert=[rank], pipe=[0, 1],
+                               param_mesh=[[rank]],
+                               sizes=[1, 0, 1, 0, 2, rank, 0])
     assert not torch.distributed.is_initialized()
 
 

@@ -31,10 +31,12 @@ from the JAX package's init by interop/from_jax.py.
   * the replicated parameters are equal over the tensor ranks after the
     updates (AdamW and Adafactor); the sharded checkpoint at tensor=2
     resumes update 2 to the same metrics and weights;
+  * attention with a KV cache under a tensor split (item 16: a prefill and
+    a decode token on the rank's KV heads) against the unsplit op;
   * refusals: heads, KV heads, F or vocab that `tensor` does not divide,
-    T % tensor under SP, pipeline parallelism (item 14) and the KV-cache
-    path under a tensor split (item 16); --fused_update / --lora_enable
-    under torch.distributed pass (item 15)."""
+    T % tensor under SP; --fused_update, --lora_enable (item 15) and
+    --pipeline_parallel (item 14) under torch.distributed pass, the fused
+    step under the pipeline is a ValueError."""
 
 import copy
 import json
@@ -222,12 +224,47 @@ def _op_checks(rank, root):
         got_mlp = decoder.mlp_forward(cfg, local.layers[0].mlp, hq)
     out["fused_wqkv_bitwise"] = bool(torch.equal(got, want))
     out["fused_gate_up_bitwise"] = bool(torch.equal(got_mlp, want_mlp))
+    # attention with a KV cache: a prefill, then one decode token
+    _cache_checks(rank, pctx, out, cfg, model, g)
     # the vocab-parallel chunked losses: V = 512 over 2 ranks in chunks of
     # 96 (each rank's last chunk partial), vocab_limit 500 (rank 1 cut)
     _loss_checks(rank, pctx, out, g)
     if rank == 0:
         with open(os.path.join(root, "op_checks.json"), "w") as f:
             json.dump(out, f)
+
+
+def _cache_checks(rank, pctx, out, cfg, model, g):
+    from llavamod_tpu_torch.models.llm import decoder
+    from llavamod_tpu_torch.parallel.collectives import active
+
+    x = torch.randn(2, 13, cfg.hidden_size, generator=g)
+    pos = torch.arange(13)[None].expand(2, 13)
+    seg = torch.ones(2, 13, dtype=torch.int32)
+    local = _sliced(model, cfg, pctx)
+
+    def run(mod, ctx):
+        with torch.no_grad(), active(ctx):
+            cache = decoder.init_cache(cfg, 2, 16, dtype=torch.float32)
+            cache.segment[:, :12] = seg[:, :12]
+            a = decoder.attention_forward(cfg, mod.layers[0].attn, x[:, :12],
+                                          pos[:, :12], seg[:, :12], 0, cache,
+                                          "fresh")
+            cache = cache._replace(length=12)
+            cache.segment[:, 12:13] = 1
+            b = decoder.attention_forward(cfg, mod.layers[0].attn,
+                                          x[:, 12:13], pos[:, 12:13],
+                                          seg[:, 12:13], 0, cache)
+        return torch.cat([a, b], dim=1), cache
+
+    want, whole = run(model, None)
+    got, part = run(local, pctx)
+    kh = cfg.num_kv_heads // 2
+    out["attention_cache"] = _rel(got, want)
+    out["cache_heads"] = bool(
+        part.k.shape[2] == kh and _rel(
+            part.k[:, :, :, :13], whole.k[:, :, rank * kh:(rank + 1) * kh,
+                                          :13]) <= OP_TOL)
 
 
 def _row_split():
@@ -549,10 +586,12 @@ def test_sequence_parallel_refuses_t_that_tensor_does_not_divide():
 @pytest.mark.parametrize("flag", ["fused_update", "lora_enable"])
 def test_fused_update_and_lora_stay_refused_under_torch_distributed(
         flag, monkeypatch):
-    """Item 15 is ported: under a torchrun environment of 2 at (tensor=2,
-    SP) `refuse_unported` lets --fused_update and --lora_enable through
-    (tests/test_torch_{fused,lora}_distributed.py run them), while
-    pipeline parallelism still names item 14."""
+    """Items 14 and 15 are ported: under a torchrun environment of 2 at
+    (tensor=2, SP) `refuse_unported` lets --fused_update and --lora_enable
+    through (tests/test_torch_{fused,lora}_distributed.py run them), and
+    --pipeline_parallel 2 too (tests/test_torch_pipeline.py runs it), LoRA
+    with it; the fused step under the pipeline is the JAX engine's
+    ValueError."""
     from llavamod_tpu_torch.train.args import ModelArgs, TrainArgs
     from llavamod_tpu_torch.train.run import refuse_unported
 
@@ -565,29 +604,24 @@ def test_fused_update_and_lora_stay_refused_under_torch_distributed(
     refuse_unported(ModelArgs(), TrainArgs(output_dir="unused",
                                            tensor_parallel=2,
                                            sequence_parallel=True))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, item 14"):
-        refuse_unported(margs, TrainArgs(
-            output_dir="unused", pipeline_parallel=2,
-            fused_update=flag == "fused_update"))
+    piped = TrainArgs(output_dir="unused", pipeline_parallel=2,
+                      fused_update=flag == "fused_update")
+    if flag == "fused_update":
+        with pytest.raises(ValueError, match="cannot run under "
+                           "--pipeline_parallel; drop one of the two"):
+            refuse_unported(margs, piped)
+    else:
+        refuse_unported(margs, piped)
 
 
-def test_generation_under_a_tensor_split_is_refused():
-    """The KV-cache path takes no tensor split (ROADMAP Queue 1, item 16):
-    attention with a cache raises before any collective."""
-    from llavamod_tpu_torch.models.llm import decoder
-    from llavamod_tpu_torch.models.llm.config import tiny_config
-    from llavamod_tpu_torch.parallel.collectives import active
-
-    class Ctx:
-        tensor_size, tensor_rank, tensor_group = 2, 0, None
-
-    cfg = tiny_config()
-    model = decoder.init(cfg, torch.Generator().manual_seed(0))
-    cache = decoder.init_cache(cfg, 1, 8, dtype=torch.float32)
-    x = torch.zeros(1, 4, cfg.hidden_size)
-    pos = torch.arange(4)[None]
-    with active(Ctx()), pytest.raises(NotImplementedError,
-                                      match="ROADMAP Queue 1, item 16"):
-        decoder.attention_forward(cfg, model.layers[0].attn, x, pos, None, 0,
-                                  cache)
+def test_generation_under_a_tensor_split_is_refused(runs):
+    """Item 16 is ported: attention with a KV cache under a tensor split
+    (a prefill of 12 tokens into a cache of the rank's KV heads, then one
+    decode token through K2's plain version) equals the unsplit op on the
+    same cache slots, and the rank's cache holds its half of every layer's
+    KV heads."""
+    root, _ = runs
+    with open(os.path.join(root, "op_checks.json")) as f:
+        got = json.load(f)
+    assert got["cache_heads"] is True
+    assert got["attention_cache"] <= OP_TOL, got["attention_cache"]

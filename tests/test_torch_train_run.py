@@ -684,7 +684,8 @@ PRESET = "tiny-dense-preset"     # a registered name: --s2 and
     (dict(targs=dict(expert_parallel=2)), "mesh"),
     (dict(targs=dict(sequence_parallel=True)), "runs"),
     (dict(targs=dict(tensor_parallel=2)), "mesh"),
-    (dict(targs=dict(pipeline_parallel=2)), 14),
+    (dict(targs=dict(pipeline_parallel=2, fused_update=True,
+                     optimizer="adafactor")), "fused_pipe"),
     (dict(margs=dict(lora_enable=True), env=True), "torchrun"),
     (dict(targs=dict(fused_update=True, optimizer="adafactor"), env=True),
      "torchrun"),
@@ -696,10 +697,11 @@ PRESET = "tiny-dense-preset"     # a registered name: --s2 and
 def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
                                                         option, item,
                                                         monkeypatch):
-    """Pipeline parallelism (item 14) raises NotImplementedError naming
-    the item, and a data, expert or tensor parallel mesh one process cannot
-    fill raises ValueError, before anything is built; the fused step with
-    LoRA is a ValueError, as in the JAX engine; item 6's options, once
+    """A data, expert or tensor parallel mesh one process cannot fill raises
+    ValueError, before anything is built; the fused step with LoRA, or
+    under pipeline parallelism (item 14, ported: tests/test_torch_pipeline.py
+    runs it under torch.distributed), is a ValueError, as in the JAX
+    engine, the latter before anything is built; item 6's options, once
     refused the same way, run the align stage: LoRA writes `adapter/` and
     the merged model (its FFN weights moved, its tower not), S2 doubles the
     tower's feature width, and the video projector joins the model in stage
@@ -755,6 +757,12 @@ def test_unported_options_raise_with_their_roadmap_item(tmp_path, dirs,
     if item == "fused_lora":
         with pytest.raises(ValueError, match="does not support LoRA"):
             run()
+        return
+    if item == "fused_pipe":
+        with pytest.raises(ValueError, match="cannot run under "
+                           "--pipeline_parallel; drop one of the two"):
+            run()
+        assert not out.exists()
         return
     last = run()
     assert last["num_tokens"] > 1 and np.isfinite(last["loss"])
