@@ -4659,6 +4659,9 @@ PP_FLAGS = ["--pipeline_parallel", str(PP_RANKS), "--pipeline_microbatches",
 GEN_ROWS = 8
 GEN_NEW_TOKENS = 16
 GEN_PROMPT = 704
+# [pp generate]: [pp]'s stages generate as [tp generate] does, then
+# PP_SAMPLE_TOKENS tokens at temperature 1 through `generate_stream`
+PP_SAMPLE_TOKENS = 4
 
 
 @contextlib.contextmanager
@@ -4713,21 +4716,25 @@ def generate_batch(cfg, dev):
     return batch._replace(pixels=batch.pixels.to(torch.bfloat16))
 
 
-def counted_generation(model, batch, gcfg) -> dict:
-    """`generation.generate` of `model` on `batch` (under the active
-    context), each prefill and run of decode steps timed (the card
-    synchronised) with its K1 / K2 launches, and the (query, KV) heads
-    every K2 call was handed."""
+def counted_generation(model, batch, gcfg, stream: bool = False) -> dict:
+    """`generation.generate` (`stream`: `generate_stream` in chunks of 4)
+    of `model` on `batch` (under the active context), each prefill and run
+    of decode steps timed (the card synchronised) with its K1 / K2 launches
+    and the pipeline transport's transfers, the (query, KV) heads every K2
+    call was handed, and the layers of every cache made."""
     from llavamod_tpu_torch import generation
     from llavamod_tpu_torch.models.llm import decoder
+    from llavamod_tpu_torch.parallel import collectives
 
-    rec = dict(prefill=[], decode=[], heads=set())
+    rec = dict(prefill=[], decode=[], heads=set(), cache_layers=[])
     orig = dict(prefill=generation._prefill,
-                decode=generation._decode_steps, flash=decoder.flash_decode)
+                decode=generation._decode_steps, flash=decoder.flash_decode,
+                cache=decoder.init_cache)
 
     def timed(kind, fn, steps):
         def run(*a, **k):
             before = _eval_counts()
+            sent = dict(collectives.transport)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **k)
@@ -4735,7 +4742,9 @@ def counted_generation(model, batch, gcfg) -> dict:
             rec[kind].append(dict(
                 ms=(time.perf_counter() - t0) * 1e3, steps=steps(a),
                 launches={n: c - before[n]
-                          for n, c in _eval_counts().items()}))
+                          for n, c in _eval_counts().items()},
+                transport={n: v - sent[n]
+                           for n, v in collectives.transport.items()}))
             return out
         return run
 
@@ -4743,18 +4752,29 @@ def counted_generation(model, batch, gcfg) -> dict:
         rec["heads"].add((int(q.shape[1]), int(k.shape[1])))
         return orig["flash"](q, k, *a, **kw)
 
+    def init_cache(*a, **kw):
+        cache = orig["cache"](*a, **kw)
+        rec["cache_layers"].append(int(cache.k.shape[0]))
+        return cache
+
     generation._prefill = timed("prefill", orig["prefill"], lambda a: 1)
     generation._decode_steps = timed("decode", orig["decode"],
                                      lambda a: a[3])
-    decoder.flash_decode = flash
+    decoder.flash_decode, decoder.init_cache = flash, init_cache
     try:
-        ids = generation.generate(model, batch, gcfg)
+        if stream:
+            ids = np.concatenate(list(generation.generate_stream(
+                model, batch, gcfg, chunk=4)), axis=1)
+        else:
+            ids = generation.generate(model, batch, gcfg)
     finally:
         generation._prefill = orig["prefill"]
         generation._decode_steps = orig["decode"]
         decoder.flash_decode = orig["flash"]
+        decoder.init_cache = orig["cache"]
     return dict(tokens=ids.tolist(), prefill=rec["prefill"],
-                decode=rec["decode"], heads=sorted(rec["heads"]))
+                decode=rec["decode"], heads=sorted(rec["heads"]),
+                cache_layers=rec["cache_layers"])
 
 
 def tp_generate_phase(model, pctx) -> dict:
@@ -4773,12 +4793,47 @@ def tp_generate_phase(model, pctx) -> dict:
     return out
 
 
+def pp_generate_phase(model, pctx) -> dict:
+    """[pp generate] in the [tp] worker, after [pp]: the stages that [pp]
+    has just trained (12 of the student's 24 layers each, FSDP2 units)
+    generate GEN_NEW_TOKENS greedy tokens for `generate_batch` under [pp]'s
+    context, the stages in turn (parallel/pipeline.py `sequential_layers`:
+    K1 on the stage's layers in the prefill, K2 on its cache slots each
+    decode step), transfers staged through host buffers; then
+    PP_SAMPLE_TOKENS tokens at temperature 1 through `generate_stream`
+    (pipe rank 0's draw broadcast, the done flags all-reduced), the ranks'
+    generators seeded apart.  The rank's peak device memory over both."""
+    from llavamod_tpu_torch.generation import GenerationConfig
+    from llavamod_tpu_torch.parallel.collectives import active
+
+    batch = generate_batch(model.cfg, torch.device("cuda", 0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with active(pctx):
+        out = counted_generation(
+            model, batch, GenerationConfig(max_new_tokens=GEN_NEW_TOKENS))
+        torch.cuda.manual_seed(SEED + pctx.pipe_rank)
+        out["sampled"] = counted_generation(
+            model, batch, GenerationConfig(max_new_tokens=PP_SAMPLE_TOKENS,
+                                           temperature=1.0), stream=True)
+    llm = model.cfg.llm
+    out.update(seconds=time.perf_counter() - t0, stage=pctx.pipe_rank,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               gating_group=llm.moe_gating_group_size,
+               kv_heads=[llm.num_heads, llm.num_kv_heads],
+               vocab=llm.vocab_size)
+    return out
+
+
 def pp_phase(spec: dict) -> dict:
     """[pp] in the [tp] worker: stage 2b at --pipeline_parallel 2 through
     `run_stage` on the same gloo group, each step counted as in the stages
     phase; after update 1 every parameter outside the decoder layers
     compared between the two stages (stage 1 against stage 0's,
-    broadcast); the pipeline transport's transfers and host ms."""
+    broadcast); the pipeline transport's transfers and host ms; then
+    [pp generate] on the trained stages (`pp_generate_phase`)."""
     import torch.distributed as dist
 
     from llavamod_tpu_torch.parallel import collectives
@@ -4788,7 +4843,7 @@ def pp_phase(spec: dict) -> dict:
 
     margs, dargs, targs, extra = parse_stage("align", spec["config"],
                                              spec["pp_argv"])
-    records, replicas, stage = [], {}, {}
+    records, replicas, stage, held = [], {}, {}, {}
 
     @torch.no_grad()
     def compare(model):
@@ -4819,6 +4874,7 @@ def pp_phase(spec: dict) -> dict:
             if len(calls) == targs.gradient_accumulation_steps:
                 compare(out[0].model)
             steps_transport.update(collectives.transport)
+            held.update(model=out[0].model, pctx=collectives.current())
             return out
         return checked
 
@@ -4838,11 +4894,14 @@ def pp_phase(spec: dict) -> dict:
             steps.make_align_step = original
     peak = max([torch.cuda.max_memory_allocated() / 2**30]
                + [max(r["prior_peak_gib"], r["peak_gib"]) for r in records])
+    save_transport = {k: v - steps_transport[k] for k, v in
+                      collectives.transport.items()}
+    seconds = time.perf_counter() - t0
+    generated = pp_generate_phase(held.pop("model"), held.pop("pctx"))
     return dict(records=records, launches=launches, peak_gib=peak,
                 replicas=replicas, stage=stage, transport=steps_transport,
-                save_transport={k: v - steps_transport[k] for k, v in
-                                collectives.transport.items()},
-                seconds=time.perf_counter() - t0)
+                save_transport=save_transport, seconds=seconds,
+                generate=generated)
 
 
 def tp_collectives(rows) -> dict:
@@ -4993,18 +5052,16 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
     the one card over gloo, a sharded checkpoint after update 1 (written,
     recorded and removed by the worker, not resumed here: the CPU tests
     resume it at tensor=2), microbatch TP_PROFILE_CALL profiled; then in
-    the same worker the trained student's greedy generation and stage 2 at
-    --pipeline_parallel 2 (PP_FLAGS).  Here: rank 0's [tp] model.pt
-    through `load_pretrained_model` on the card, kept on the host for
-    `tp_check`, and its single-process generation of the same batch;
-    rank 0's [pp] model.pt, and the single-process reference of [pp] (the
+    the same worker the trained student's greedy generation, stage 2 at
+    --pipeline_parallel 2 (PP_FLAGS) and its stages' generation.  Here:
+    rank 0's [tp] model.pt through `load_pretrained_model` on the card,
+    kept on the host for `tp_check`, and its single-process generation of
+    the same batch; rank 0's [pp] model.pt, kept on the host, and its
+    single-process generation; the single-process reference of [pp] (the
     same argv without the pipeline, the same gating groups); gloo's
     point-to-point on CUDA tensors probed by a torchrun of its own
     alongside.  The output directories are removed at the end."""
-    from llavamod_tpu_torch.generation import GenerationConfig
     from llavamod_tpu_torch.models.builder import load_pretrained_model
-    from llavamod_tpu_torch.models.llm.decoder import quantize_head_int8
-    from llavamod_tpu_torch.parallel.collectives import active
     from llavamod_tpu_torch.train import run
     from llavamod_tpu_torch.train.args import AlignArgs
 
@@ -5061,18 +5118,8 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
     state = {k: v.detach().to("cpu", copy=True)
              for k, v in model.state_dict().items()}
     loaded_on = str(next(model.parameters()).device)
-    # the single-process generation of rank 0's model.pt, its head in the
-    # int8 form the stage trained with (--policy_head_quant)
-    llm = model.llm
-    with torch.no_grad():
-        head = quantize_head_int8(llm.lm_head.weight)
-    del llm.lm_head._parameters["weight"]
-    llm.lm_head.weight = head
-    with active(None):
-        single_gen = counted_generation(
-            model, generate_batch(model.cfg, dev),
-            GenerationConfig(max_new_tokens=GEN_NEW_TOKENS))
-    del model, llm, head
+    single_gen = single_generation(model, dev)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(out)
@@ -5084,6 +5131,14 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
         pp["info"] = json.load(f)
     pp["state"] = torch.load(os.path.join(out_pp, "model.pt"),
                              map_location="cpu", weights_only=True)
+    _, model, _, _, _ = load_pretrained_model(out_pp, device=dev,
+                                              tokenizer=StandInTokenizer())
+    pp["generate"] = dict(ranks=[r.pop("generate") for r in pp["ranks"]],
+                          single=single_generation(model, dev),
+                          layers=layers)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     shutil.rmtree(out_pp)
     pp["single"] = pp_reference(config, pp_argv, root)
     generated = dict(ranks=[r.pop("generate") for r in ranks],
@@ -5095,6 +5150,27 @@ def tp_runs(config: str, argv: list, root: str, dev, card: str) -> dict:
                 lr=targs.learning_rate,
                 tokens=targs.per_device_train_batch_size
                 * targs.model_max_length, pp=pp, generate=generated)
+
+
+def single_generation(model, dev) -> dict:
+    """The single-process generation of `model` (a model.pt loaded on the
+    card) for `generate_batch`, its head in the int8 form the stage trained
+    with (--policy_head_quant), counted as the sharded runs are."""
+    from llavamod_tpu_torch.generation import GenerationConfig
+    from llavamod_tpu_torch.models.llm.decoder import quantize_head_int8
+    from llavamod_tpu_torch.parallel.collectives import active
+
+    llm = model.llm
+    with torch.no_grad():
+        head = quantize_head_int8(llm.lm_head.weight)
+    del llm.lm_head._parameters["weight"]
+    llm.lm_head.weight = head
+    with active(None):
+        out = counted_generation(
+            model, generate_batch(model.cfg, dev),
+            GenerationConfig(max_new_tokens=GEN_NEW_TOKENS))
+    out["gating_group"] = model.cfg.llm.moe_gating_group_size
+    return out
 
 
 def pp_reference(config: str, pp_argv: list, root: str) -> dict:
@@ -5520,6 +5596,98 @@ def tp_generate_check(raw: dict, card: str) -> dict:
                 heads=ranks[0]["heads"])
 
 
+def pp_generate_check(raw: dict, card: str) -> dict:
+    """[pp generate] against the single-process generation of [pp]'s
+    model.pt (its stages' layers joined): prints the numbers and raises on
+    a failed check."""
+    ranks, single, layers = raw["ranks"], raw["single"], raw["layers"]
+    steps = GEN_NEW_TOKENS - 1
+    stage_layers = layers // PP_RANKS
+    want = dict(prefill={"flash_fwd": stage_layers, "flash_decode": 0},
+                decode={"flash_fwd": 0,
+                        "flash_decode": stage_layers * steps})
+    tokens = np.asarray(single["tokens"])
+    for r in ranks + [single]:
+        r["per_step_ms"] = sum(d["ms"] for d in r["decode"]) / steps
+    for r in ranks:
+        same = np.asarray(r["tokens"]) == tokens
+        t = {k: sum(d["transport"][k] for d in r["decode"]) / steps
+             for k in ("sends", "recvs", "broadcasts", "bytes", "host_ms")}
+        p = r["prefill"][0]["transport"]
+        log(f"[pp generate] rank {r['stage']} (layers {r['stage'] * stage_layers}"
+            f"-{(r['stage'] + 1) * stage_layers - 1}, cache of "
+            f"{r['cache_layers']} layers): {GEN_ROWS} rows x "
+            f"{GEN_NEW_TOKENS} greedy tokens, {int(same.sum())} of "
+            f"{same.size} equal to the single process's; prefill "
+            f"{r['prefill'][0]['ms']:.1f} ms, K1 "
+            f"{r['prefill'][0]['launches']['flash_fwd']}; decode "
+            f"{r['per_step_ms']:.2f} ms a step, K2 "
+            f"{sum(d['launches']['flash_decode'] for d in r['decode'])} over "
+            f"{steps} steps; peak {r['peak_gib']:.2f} GiB; on {card}")
+        log(f"[pp generate] rank {r['stage']} transport: a decode step "
+            f"{t['sends']:.0f} sends, {t['recvs']:.0f} receives, "
+            f"{t['broadcasts']:.0f} broadcasts, {t['bytes'] / 1e3:.1f} kB "
+            f"sent, {t['host_ms']:.2f} host ms; the prefill {p['sends']} "
+            f"sends, {p['recvs']} receives, {p['broadcasts']} broadcasts, "
+            f"{p['bytes'] / 1e6:.1f} MB sent, {p['host_ms']:.1f} host ms")
+    log(f"[pp generate] single process (cache of {single['cache_layers']} "
+        f"layers): prefill {single['prefill'][0]['ms']:.1f} ms, decode "
+        f"{single['per_step_ms']:.2f} ms a step; the stages against it: "
+        f"prefill {ranks[0]['prefill'][0]['ms'] / single['prefill'][0]['ms']:.2f}x,"
+        f" decode {ranks[0]['per_step_ms'] / single['per_step_ms']:.2f}x; on "
+        f"{card}")
+    sampled = [np.asarray(r["sampled"]["tokens"]) for r in ranks]
+    log(f"[pp generate] generate_stream at temperature 1, "
+        f"{PP_SAMPLE_TOKENS} tokens, the ranks' generators seeded apart: "
+        f"the ranks' tokens equal: {bool(np.array_equal(*sampled))}")
+    for r in ranks:
+        got = dict(prefill=r["prefill"][0]["launches"], decode={
+            k: sum(d["launches"][k] for d in r["decode"])
+            for k in ("flash_fwd", "flash_decode")})
+        got["prefill"] = {k: got["prefill"][k] for k in want["prefill"]}
+        if got != want or [list(h) for h in r["heads"]] != [
+                list(r["kv_heads"])]:
+            raise AssertionError(f"[pp generate] launches {got} heads "
+                                 f"{r['heads']}, need {want}")
+        if r["cache_layers"] != [stage_layers] or \
+                r["sampled"]["cache_layers"] != [stage_layers]:
+            raise AssertionError(f"[pp generate] caches of "
+                                 f"{r['cache_layers']} layers, need "
+                                 f"{stage_layers}")
+        if r["gating_group"] != single["gating_group"]:
+            raise AssertionError(f"[pp generate] gating groups "
+                                 f"{r['gating_group']} vs "
+                                 f"{single['gating_group']}")
+        if r["tokens"] != single["tokens"]:
+            raise AssertionError(f"[pp generate] tokens differ from the "
+                                 f"single process's: {r['tokens']} vs "
+                                 f"{single['tokens']}")
+    if single["cache_layers"] != [layers]:
+        raise AssertionError(f"[pp generate] single-process cache of "
+                             f"{single['cache_layers']} layers")
+    if not (sampled[0].shape == (GEN_ROWS, PP_SAMPLE_TOKENS)
+            and np.array_equal(*sampled)
+            and ((sampled[0] >= 0) & (sampled[0] < ranks[0]["vocab"])).all()):
+        raise AssertionError(f"[pp generate] sampled tokens {sampled}")
+    return dict(tokens_equal=True, rows=GEN_ROWS, new_tokens=GEN_NEW_TOKENS,
+                prefill_ms=[r["prefill"][0]["ms"] for r in ranks],
+                decode_ms_per_step=[r["per_step_ms"] for r in ranks],
+                single_prefill_ms=single["prefill"][0]["ms"],
+                single_decode_ms_per_step=single["per_step_ms"],
+                decode_transport=[{k: sum(d["transport"][k]
+                                          for d in r["decode"]) / steps
+                                   for k in r["decode"][0]["transport"]}
+                                  for r in ranks],
+                peak_gib=[r["peak_gib"] for r in ranks],
+                cache_layers=[r["cache_layers"] for r in ranks],
+                sampled_equal=True, seconds=[r["seconds"] for r in ranks],
+                launches=dict(  # rank 0's, measured
+                    flash_fwd=ranks[0]["prefill"][0]["launches"]["flash_fwd"],
+                    flash_decode=sum(d["launches"]["flash_decode"]
+                                     for d in ranks[0]["decode"])),
+                heads=ranks[0]["heads"])
+
+
 def stages_phase(card: str, dev):
     root = tempfile.mkdtemp(prefix="llavamod_stages_")
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5599,6 +5767,8 @@ def stages_phase(card: str, dev):
                 del dist_raw
                 results["generate_tp"] = tp_generate_check(
                     tp_raw.pop("generate"), card)
+                results["generate_pp"] = pp_generate_check(
+                    tp_raw["pp"].pop("generate"), card)
                 results["align_pp"] = pp_check(tp_raw.pop("pp"),
                                                outs["align_d2d"], card, dev)
                 results["align_tp"] = tp_check(
@@ -5742,6 +5912,7 @@ def main() -> int:
     stage_n["align_tp"] = stages["align_tp"]["launches"]     # rank 0's
     stage_n["align_pp"] = stages["align_pp"]["launches"]     # rank 0's
     stage_n["generate_tp"] = stages["generate_tp"]["launches"]  # a rank's
+    stage_n["generate_pp"] = stages["generate_pp"]["launches"]  # rank 0's
     stage_n["serve_int8"] = served8["launches"]
     stage_n["train_body_quant"] = trained["body_quant"]["launches"]
     stage_n["train_fused"] = trained["fused"]["launches"]

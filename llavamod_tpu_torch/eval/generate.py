@@ -40,12 +40,15 @@ from llavamod_tpu_torch.constants import DEFAULT_IMAGE_TOKEN
 from llavamod_tpu_torch.data.splice import expand_image_tokens
 from llavamod_tpu_torch.generation import (
     GenerationConfig,
+    _no_grad,
     decode_texts,
     generate,
 )
 from llavamod_tpu_torch.mm_utils import ImagePreprocessor, tokenize_with_images
 from llavamod_tpu_torch.models import llava
 from llavamod_tpu_torch.models.llava import Llava, LlavaConfig, MultimodalBatch
+from llavamod_tpu_torch.parallel.pipeline import pipe_size
+from llavamod_tpu_torch.parallel.sharding import gathered
 
 
 def split_chunk(items: Sequence, num_chunks: int, chunk_idx: int) -> List:
@@ -209,12 +212,19 @@ class VQARunner:
         self._save_gating()
         return all_rows
 
-    @torch.inference_mode()
     def _collect_gating(self, batch: MultimodalBatch, metas: List[dict]):
         """Stash per-MoE-layer router probabilities for the prompt tokens:
         one eval-mode forward of the batch (K1 on the card), saved as .npz
-        at the end of run()."""
-        out = llava.forward(self.model, self.cfg, batch, train=False)
+        at the end of run().  A model that parallel/sharding.py sharded runs
+        it as `generate` does (its module call, under no_grad); under pipe
+        > 1 with `scan_layers` off, the stages in turn (the pipelined loop
+        returns no router probes), so that every rank holds the probes of
+        every MoE layer."""
+        cfg = self.cfg
+        if pipe_size() > 1:
+            cfg = cfg.replace(llm=cfg.llm.replace(scan_layers=False))
+        with _no_grad(self.model), gathered(self.model):
+            out = self.model(batch, cfg, train=False)
         if not hasattr(self, "_gating_rows"):
             self._gating_rows = {}
         probs = torch.stack([p.float() for p in out.router_probs])  # [L,S,E]

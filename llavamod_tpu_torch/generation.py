@@ -13,20 +13,24 @@ scalar shared by all rows; decode positions are prompt_len + i.
 
 Under a parallel context (parallel/collectives.py `active`) with a model
 that parallel/sharding.py `shard_params` sharded over a (data, fsdp,
-expert, tensor) mesh, each rank generates for its rows (the ranks of a
-tensor group hold the same rows): the cache holds the rank's KV heads,
-kernel K2 runs on them, the vocab-parallel logits are gathered whole on
-every tensor rank before `_sample`, and with temperature > 0 tensor rank
-0's token is broadcast to its group (the generators of the ranks need not
-agree; greedy decoding picks the same token on every rank).  Every rank
-runs the same number of prefill and decode forwards, so the FSDP2 gathers
-and the expert exchange stay in lockstep: the loop runs exactly
+expert, tensor, pipe) mesh, each rank generates for its rows (the ranks of
+a tensor group, and of a pipe group, hold the same rows): the cache holds
+the rank's KV heads of its stage's layers, kernel K2 runs on them, the
+vocab-parallel logits are gathered whole on every tensor rank before
+`_sample`, and with temperature > 0 tensor rank 0's token is broadcast to
+its group, then pipe rank 0's to its (the generators of the ranks need not
+agree; greedy decoding picks the same token on every rank).  Under pipe >
+1 each prefill and decode step runs the stages in turn
+(parallel/pipeline.py `sequential_layers`: K1 on each stage's layers in
+the prefill, K2 on its cache slots in a step), and the last stage's hidden
+reaches every stage, where the head runs.  Every rank runs the same number
+of prefill and decode forwards, so the FSDP2 gathers, the expert exchange
+and the stages' transfers stay in lockstep: the loop runs exactly
 `max_new_tokens - 1` steps, and `generate_stream` stops early only when
 the done rows of every rank agree.  The prefill goes through the model's
 module call (FSDP2 gathers the tower, the projector and each layer in
 their hooks) and the root unit (embedding, final norm, head) is held
-gathered around the prefill and each run of decode steps.  Pipeline
-parallelism takes no cache (ROADMAP Queue 1, item 17).
+gathered around the prefill and each run of decode steps.
 """
 
 from __future__ import annotations
@@ -96,7 +100,8 @@ def _next_logits(model: Llava, hidden: torch.Tensor) -> torch.Tensor:
 
 def _pick(logits: torch.Tensor, gcfg: GenerationConfig,
           generator: Optional[torch.Generator]) -> torch.Tensor:
-    """`_sample`, with tensor rank 0's sampled token on its whole group."""
+    """`_sample`, with tensor rank 0's sampled token on its whole group,
+    then pipe rank 0's on its."""
     tok = _sample(logits, gcfg, generator)
     pctx = parallel_context()
     if gcfg.temperature > 0.0 and tensor_size(pctx) > 1:
@@ -104,6 +109,8 @@ def _pick(logits: torch.Tensor, gcfg: GenerationConfig,
 
         src = dist.get_process_group_ranks(pctx.tensor_group)[0]
         dist.broadcast(tok, src, group=pctx.tensor_group)
+    if gcfg.temperature > 0.0 and pctx is not None and pctx.pipe_size > 1:
+        tok = pctx.broadcast_stage(tok, 0)
     return tok
 
 

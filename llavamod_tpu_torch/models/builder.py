@@ -255,13 +255,6 @@ def load_any(path: str, device="cuda", dtype=None,
     return cfg, model
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for an option of the JAX package that the port does not run
-    yet, naming its ROADMAP item."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, "
-                               f"item {item})")
-
-
 def load_pretrained_model(model_path: str, model_base: Optional[str] = None,
                           device="cuda", dtype=None, tokenizer_path=None,
                           context_len: int = 2048, tokenizer=None,

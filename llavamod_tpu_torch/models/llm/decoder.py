@@ -54,9 +54,13 @@ sequence constraint only without one.
 
 Pipeline parallelism (parallel/pipeline.py): under a parallel context
 whose pipe group has more than one rank the decoder holds only its stage's
-layers, and the no-cache layer loop is the GPipe microbatch pipeline
-(`pipeline.pipeline_layers`); the un-pipelined paths (a KV cache, or
-`scan_layers` off) raise under pipe > 1.
+layers, and the no-cache layer loop with `scan_layers` is the GPipe
+microbatch pipeline (`pipeline.pipeline_layers`).  The calls that the JAX
+package runs un-pipelined (a KV cache, or `scan_layers` off) run the
+stages in turn on the whole batch (`pipeline.sequential_layers`): a
+stage's cache holds its own layers (`init_cache`; slot `layer_idx -
+cache.first_layer`), and the router probes of every stage come back in
+layer order on every stage.
 
 int8 W8A8: `quantize_decoder_int8` replaces float weights, in place, with
 `Int8Weight`s (models/params.py) under the JAX paths ('layers.3.attn.wqkv
@@ -205,6 +209,9 @@ class KVCache(NamedTuple):
     # int8 mode only: per-(position, head) dequantization scales
     k_scale: Optional[torch.Tensor] = None  # [L, B, KH, S_max]
     v_scale: Optional[torch.Tensor] = None
+    # the global index of the layer in slot 0: a pipeline stage's first
+    # layer (its cache holds its own L layers), else 0
+    first_layer: int = 0
 
     @property
     def quantized(self) -> bool:
@@ -216,18 +223,25 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
     """dtype: a torch float dtype, or 'int8' for a quantized cache with
     per-position/head symmetric scales.  The zero-filled segment row is what
     gives cached decode its causality: unwritten slots stay segment 0.
-    Under a tensor split the cache holds the rank's KH / tensor KV heads."""
-    kh = cfg.num_kv_heads // tensor_size(parallel_context())
-    shape = (cfg.num_layers, batch, kh, max_len, cfg.head_dim)
+    Under a tensor split the cache holds the rank's KH / tensor KV heads;
+    under pipe > 1 the layers of the rank's stage."""
+    pctx = parallel_context()
+    kh = cfg.num_kv_heads // tensor_size(pctx)
+    layers = range(cfg.num_layers)
+    if pipeline.pipe_size() > 1:
+        layers = pipeline.stage_block(cfg, pctx.pipe_size, pctx.pipe_rank)
+    shape = (len(layers), batch, kh, max_len, cfg.head_dim)
     seg = torch.zeros((batch, max_len), dtype=torch.int32, device=device)
     if dtype == "int8" or dtype == torch.int8:
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device),
                        seg, 0,
                        torch.zeros(shape[:-1], dtype=torch.float32, device=device),
-                       torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+                       torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                       layers.start)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), seg, 0)
+                   torch.zeros(shape, dtype=dtype, device=device), seg, 0,
+                   first_layer=layers.start)
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -1084,14 +1098,15 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
         start = cache.length
         k_bh = k.transpose(1, 2)  # [B, KH, t, D]
         v_bh = v.transpose(1, 2)
-        ck, cv = cache.k[layer_idx], cache.v[layer_idx]
+        slot = layer_idx - cache.first_layer
+        ck, cv = cache.k[slot], cache.v[slot]
         scales = None
         if cache.quantized:
             kq, ks = _quantize_kv(k_bh)
             vq, vs = _quantize_kv(v_bh)
             ck[:, :, start:start + t] = kq
             cv[:, :, start:start + t] = vq
-            cks, cvs = cache.k_scale[layer_idx], cache.v_scale[layer_idx]
+            cks, cvs = cache.k_scale[slot], cache.v_scale[slot]
             cks[:, :, start:start + t] = ks
             cvs[:, :, start:start + t] = vs
             scales = (cks, cvs)
@@ -1264,8 +1279,9 @@ def forward(
     (no-cache path only, as in the JAX package).  Under a tensor split the
     returned hidden is whole on every tensor rank, for the vocab-parallel
     head (its gradient is reduced over the group).  Under pipe > 1 the
-    layers run as the stages of a GPipe pipeline (parallel/pipeline.py)
-    and the hidden is the same on every stage.
+    layers run as the stages of a GPipe pipeline, or with a cache or
+    `scan_layers` off as the stages in turn (parallel/pipeline.py), and the
+    hidden is the same on every stage.
     """
     if inputs_embeds is None:
         inputs_embeds = embed(model, cfg, input_ids)
@@ -1298,16 +1314,16 @@ def forward(
     router_probs: List[torch.Tensor] = []
     rematted = remat and cache is None and torch.is_grad_enabled()
     if pipeline.pipe_size() > 1:
-        if cache is not None or not cfg.scan_layers:
-            from llavamod_tpu_torch.models.builder import not_ported
-
-            raise not_ported("the un-pipelined decoder (a KV cache, or "
-                             "scan_layers off) under pipeline parallelism",
-                             17)
-        # router probes are not collected under the pipeline
-        x, aux_total = pipeline.pipeline_layers(
-            cfg, model.layers, x, positions, segment_ids, train, attn_impl,
-            remat, prefix_mask)
+        if cache is None and cfg.scan_layers:
+            # router probes are not returned under the pipeline
+            x, aux_total = pipeline.pipeline_layers(
+                cfg, model.layers, x, positions, segment_ids, train,
+                attn_impl, remat, prefix_mask)
+        else:
+            x, aux_total, moe_losses, router_probs = \
+                pipeline.sequential_layers(
+                    cfg, model.layers, x, positions, segment_ids, cache,
+                    train, attn_impl, rematted, prefix_mask)
         layers = ()
     else:
         layers = model.layers

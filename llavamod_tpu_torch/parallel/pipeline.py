@@ -40,7 +40,7 @@ The MoE aux loss sums over the layers and the microbatches and divides by
 M.  Gating groups see one microbatch at a time (DeepSpeed's per-rank
 semantics, as in the JAX pipeline): the result is the sequential one when
 `moe_gating_group_size` divides the microbatch's token count, and the JAX
-pipelined program's otherwise.  Router probes are not collected (the
+pipelined program's otherwise.  Router probes are not returned (the
 decoder returns empty `moe_losses` / `router_probs`).  Remat recomputes
 each layer of the stage with the policy of the un-pipelined loop.  The
 data, fsdp, expert and tensor axes run inside each stage as they do
@@ -48,6 +48,28 @@ without pipe: the ranks of a stage hold the same microbatch at the same
 time.  The JAX package's TPU workarounds (the canonicalised shard_map
 boundary, the f32 input buffer and the f32 masked psum) have no
 counterpart here.
+
+The decoder's other calls, with a KV cache (generation) or with
+`scan_layers` off (the gating dump), run un-pipelined in the JAX package:
+its layer loop over the whole batch, the layers gathered by GSPMD.  Here a
+stage holds only its layers, so `sequential_layers` runs the same loop as
+the stages in turn on the whole batch, one microbatch (the schedule above
+with M = 1): stage 0 runs its layers on the embedded input and sends the
+result on, each later stage receives, runs its layers and sends on, and
+the last stage's output goes to every stage.  The layers keep their global
+indices (the sliding-window phase and MoE membership follow them), while a
+stage's KV cache holds its own layers only (`init_cache` under pipe > 1:
+slot `layer_idx - block.start`, `KVCache.first_layer`); the cache's
+segment row and length are written before the layers, alike on every
+stage.  Gating sees the whole batch, as in the JAX loop.  Each stage
+collects the moe losses and router probes of its MoE layers, and every
+stage returns them all in layer order (each stage's broadcast over the
+pipe group; every stage holds the same number of MoE layers, on the same
+tokens).  The aux loss is the pipe sum of the stages' sums.  Under
+autograd (`scan_layers` off in training) the loop is the same autograd
+node with M = 1, so the backward is the explicit reverse schedule and
+`replicated_grads` applies unchanged; the probes are returned detached and
+only the aux loss carries a gradient.
 """
 
 from __future__ import annotations
@@ -136,11 +158,14 @@ class _Schedule:
 
     def __init__(self, cfg, layers: StageLayers, pctx, m: int, positions,
                  segment_ids, prefix_mask, train: bool, attn_impl: str,
-                 remat: bool):
+                 remat: bool, cache=None):
         self.cfg, self.layers, self.pctx, self.m = cfg, layers, pctx, m
         self.extra = (positions, segment_ids, prefix_mask)
         self.train, self.attn_impl, self.remat = train, attn_impl, remat
+        self.cache = cache
         self.saved: list = []
+        # (moe loss, router probs) of the stage's MoE layers, detached
+        self.probes: list = []
 
     def _stage(self, x: torch.Tensor, i: int, bm: int):
         """Microbatch i's activation `x` through the stage's layers:
@@ -154,15 +179,18 @@ class _Schedule:
         io_dtype = x.dtype
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for idx, layer in zip(self.layers.indices, self.layers):
-            args = (self.cfg, x, pos, seg, idx, None, self.train,
+            args = (self.cfg, x, pos, seg, idx, self.cache, self.train,
                     self.attn_impl, pfx)
             if self.remat:
                 kw = ({"context_fn": dots_saved_context}
                       if self.cfg.remat_policy == "dots" else {})
-                x, a, _ = checkpoint(layer, *args, use_reentrant=False, **kw)
+                x, a, probs = checkpoint(layer, *args, use_reentrant=False,
+                                         **kw)
             else:
-                x, a, _ = layer(*args)
+                x, a, probs = layer(*args)
             aux = aux + a
+            if probs is not None:
+                self.probes.append((a.detach(), probs.detach()))
         return x.to(io_dtype), aux
 
     def forward(self, x: torch.Tensor):
@@ -255,13 +283,49 @@ def pipeline_layers(cfg, layers: StageLayers, x: torch.Tensor, positions,
         raise ValueError(
             f"batch {b} not divisible into {m} microbatches "
             f"(set pipeline_microbatches to a divisor of the batch)")
-    grad = torch.is_grad_enabled()
     sched = _Schedule(cfg, layers, pctx, m, positions, segment_ids,
-                      prefix_mask, train, attn_impl, remat and grad)
-    if not grad:
+                      prefix_mask, train, attn_impl,
+                      remat and torch.is_grad_enabled())
+    return _run(sched, x)
+
+
+def _run(sched: _Schedule, x: torch.Tensor):
+    """The schedule's forward: as one autograd node under autograd."""
+    if not torch.is_grad_enabled():
         return sched.forward(x)
     anchor = torch.zeros((), device=x.device, requires_grad=True)
     return _Pipeline.apply(sched, x, anchor)
+
+
+def sequential_layers(cfg, layers: StageLayers, x: torch.Tensor, positions,
+                      segment_ids, cache, train: bool, attn_impl: str,
+                      remat: bool, prefix_mask: Optional[torch.Tensor] = None):
+    """The un-pipelined layer loop under pipe > 1 (a KV cache, or
+    `scan_layers` off): the stages in turn on the whole batch, each on its
+    own cache slots (see the module docstring); `remat` as the decoder's
+    loop decides it (no cache, under autograd).  Returns (x_out [B, T, D]
+    on every stage, aux_total, moe_losses, router_probs), the last two in
+    global layer order on every stage, as the single process's loop."""
+    pctx = current()
+    sched = _Schedule(cfg, layers, pctx, 1, positions, segment_ids,
+                      prefix_mask, train, attn_impl, remat, cache)
+    x, aux_total = _run(sched, x)
+    losses, probs = [], []
+    mine = sched.probes
+    if mine:
+        # every stage holds as many MoE layers, gated on the same tokens
+        k, (n, e) = len(mine), mine[0][1].shape
+        for stage in range(pctx.pipe_size):
+            if stage == pctx.pipe_rank:
+                flat = torch.cat([torch.stack([a.float() for a, _ in mine]),
+                                  torch.cat([p.float().reshape(-1)
+                                             for _, p in mine])])
+            else:
+                flat = x.new_empty((k + k * n * e,), dtype=torch.float32)
+            flat = pctx.broadcast_stage(flat, stage)
+            losses.extend(flat[:k].unbind())
+            probs.extend(flat[k:].view(k, n, e).unbind())
+    return x, aux_total, tuple(losses), tuple(probs)
 
 
 @torch.no_grad()

@@ -8,8 +8,10 @@ the threaded loader gives the same batches in the same order with 0 and 4
 workers.  Every comparison is exact.
 
 Both packages' image preprocessors take their C++ batch paths, which give
-the same bits; on the PIL path (LLAVAMOD_NO_NATIVE=1 for the port, the JAX
-package's PIL fallback) the items are the same too."""
+the same bits (the JAX one from tests/test_torch_native_prep.py's
+`jax_native` build, which no order of the test files can leave unloaded);
+on the PIL path (LLAVAMOD_NO_NATIVE=1 for the port, the JAX package's PIL
+fallback) the items are the same too."""
 
 import json
 
@@ -31,6 +33,9 @@ from llavamod_tpu_torch.data import dataset as tds
 from llavamod_tpu_torch.data import preprocess as tpre
 from llavamod_tpu_torch.train import loader as tloader
 from llavamod_tpu_torch.train import sampler as tsampler
+from test_torch_native_prep import jax_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 class StubTok:

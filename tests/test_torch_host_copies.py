@@ -3,7 +3,8 @@ conversation, mm_utils, data/splice, utils/registry) against their
 originals on the same inputs: every chat template renders the same prompt,
 image-aware tokenization and the image-slot splice (left and right
 padding) give the same arrays, and the image preprocessor gives the same
-pixels."""
+pixels (the JAX one on its C++ path from tests/test_torch_native_prep.py's
+`jax_native` build)."""
 
 import dataclasses
 
@@ -21,6 +22,7 @@ from llavamod_tpu_torch import conversation as tconv
 from llavamod_tpu_torch import mm_utils as tmm
 from llavamod_tpu_torch.data import splice as tsplice
 from llavamod_tpu_torch.utils.registry import Registry
+from test_torch_native_prep import jax_native  # noqa: F401
 
 
 class _Tok:
@@ -68,6 +70,7 @@ def test_tokenize_and_splice_are_the_same(pad_side):
                                       getattr(sj, f.name), err_msg=f.name)
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("aspect", [None, "pad"])
 def test_image_preprocessor_is_the_same(aspect):
     rng = np.random.RandomState(5)

@@ -10,9 +10,24 @@ the JAX package's (llavamod_tpu/native), on the CPU:
   * the counters of the path each batch took;
   * the library is built into build/llavamod_tpu_torch/ at the repository
     root, named by a hash of the source and the flags, never beside the
-    source."""
+    source.
 
+The JAX side's C++ path comes from `jax_native`, a module fixture that
+tests/test_torch_data.py and tests/test_torch_host_copies.py use too.  The
+JAX loader builds its library in place beside its source, non-atomically,
+and remembers a failed load for the life of the process: pytest-xdist
+workers that reach it together (tests/test_native_prep.py loads it at
+collection) can dlopen a half-written file ("file too short") and then
+fall back to PIL in every later test of that worker.  The fixture builds
+the same source with the same command into a file private to the test
+session, under an fcntl lock shared by the session's workers, moves it into
+place with os.replace, and points the JAX loader at it."""
+
+import fcntl
 import os
+import subprocess
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -26,6 +41,53 @@ from llavamod_tpu_torch import native
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MEANS = {"clip": (tmm.CLIP_IMAGE_MEAN, tmm.CLIP_IMAGE_STD),
          "siglip": (tmm.SIGLIP_IMAGE_MEAN, tmm.SIGLIP_IMAGE_STD)}
+
+
+def _jax_build_command(out: str):
+    """The JAX loader's own compiler command (`_build`: its source, its
+    flags), writing `out` instead of the file beside the source."""
+    seen = []
+    recorder = types.SimpleNamespace(
+        run=lambda cmd, **kw: seen.append(list(cmd)),
+        SubprocessError=subprocess.SubprocessError)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB_PATH", out)
+        mp.setattr(jnative, "subprocess", recorder)
+        jnative._build()
+    return seen[0]
+
+
+@pytest.fixture(scope="module")
+def jax_native(tmp_path_factory):
+    """The JAX package's C++ preprocessor, loaded from a build private to
+    the test session (see the module docstring)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent          # shared by the session's workers
+    lib = root / f"jax-libimageprep-{sys.implementation.cache_tag}.so"
+    with open(root / "jax-libimageprep.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            tmp = root / f"{lib.name}.{os.getpid()}.tmp"
+            cmd = _jax_build_command(str(tmp))
+            done = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+            if done.returncode:
+                raise RuntimeError(f"{' '.join(cmd)} failed:\n"
+                                   f"{done.stdout}{done.stderr}")
+            os.replace(tmp, lib)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_LIB_PATH", str(lib))
+        mp.setattr(jnative, "_lib", None)
+        mp.setattr(jnative, "_tried", False)
+        mp.delenv("LLAVAMOD_NO_NATIVE", raising=False)
+        if not jnative.is_available():
+            raise RuntimeError(f"the JAX package's library {lib} does not "
+                               "load (its loader printed why on stderr)")
+        yield jnative
+
+
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 @pytest.fixture(scope="module")

@@ -29,9 +29,10 @@ pair of the same widths runs pipe=4.
     the updates (AdamW and Adafactor); the sharded checkpoint at pipe=2
     resumes update 2 to the same metrics and weights;
   * refusals: the fused step (JAX's ValueError), a batch the microbatches
-    do not divide, layer repeats pipe does not divide, and the decoder's
-    un-pipelined paths under pipe > 1 (a cache: ROADMAP Queue 1,
-    item 17)."""
+    do not divide, and layer repeats pipe does not divide;
+  * a cached call of the decoder at pipe=2, once refused, returns the
+    single process's hidden and cache (tests/test_torch_pipeline_decode.py
+    holds the un-pipelined paths under pipe > 1 to JAX)."""
 
 import dataclasses
 import json
@@ -260,11 +261,36 @@ def _run_keeping_replicas(root, name, stage, bsz, rank, **targs):
     torch.save(kept, os.path.join(root, f"{name}_replicas{rank}.pt"))
 
 
+def _cached_call(rank, root):
+    """The decoder call the port once refused under pipe=2: a 2-layer
+    decoder with a KV cache, on this rank's stage."""
+    from llavamod_tpu_torch.parallel.collectives import (
+        ParallelContext,
+        active,
+    )
+    from llavamod_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from llavamod_tpu_torch.parallel.pipeline import keep_stage_layers
+
+    cfg = tiny_config()
+    model = tdecoder.init(cfg, torch.Generator().manual_seed(0))
+    pctx = ParallelContext(make_mesh(MeshConfig(pipe=2), "cpu"))
+    keep_stage_layers(model, 2, pctx.pipe_rank)
+    with active(pctx), torch.no_grad():
+        cache = tdecoder.init_cache(cfg, 2, 8, dtype=torch.float32)
+        out = tdecoder.forward(model, cfg, input_ids=torch.ones(
+            2, 4, dtype=torch.long), cache=cache)
+    torch.save(dict(h=out.hidden, k=out.cache.k, v=out.cache.v,
+                    length=out.cache.length),
+               os.path.join(root, f"cached_rank{rank}.pt"))
+
+
 def _world(rank, world, store, root, decoder_cases, step_cases):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
+        if world == 2:
+            _cached_call(rank, root)
         for name in decoder_cases:
             _port_decoder(rank, root, name)
         for name, (stage, bsz, targs) in step_cases.items():
@@ -519,14 +545,23 @@ def test_layer_repeats_pipe_does_not_divide_are_refused():
         stage_block(sparse, 2, 0)
 
 
-def test_a_cache_under_the_pipeline_names_item_17():
-    from llavamod_tpu_torch.parallel.collectives import active
-
+def test_a_cache_under_the_pipeline_returns_the_single_process_result(runs):
+    """The call that once raised at pipe=2 (ROADMAP item 17) returns the
+    single process's hidden on both stages, each stage's cache holding its
+    layer's slot of the single process's cache."""
+    root, _, _ = runs
     cfg = tiny_config()
     model = tdecoder.init(cfg, torch.Generator().manual_seed(0))
-    with active(_PipeCtx()):
+    with torch.no_grad():
         cache = tdecoder.init_cache(cfg, 2, 8, dtype=torch.float32)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 17"):
-            tdecoder.forward(model, cfg, input_ids=torch.ones(
-                2, 4, dtype=torch.long), cache=cache)
+        want = tdecoder.forward(model, cfg, input_ids=torch.ones(
+            2, 4, dtype=torch.long), cache=cache)
+    for rank in range(2):
+        got = torch.load(os.path.join(root, f"cached_rank{rank}.pt"),
+                         weights_only=True)
+        assert _rel(got["h"], want.hidden) <= OP_TOL
+        assert got["length"] == want.cache.length == 4
+        for key in ("k", "v"):
+            assert got[key].shape[0] == 1
+            assert _rel(got[key], getattr(want.cache, key)[rank:rank + 1]) \
+                <= OP_TOL, (rank, key)
