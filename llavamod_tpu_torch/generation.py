@@ -51,6 +51,7 @@ from llavamod_tpu_torch.parallel.collectives import (
     tensor_size,
 )
 from llavamod_tpu_torch.parallel.sharding import gathered, is_sharded
+from llavamod_tpu_torch.runtime import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,36 +155,39 @@ class _DecodeState:
 def _prefill(model: Llava, batch: MultimodalBatch, gcfg: GenerationConfig,
              generator: Optional[torch.Generator]) -> _DecodeState:
     """Encode the multimodal prompt into a fresh cache and sample the first
-    token."""
-    cfg = model.cfg
-    b, t = batch.input_ids.shape
-    dev = batch.input_ids.device
-    seg = batch.segment_ids
-    positions = torch.clamp_min(torch.cumsum(seg, dim=1) - 1, 0)
-    prompt_len = seg.sum(dim=1)
-    cache = decoder.init_cache(cfg.llm, b, t + gcfg.max_new_tokens,
-                               dtype=_CACHE_DTYPES[gcfg.cache_dtype],
-                               device=dev)
-    # attn_impl="fresh": the cache is empty, so prefill attention runs on the
-    # chunk's own K/V (kernel K1 on the card) while the cache is written; a
-    # sharded model through its module call
-    fwd = model if is_sharded(model) else functools.partial(
-        llava.forward, model, cfg)
-    out = fwd(batch._replace(positions=positions), cache=cache, train=False,
-              attn_impl="fresh")
-    last_logits = _next_logits(model, out.hidden[:, -1:])
+    token (span `generate.prefill`)."""
+    with trace.span("generate.prefill", device=True):
+        cfg = model.cfg
+        b, t = batch.input_ids.shape
+        dev = batch.input_ids.device
+        seg = batch.segment_ids
+        positions = torch.clamp_min(torch.cumsum(seg, dim=1) - 1, 0)
+        prompt_len = seg.sum(dim=1)
+        cache = decoder.init_cache(cfg.llm, b, t + gcfg.max_new_tokens,
+                                   dtype=_CACHE_DTYPES[gcfg.cache_dtype],
+                                   device=dev)
+        # attn_impl="fresh": the cache is empty, so prefill attention runs
+        # on the chunk's own K/V (kernel K1 on the card) while the cache is
+        # written; a sharded model through its module call
+        fwd = model if is_sharded(model) else functools.partial(
+            llava.forward, model, cfg)
+        out = fwd(batch._replace(positions=positions), cache=cache,
+                  train=False, attn_impl="fresh")
+        last_logits = _next_logits(model, out.hidden[:, -1:])
 
-    is_eos, push_window, window_stopped, win = _stop_machinery(gcfg, b, dev)
-    first = _pick(last_logits, gcfg, generator)
-    window = push_window(torch.full((b, win), -1, dtype=torch.int32,
-                                    device=dev), first)
-    done = is_eos(first) | window_stopped(window)
-    return _DecodeState(out.cache, first, done, window, prompt_len)
+        is_eos, push_window, window_stopped, win = _stop_machinery(gcfg, b,
+                                                                   dev)
+        first = _pick(last_logits, gcfg, generator)
+        window = push_window(torch.full((b, win), -1, dtype=torch.int32,
+                                        device=dev), first)
+        done = is_eos(first) | window_stopped(window)
+        return _DecodeState(out.cache, first, done, window, prompt_len)
 
 
 def _decode_steps(model: Llava, gcfg: GenerationConfig, state: _DecodeState,
                   n: int, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Decode `n` tokens from `state` (advanced in place).  Returns [B, n]."""
+    """Decode `n` tokens from `state` (advanced in place), one span
+    `generate.decode_step` each.  Returns [B, n]."""
     cfg = model.cfg
     b = state.tok.shape[0]
     dev = state.tok.device
@@ -191,18 +195,22 @@ def _decode_steps(model: Llava, gcfg: GenerationConfig, state: _DecodeState,
     ones = torch.ones((b, 1), dtype=torch.int32, device=dev)
     toks = []
     for _ in range(n):
-        emb = decoder.embed(model.llm, cfg.llm, state.tok[:, None])
-        dout = decoder.forward(model.llm, cfg.llm, inputs_embeds=emb,
-                               positions=(state.prompt_len + state.step)[:, None],
-                               segment_ids=ones, cache=state.cache, train=False)
-        logits = _next_logits(model, dout.hidden[:, -1:])
-        nxt = _pick(logits, gcfg, generator)
-        nxt = torch.where(state.done, gcfg.pad_token_id, nxt).to(torch.int32)
-        state.window = push_window(state.window, nxt)
-        state.done = state.done | is_eos(nxt) | window_stopped(state.window)
-        state.cache, state.tok = dout.cache, nxt
-        state.step += 1
-        toks.append(nxt)
+        with trace.span("generate.decode_step", device=True):
+            emb = decoder.embed(model.llm, cfg.llm, state.tok[:, None])
+            dout = decoder.forward(
+                model.llm, cfg.llm, inputs_embeds=emb,
+                positions=(state.prompt_len + state.step)[:, None],
+                segment_ids=ones, cache=state.cache, train=False)
+            logits = _next_logits(model, dout.hidden[:, -1:])
+            nxt = _pick(logits, gcfg, generator)
+            nxt = torch.where(state.done, gcfg.pad_token_id,
+                              nxt).to(torch.int32)
+            state.window = push_window(state.window, nxt)
+            state.done = state.done | is_eos(nxt) | window_stopped(
+                state.window)
+            state.cache, state.tok = dout.cache, nxt
+            state.step += 1
+            toks.append(nxt)
     return torch.stack(toks, dim=1)
 
 

@@ -8,6 +8,10 @@ the copy's event before it reads the batch.  On the CPU the arrays become
 tensors as they are.  Under torch.distributed each process has one card
 and its loader yields the rank's own rows, so the rank's batch goes to
 its `device` (cuda:$LOCAL_RANK) the same way.
+
+Spans (runtime/trace.py): `data.next` over each step of the iterator, with
+`data.wait` (blocked in the host iterator's `next`) and `data.send`
+(pinning and issuing the copy) inside it.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Any, Dict, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from llavamod_tpu_torch.runtime import trace
 
 
 class DevicePrefetcher:
@@ -49,20 +55,25 @@ class DevicePrefetcher:
     def _fill(self):
         while len(self._queue) < self._depth:
             try:
-                batch = next(self._it)
+                with trace.span("data.wait"):
+                    batch = next(self._it)
             except StopIteration:
                 return
-            self._queue.append(self._put(batch))
+            with trace.span("data.send"):
+                self._queue.append(self._put(batch))
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
-        self._fill()
-        while self._queue:
-            out, done = self._queue.popleft()
-            if done is not None:
-                current = torch.cuda.current_stream(self._device)
-                current.wait_event(done)
-                for v in out.values():
-                    # the side stream allocated it; the compute stream uses it
-                    v.record_stream(current)
+        with trace.span("data.next"):
             self._fill()
+        while self._queue:
+            with trace.span("data.next"):
+                out, done = self._queue.popleft()
+                if done is not None:
+                    current = torch.cuda.current_stream(self._device)
+                    current.wait_event(done)
+                    for v in out.values():
+                        # the side stream allocated it; the compute stream
+                        # uses it
+                        v.record_stream(current)
+                self._fill()
             yield out

@@ -21,6 +21,10 @@ the template's stop string or the tokenizer's EOS (the runner's
 `stopping`, as in the JAX package's eval runner).  `--quant int8` serves
 the int8 W8A8 form of the model (models/builder.py `quantize_for_serving`).
 
+Spans (runtime/trace.py): `serve.queue` for each request, from its put
+into the queue until its batch starts, and `serve.fanout` for each batch,
+from `generate`'s return through the replies.
+
 Two differences from the JAX server, whose batcher ignores both: it stops
 at the template's stop strings, and it honours each request's
 `temperature` and `top_p`.
@@ -39,6 +43,8 @@ import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
+from llavamod_tpu_torch.runtime import trace
+
 
 def _bucket(n: int, max_batch: int) -> int:
     """Smallest power-of-two >= n, capped at max_batch."""
@@ -50,7 +56,7 @@ def _bucket(n: int, max_batch: int) -> int:
 
 class _Request:
     __slots__ = ("prompt", "image", "max_new_tokens", "sampling", "event",
-                 "result", "error", "rid", "stream", "chunks")
+                 "result", "error", "rid", "stream", "chunks", "put_ns")
 
     def __init__(self, prompt: str, image, max_new_tokens: int,
                  sampling: Tuple[float, float], stream: bool = False):
@@ -65,6 +71,7 @@ class _Request:
         self.stream = stream
         # text deltas for SSE consumers; None = terminal sentinel
         self.chunks: "queue.Queue[Optional[str]]" = queue.Queue()
+        self.put_ns = 0                 # trace.stamp() when queued
 
 
 class BatchingEngine:
@@ -125,6 +132,7 @@ class BatchingEngine:
                        max_new_tokens or self.default_max_new,
                        self._sampling(temperature, top_p))
         self._count_request()
+        req.put_ns = trace.stamp()
         self._q.put(req)
         if not req.event.wait(timeout):
             raise TimeoutError("generation timed out")
@@ -144,6 +152,7 @@ class BatchingEngine:
                        max_new_tokens or self.default_max_new,
                        self._sampling(temperature, top_p), stream=True)
         self._count_request()
+        req.put_ns = trace.stamp()
         self._q.put(req)
         return req
 
@@ -195,6 +204,8 @@ class BatchingEngine:
         n = len(reqs)
         bucket = _bucket(n, self.max_batch)
         self._count_batch(n, bucket)
+        for r in reqs:      # each request's wait, from its put until now
+            trace.record("serve.queue", r.put_ns, id=r.rid)
 
         prompts = [r.prompt for r in reqs]
         images = [r.image for r in reqs]
@@ -245,28 +256,29 @@ class BatchingEngine:
                 gen_ids = np.concatenate([gen_ids, pad], 1)
         else:
             gen_ids = generate(self.runner.model, enc, gcfg)
-        texts = decode_texts(self.runner.tokenizer, gen_ids,
-                             pad_token_id=gcfg.pad_token_id)
-        ids_np = np.asarray(gen_ids)
-        for i, r in enumerate(reqs):
-            # trim to the REQUEST's own budget (batch decoded to the max)
-            own = ids_np[i, :r.max_new_tokens]
-            n_out = int((own != gcfg.pad_token_id).sum())
-            text = (texts[i] if r.max_new_tokens >= max_new else
-                    decode_texts(self.runner.tokenizer, own[None],
-                                 pad_token_id=gcfg.pad_token_id)[0])
-            r.result = {
-                "id": r.rid,
-                "text": text.strip(),
-                "usage": {
-                    "prompt_tokens": int(
-                        enc.segment_ids[i].sum()),
-                    "completion_tokens": n_out,
-                },
-            }
-            r.event.set()
-            if r.stream:
-                r.chunks.put(None)  # terminal sentinel after result is set
+        with trace.span("serve.fanout"):
+            texts = decode_texts(self.runner.tokenizer, gen_ids,
+                                 pad_token_id=gcfg.pad_token_id)
+            ids_np = np.asarray(gen_ids)
+            for i, r in enumerate(reqs):
+                # trim to the REQUEST's own budget (batch decoded to the max)
+                own = ids_np[i, :r.max_new_tokens]
+                n_out = int((own != gcfg.pad_token_id).sum())
+                text = (texts[i] if r.max_new_tokens >= max_new else
+                        decode_texts(self.runner.tokenizer, own[None],
+                                     pad_token_id=gcfg.pad_token_id)[0])
+                r.result = {
+                    "id": r.rid,
+                    "text": text.strip(),
+                    "usage": {
+                        "prompt_tokens": int(
+                            enc.segment_ids[i].sum()),
+                        "completion_tokens": n_out,
+                    },
+                }
+                r.event.set()
+                if r.stream:
+                    r.chunks.put(None)  # terminal sentinel, after result
 
 
 def build_engine(model_path: str, *, device: str = "cuda",

@@ -114,7 +114,9 @@ class TrainArgs:
     dataloader_num_workers: int = 8
     report_to: str = "none"             # none | wandb (gated on availability)
     run_name: Optional[str] = None
-    profile_steps: int = 0              # trace N steps to output_dir/profile
+    # trace N steps: output_dir/profile/trace.json (torch.profiler) and
+    # spans.json (the program's spans, runtime/trace.py, on its clock)
+    profile_steps: int = 0
     compute_dtype: str = "bfloat16"
     remat: bool = True
     attn_impl: str = "auto"

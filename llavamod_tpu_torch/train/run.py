@@ -70,7 +70,11 @@ microbatches and optimizer updates), periodic `checkpoint-<step>/` (<step>
 counts loop steps; a resumed run skips the batches of the steps before
 it), the final model (`llavamod_config.json` + `model.pt`)
 and, for stage 1, `mm_projector.bin`; with LoRA the final model is the
-merged one and `adapter/` holds the adapters in PEFT's layout.
+merged one and `adapter/` holds the adapters in PEFT's layout.  With
+`--profile_steps N`, rank 0 profiles N steps from the second into
+`profile/trace.json` (torch.profiler, host and device) and writes the
+program's spans of those steps (runtime/trace.py: the step's phases, the
+loader's wait) into `profile/spans.json`, on the trace's clock.
 """
 
 from __future__ import annotations
@@ -973,20 +977,33 @@ def _stop(stop_requested, pctx, agree: bool) -> bool:
 def _start_profiler(device):
     from torch.profiler import ProfilerActivity, profile
 
+    from llavamod_tpu_torch.runtime import trace
+
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
+    trace.collect()
+    trace.enable()
     prof.__enter__()
     return prof
 
 
 def _stop_profiler(prof, output_dir: str) -> None:
+    """Writes the profile (trace.json) and the program spans recorded while
+    it ran (spans.json: runtime/trace.py's records, on the same clock)."""
+    from llavamod_tpu_torch.runtime import trace
+
     prof.__exit__(None, None, None)
+    trace.disable()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     out = os.path.join(output_dir, "profile")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
-    rank0_print(f"[run] wrote profile to {out}/trace.json")
+    with open(os.path.join(out, "spans.json"), "w") as f:
+        json.dump(trace.collect(), f)
+    rank0_print(f"[run] wrote profile to {out}/trace.json and spans.json")
 
 
 def load_tokenizer(margs: ModelArgs):

@@ -71,6 +71,7 @@ from llavamod_tpu_torch.parallel.collectives import (
     current as parallel_context,
 )
 from llavamod_tpu_torch.parallel.sharding import is_sharded
+from llavamod_tpu_torch.runtime import trace
 from llavamod_tpu_torch.train.config import TrainConfig
 from llavamod_tpu_torch.train.optim import TrainState, apply_trainable_mask
 
@@ -155,12 +156,13 @@ def _student_forward(model, cfg: LlavaConfig, batch: MultimodalBatch,
     from the live weights, without a gradient."""
     dtype = _DTYPES[tcfg.compute_dtype]
     cbatch = batch._replace(pixels=batch.pixels.to(dtype))
-    out = model(cbatch, cfg=cfg, train=True, remat=tcfg.remat,
-                attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
-    w_head = llava.lm_head_weight(model, cfg)
-    if tcfg.student_head_quant and not isinstance(w_head, Int8Weight):
-        with torch.no_grad():
-            w_head = quantize_head_int8(w_head)
+    with trace.span("train.student_fwd", device=True):
+        out = model(cbatch, cfg=cfg, train=True, remat=tcfg.remat,
+                    attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
+        w_head = llava.lm_head_weight(model, cfg)
+        if tcfg.student_head_quant and not isinstance(w_head, Int8Weight):
+            with torch.no_grad():
+                w_head = quantize_head_int8(w_head)
     return out, w_head
 
 
@@ -197,7 +199,7 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
 
     def teacher_forward(teacher, batch, tower_feats):
         tb = batch._replace(pixels=batch.pixels.to(dtype))
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("train.teacher_fwd", device=True):
             out = teacher(tb, cfg=teacher_cfg, train=False,
                           attn_impl=tcfg.attn_impl, tower_feats=tower_feats)
             return out.hidden, llava.lm_head_weight(teacher, teacher_cfg)
@@ -209,6 +211,10 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
         out, w_s = _student_forward(model, student_cfg, batch, tcfg)
         h_t, w_t = teacher_forward(teacher, batch,
                                    out.tower_feats if share_tower else None)
+        with trace.span("train.loss", device=True):
+            return align_loss(out, w_s, h_t, w_t, batch, pctx)
+
+    def align_loss(out, w_s, h_t, w_t, batch: MultimodalBatch, pctx):
         metrics: Metrics = {}
         kw = dict(vocab_limit=vocab_limit,
                   distill_all_tokens=tcfg.distill_all_tokens,
@@ -235,16 +241,18 @@ def make_align_step(student_cfg: LlavaConfig, teacher_cfg: LlavaConfig,
         return loss, metrics
 
     def step(state: TrainState, teacher: nn.Module, batch: MultimodalBatch):
-        model = state.model
-        _stop_frozen(model, tcfg, lora_cfg)
-        _clear_grads(state)
-        with lora_merged(model, state.lora, lora_cfg), \
-                _cast_tree(model, dtype), _cast_tree(teacher, dtype):
-            loss, metrics = loss_fn(model, teacher, batch)
-            loss.backward()
-        return _apply_update(state, _world_metrics(metrics,
-                                                   parallel_context()),
-                             student_cfg)
+        with trace.span("train.step", id=state.step, device=True):
+            model = state.model
+            _stop_frozen(model, tcfg, lora_cfg)
+            _clear_grads(state)
+            with lora_merged(model, state.lora, lora_cfg), \
+                    _cast_tree(model, dtype), _cast_tree(teacher, dtype):
+                loss, metrics = loss_fn(model, teacher, batch)
+                with trace.span("train.backward", device=True):
+                    loss.backward()
+            return _apply_update(state, _world_metrics(metrics,
+                                                       parallel_context()),
+                                 student_cfg)
 
     return step
 
@@ -294,7 +302,11 @@ def _apply_update(state: TrainState, metrics: Metrics, cfg=None):
 
         replicated_grads(grads, pctx)
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = state.opt.update(grads)
+    # `applied`: this call updated the parameters (not only accumulated)
+    with trace.span("train.update", device=True) as sp:
+        updates = state.opt.updates
+        metrics["grad_norm"] = state.opt.update(grads)
+        sp.set(applied=state.opt.updates > updates)
     _clear_grads(state)
     return state._replace(step=state.step + 1), metrics
 
@@ -362,10 +374,11 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
 
     def ce_forward(model, batch: MultimodalBatch, count_reduce=None):
         out, w_head = _student_forward(model, cfg, batch, tcfg)
-        ce = softmax_cross_entropy(out.hidden, w_head, batch.labels,
-                                   chunk=tcfg.vocab_chunk,
-                                   stream_dh=_head_frozen(w_head),
-                                   count_reduce=count_reduce)
+        with trace.span("train.loss", device=True):
+            ce = softmax_cross_entropy(out.hidden, w_head, batch.labels,
+                                       chunk=tcfg.vocab_chunk,
+                                       stream_dh=_head_frozen(w_head),
+                                       count_reduce=count_reduce)
         return out, ce
 
     def one_shot(model, batch: MultimodalBatch) -> Metrics:
@@ -377,7 +390,8 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
             loss = loss + coef * _once(out.aux_loss, pctx)
             metrics["loss/moe_balance"] = out.aux_loss
         metrics["loss"] = loss
-        loss.backward()
+        with trace.span("train.backward", device=True):
+            loss.backward()
         return metrics
 
     def chunked(model, batch: MultimodalBatch, n_ck: int) -> Metrics:
@@ -397,7 +411,8 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
             aux = out.aux_loss if cfg.llm.is_moe else zero
             term = (n_c / n_total) * ce.loss + (coef / n_ck) * _once(aux,
                                                                     pctx)
-            term.backward()
+            with trace.span("train.backward", device=True):
+                term.backward()
             loss_sum = loss_sum + term.detach()
             ce_sum = ce_sum + ce.loss.detach() * n_c
             aux_sum = aux_sum + aux.detach()
@@ -408,22 +423,23 @@ def make_pretrain_step(cfg: LlavaConfig, tcfg: TrainConfig,
         return metrics
 
     def step(state: TrainState, batch: MultimodalBatch):
-        model = state.model
-        _stop_frozen(model, tcfg, lora_cfg)
-        _clear_grads(state)
-        b, t = batch.input_ids.shape
-        n_ck = tcfg.grad_row_chunks
-        n_ck = n_ck if (n_ck > 1 and b % n_ck == 0) else 1
-        if n_ck > 1 and cfg.llm.is_moe:
-            group = cfg.llm.moe_gating_group_size
-            if not (group > 0 and ((b // n_ck) * t) % group == 0):
-                n_ck = 1
-        with lora_merged(model, state.lora, lora_cfg), \
-                _cast_tree(model, dtype):
-            metrics = (chunked(model, batch, n_ck) if n_ck > 1
-                       else one_shot(model, batch))
-        return _apply_update(state, _world_metrics(metrics,
-                                                   parallel_context()), cfg)
+        with trace.span("train.step", id=state.step, device=True):
+            model = state.model
+            _stop_frozen(model, tcfg, lora_cfg)
+            _clear_grads(state)
+            b, t = batch.input_ids.shape
+            n_ck = tcfg.grad_row_chunks
+            n_ck = n_ck if (n_ck > 1 and b % n_ck == 0) else 1
+            if n_ck > 1 and cfg.llm.is_moe:
+                group = cfg.llm.moe_gating_group_size
+                if not (group > 0 and ((b // n_ck) * t) % group == 0):
+                    n_ck = 1
+            with lora_merged(model, state.lora, lora_cfg), \
+                    _cast_tree(model, dtype):
+                metrics = (chunked(model, batch, n_ck) if n_ck > 1
+                           else one_shot(model, batch))
+            return _apply_update(state, _world_metrics(
+                metrics, parallel_context()), cfg)
 
     return step
 
@@ -513,18 +529,21 @@ def make_dpo_step(policy_cfg: LlavaConfig, ref_cfg: LlavaConfig,
         return _once(loss, pctx), metrics
 
     def step(state: TrainState, ref: nn.Module, batch_dict: Dict[str, Any]):
-        model = state.model
-        _stop_frozen(model, tcfg, lora_cfg)
-        _clear_grads(state)
-        device = next(model.parameters()).device
-        batch2b = _concat_pair_batch(batch_dict, device=device)
-        pctx = parallel_context()
-        segments = (pctx.token_segments(2) if pctx is not None
-                    else contextlib.nullcontext())
-        with lora_merged(model, state.lora, lora_cfg), \
-                _cast_tree(model, dtype), _cast_tree(ref, dtype), segments:
-            loss, metrics = loss_fn(model, ref, batch2b, pctx)
-            loss.backward()
-        return _apply_update(state, metrics, policy_cfg)
+        with trace.span("train.step", id=state.step, device=True):
+            model = state.model
+            _stop_frozen(model, tcfg, lora_cfg)
+            _clear_grads(state)
+            device = next(model.parameters()).device
+            batch2b = _concat_pair_batch(batch_dict, device=device)
+            pctx = parallel_context()
+            segments = (pctx.token_segments(2) if pctx is not None
+                        else contextlib.nullcontext())
+            with lora_merged(model, state.lora, lora_cfg), \
+                    _cast_tree(model, dtype), _cast_tree(ref, dtype), \
+                    segments:
+                loss, metrics = loss_fn(model, ref, batch2b, pctx)
+                with trace.span("train.backward", device=True):
+                    loss.backward()
+            return _apply_update(state, metrics, policy_cfg)
 
     return step

@@ -385,7 +385,20 @@ def test_main_runs_with_a_tokenizer_directory(tmp_path, dirs):
     assert len(_lines(out)) == 2 and _info(out)["optimizer_updates"] == 2
     assert os.path.exists(os.path.join(out, "mm_projector.bin"))
     with open(os.path.join(out, "profile", "trace.json")) as f:
-        assert "traceEvents" in json.load(f)   # the second step, traced
+        prof = json.load(f)                    # the second step, traced
+    with open(os.path.join(out, "profile", "spans.json")) as f:
+        spans = json.load(f)                   # its program spans
+    step, = [s for s in spans if s["name"] == "train.step"]
+    assert step["id"] == 1
+    phases = {s["name"] for s in spans if s["parent"] == step["sid"]}
+    assert phases == {"train.student_fwd", "train.loss", "train.backward",
+                      "train.update"}
+    # on the trace's clock: the profile shows the step's span by name, and
+    # its record_function (entered first, left last) holds the span
+    shown, = [e for e in prof["traceEvents"] if e.get("name") == "train.step"]
+    t0_ns = prof["baseTimeNanoseconds"] + shown["ts"] * 1e3
+    t1_ns = t0_ns + shown["dur"] * 1e3
+    assert t0_ns <= step["start_ns"] + 1e6 and step["end_ns"] <= t1_ns + 1e6
 
 
 def test_pretrain_run_stage_logs_the_losses_of_jax(tmp_path, dirs):
