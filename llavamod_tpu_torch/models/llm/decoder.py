@@ -28,7 +28,11 @@ choice (llavamod_tpu_torch/train/optim.py `apply_trainable_mask`), and
 serving runs under `torch.inference_mode()`.
 
 The KV cache is updated IN PLACE (the JAX cache is a new value each step);
-`forward` returns the same tensors with the advanced `length`.
+`forward` returns the same tensors with the advanced `length`.  A cache
+that carries `slot` (a device tensor) takes a single-token step's K/V,
+scales and segment entry at that slot (`index_copy_`), not at `length`, so
+that one captured CUDA graph of the step serves every position
+(generation.py); `length` then only bounds the write on the host.
 
 Tensor parallelism (parallel/sharding.py holds each rank's slices): under
 a parallel context whose tensor group has more than one rank, each rank
@@ -212,6 +216,10 @@ class KVCache(NamedTuple):
     # the global index of the layer in slot 0: a pipeline stage's first
     # layer (its cache holds its own L layers), else 0
     first_layer: int = 0
+    # a single-token step's write position as a device tensor [1] (int64),
+    # read on the device rather than from `length` (a replayed CUDA graph);
+    # None: `length`
+    slot: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
@@ -242,6 +250,21 @@ def init_cache(cfg: DecoderConfig, batch: int, max_len: int,
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device), seg, 0,
                    first_layer=layers.start)
+
+
+def _write_at(cache: KVCache, t: int):
+    """Where a call of `t` tokens writes: `cache.slot` for one token when
+    the cache carries it, else the int `cache.length`."""
+    return cache.slot if t == 1 and cache.slot is not None else cache.length
+
+
+def _write(dst: torch.Tensor, dim: int, at, src: torch.Tensor) -> None:
+    """dst[at:at + t] = src along `dim`: a slice for an int `at`, an
+    `index_copy_` for a device tensor."""
+    if isinstance(at, torch.Tensor):
+        dst.index_copy_(dim, at, src.to(dst.dtype))
+    else:
+        dst.narrow(dim, at, src.shape[dim]).copy_(src)
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -1095,7 +1118,7 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
     chunk_attn = cache is None or (fresh and t > 1)
     out = None
     if cache is not None:
-        start = cache.length
+        start = _write_at(cache, t)
         k_bh = k.transpose(1, 2)  # [B, KH, t, D]
         v_bh = v.transpose(1, 2)
         slot = layer_idx - cache.first_layer
@@ -1104,15 +1127,13 @@ def attention_forward(cfg: DecoderConfig, p: ParamGroup, x: torch.Tensor,
         if cache.quantized:
             kq, ks = _quantize_kv(k_bh)
             vq, vs = _quantize_kv(v_bh)
-            ck[:, :, start:start + t] = kq
-            cv[:, :, start:start + t] = vq
             cks, cvs = cache.k_scale[slot], cache.v_scale[slot]
-            cks[:, :, start:start + t] = ks
-            cvs[:, :, start:start + t] = vs
+            for dst, src in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
+                _write(dst, 2, start, src)
             scales = (cks, cvs)
         else:
-            ck[:, :, start:start + t] = k_bh.to(ck.dtype)
-            cv[:, :, start:start + t] = v_bh.to(cv.dtype)
+            _write(ck, 2, start, k_bh)
+            _write(cv, 2, start, v_bh)
         cseg = cache.segment
         s_max = ck.shape[2]
 
@@ -1299,7 +1320,7 @@ def forward(
                              f"take {t} more after {start}")
         seg_new = (segment_ids.to(torch.int32) if segment_ids is not None
                    else torch.ones((b, t), dtype=torch.int32, device=dev))
-        cache.segment[:, start:start + t] = seg_new
+        _write(cache.segment, 1, _write_at(cache, t), seg_new)
 
     if cache is not None and cfg.seq_shard_activations:
         # a cached call keeps the whole sequence on every tensor rank

@@ -216,8 +216,11 @@ def _scatter_sources(flat: torch.Tensor, token_ids: torch.Tensor, rows: int):
     the kept choices; dropped choices point at a spill row that is cut."""
     src = torch.zeros((rows + 1,), dtype=torch.long, device=flat.device)
     src[flat] = token_ids
-    filled = torch.zeros((rows + 1,), dtype=torch.bool, device=flat.device)
-    filled[flat] = True
+    # index_fill_ takes the value as a scalar argument; an indexed
+    # assignment of True copies a host tensor to the card, which a CUDA
+    # graph capture refuses
+    filled = torch.zeros((rows + 1,), dtype=torch.bool,
+                         device=flat.device).index_fill_(0, flat, True)
     return src[:-1], filled[:-1]
 
 

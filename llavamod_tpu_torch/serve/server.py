@@ -21,6 +21,15 @@ the template's stop string or the tokenizer's EOS (the runner's
 `stopping`, as in the JAX package's eval runner).  `--quant int8` serves
 the int8 W8A8 form of the model (models/builder.py `quantize_for_serving`).
 
+Greedy batches on a CUDA device decode by CUDA graph replay
+(generation.py): the model keeps one KV cache and captured decode step,
+for the last batch's (bucket, prompt length + decode length, stop
+strings); a batch of another shape frees them, runs one step eagerly and
+captures the next, and every later step of that shape is one replay, so
+the replays pay off while batches repeat a shape (one bucket and one
+answer budget); `shutdown` frees them.  A batch with temperature > 0 runs
+the eager step, as does a server on the CPU.
+
 Spans (runtime/trace.py): `serve.queue` for each request, from its put
 into the queue until its batch starts, and `serve.fanout` for each batch,
 from `generate`'s return through the replies.
@@ -157,8 +166,15 @@ class BatchingEngine:
         return req
 
     def shutdown(self):
+        """Stop the batcher and free the decode graphs and KV caches that
+        the model keeps for serving."""
+        from llavamod_tpu_torch.generation import release_decode_graphs
+
         self._stop.set()
         self._thread.join(timeout=5)
+        model = getattr(self.runner, "model", None)
+        if model is not None:
+            release_decode_graphs(model)
 
     # -- batcher side -----------------------------------------------------
     def _drain(self) -> List[_Request]:

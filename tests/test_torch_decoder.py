@@ -106,3 +106,58 @@ def test_bf16_logits_keep_the_f32_accumulator():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-3)
     assert np.abs(rounded - want).max() > 1e-2   # the old rounding fails
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("variant", ["dense", "moe", "sliding", "alibi"])
+def test_slot_tensor_write_equals_the_int_slice_write(variant, dtype):
+    """A single-token step that takes its write slot from a device tensor
+    (`KVCache.slot`, index_copy_; what a replayed CUDA graph runs) gives
+    the hidden states and the whole cache (K/V, int8 scales, segment row)
+    of the int slice write at `length`, bit for bit, on the K2 path and on
+    the masked sliding-window and ALiBi paths."""
+    kw = {"dense": {}, "moe": dict(moe_num_experts=4, moe_layers=(1,)),
+          "sliding": dict(sliding_window=6),
+          "alibi": dict(alibi=True, use_rope=False)}[variant]
+    cfg = tiny_config(**kw)
+    torch_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "int8": "int8"}[dtype]
+    model = tdecoder.init(cfg, torch.Generator().manual_seed(3))
+    if variant == "moe":
+        with torch.no_grad():
+            model.layers[1].mlp.router.normal_(
+                generator=torch.Generator().manual_seed(4))
+    b, t, steps = 3, 10, 4
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.randint(1, cfg.vocab_size, (b, t + steps), generator=gen)
+    seg = torch.ones((b, t), dtype=torch.int32)
+    seg[1, :4] = 0
+    pos = torch.clamp_min(torch.cumsum(seg, 1) - 1, 0)
+    one = torch.ones((b, 1), dtype=torch.int32)
+    caches = []
+    with torch.inference_mode():
+        for _ in range(2):
+            c = tdecoder.init_cache(cfg, b, t + steps, dtype=torch_dtype)
+            caches.append(tdecoder.forward(
+                model, cfg, input_ids=ids[:, :t], positions=pos,
+                segment_ids=seg, cache=c, attn_impl="fresh").cache)
+        by_int, by_slot = caches
+        slot = torch.tensor([t], dtype=torch.int64)
+        for i in range(steps):
+            p = (seg.sum(1) + i)[:, None]
+            step = ids[:, t + i:t + i + 1]
+            want = tdecoder.forward(model, cfg, input_ids=step, positions=p,
+                                    segment_ids=one, cache=by_int)
+            got = tdecoder.forward(model, cfg, input_ids=step, positions=p,
+                                   segment_ids=one,
+                                   cache=by_slot._replace(slot=slot))
+            assert torch.equal(got.hidden, want.hidden)
+            assert got.cache.length == want.cache.length == t + i + 1
+            by_int, by_slot = want.cache, got.cache._replace(slot=None)
+            slot += 1
+    for name in ("k", "v", "segment", "k_scale", "v_scale"):
+        a, w = getattr(by_slot, name), getattr(by_int, name)
+        assert (a is None) == (w is None) == (name.endswith("scale")
+                                              and dtype != "int8")
+        if a is not None:
+            assert torch.equal(a, w), name

@@ -339,3 +339,30 @@ def test_build_engine_serves_int8(tmp_path):
         engine.shutdown()
     with pytest.raises(ValueError):
         build_engine(d, device="cpu", quant="int4")
+
+
+def test_shutdown_frees_the_decode_graphs(monkeypatch):
+    """The engine's greedy batches decode on a graph entry that the model
+    keeps (its step run eagerly here, where the card replays it); shutting
+    the engine down frees the entries, though the model lives on."""
+    from llavamod_tpu_torch import generation
+
+    monkeypatch.setattr(generation, "decode_graph_path",
+                        lambda *a: ("graph", None))
+    monkeypatch.setattr(generation._GraphEntry, "run",
+                        lambda self, model, gcfg, state, sp:
+                        generation._step(model, gcfg, state, None))
+    cfg = _cfg()
+    model = llava.init(cfg, torch.Generator().manual_seed(0))
+    runner = VQARunner(model=model, tokenizer=CharTok(),
+                       image_preprocessor=make_image_preprocessor(cfg),
+                       template_name="qwen", max_prompt_len=64)
+    engine = BatchingEngine(runner, max_batch=2, batch_window=0.01,
+                            default_max_new=4)
+    try:
+        text = engine.submit("what is this?", None, 4, timeout=120)["text"]
+        assert generation.decode_graph_stats()["entries"] == 1
+    finally:
+        engine.shutdown()
+    assert model not in generation._ENTRIES
+    assert isinstance(text, str)
