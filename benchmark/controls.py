@@ -15,6 +15,10 @@ planted faults' on some of them, all in one process.
   (half of each sequence out of the loss, half of the microbatches out of
   the accumulated mean, the update's sign flipped), read by the same
   numbers;
+* a distillation cell on several cards (driver `distill_dist`): on one
+  card, on each seed, the reference over the world's first update in the
+  workers' row order, then the control and the planted faults, read by
+  the same numbers; the program's own numbers are its runs' `checks`;
 * a serving cell: on each seed, a run of the cell (the program serves its
   traffic for `--seconds`), then the reference's gaps of the served tokens
   (the lower readings) and, on a control seed, at the same positions,
@@ -92,6 +96,10 @@ def main(argv=None) -> int:
         if cell["driver"] == "distill":
             out = distill_controls(args.workload, cell, seed, args.device,
                                    VARIANTS if seed in ctl else ())
+        elif cell["driver"] == "distill_dist":
+            from benchmark.drivers import distill_dist
+
+            out = distill_dist.controls(cell, seed, args.device, VARIANTS)
         else:
             out = serve_controls(args.workload, cell, seed, args.seconds,
                                  args.device, seed in ctl)

@@ -68,6 +68,41 @@ def traffic(name: str) -> Dict[str, Any]:
     return load_json(BENCH_DIR / "traffic" / f"{name}.json")
 
 
+def architecture(cfg: Dict[str, Any], side: str):
+    """The module of the configuration's decoder architecture (its
+    `architecture` key) on one side: "harness" loads
+    benchmark/harness/arch/<name>.py (the parameter layout, the program's
+    decoder arguments, the operation and byte counts), "reference"
+    benchmark/reference/arch/<name>.py (the plain float32 decoder).  Both
+    files have to be there; a name without them fails at once, naming
+    them."""
+    import importlib.util
+
+    name = cfg.get("architecture")
+    paths = {s: BENCH_DIR / s / "arch" / f"{name}.py"
+             for s in ("harness", "reference")}
+    if not name or not all(p.exists() for p in paths.values()):
+        raise FileNotFoundError(
+            f"configuration {cfg.get('name')!r} names the architecture "
+            f"{name!r}; a configuration's architecture needs two files: "
+            f"benchmark/harness/arch/{name}.py (its parameter layout, the "
+            f"program's decoder arguments, its operation and byte counts) "
+            f"and benchmark/reference/arch/{name}.py (its plain float32 "
+            f"decoder)")
+    path = paths[side]
+    mod = _ARCHS.get(path)
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            f"bench_arch_{side}_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _ARCHS[path] = mod
+    return mod
+
+
+_ARCHS: Dict[Path, Any] = {}
+
+
 def cell_metrics(name: str, trace: bool) -> List[Dict[str, Any]]:
     """The metrics of `BENCHMARK.json` that this cell reports: its
     end-to-end metrics in an untraced run, its per-layer ones traced."""

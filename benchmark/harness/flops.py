@@ -2,7 +2,11 @@
 configuration's widths and the inputs' real token counts, and the H100's
 published peaks they are held against.
 
-Counts are of multiply-adds x 2 over real tokens (no padding, no
+What depends on the decoder's layout (its linear products, attention
+core, decode step and attention kernels' work) comes from the
+configuration's architecture (benchmark/harness/arch/<architecture>.py);
+the tower, the projector and the head are counted here.  Counts are of
+multiply-adds x 2 over real tokens (no padding, no
 recomputation), split by the precision the configuration computes them in:
 bfloat16 products against the dense bf16 peak, int8 (W8A8) products
 against the dense int8 peak.  Causal attention over n tokens counts the
@@ -13,7 +17,7 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from benchmark.harness.weights import head_dim, moe_layers
+from benchmark.harness import common
 
 # NVIDIA H100 SXM data sheet, dense (no sparsity), at the 700 W limit
 PEAK_BF16 = 989e12
@@ -50,27 +54,19 @@ def projector_flops(cfg: dict) -> float:
     return 2 * g * g * (v["hidden_size"] * d + d * d)
 
 
+def _arch(cfg: dict):
+    return common.architecture(cfg, "harness")
+
+
 def linear_macs_per_token(cfg: dict) -> Tuple[float, float]:
     """(attention projections, FFN incl. routers and the active experts)
     multiply-adds of one token through all decoder layers."""
-    d, f = cfg["hidden_size"], cfg["intermediate_size"]
-    h, kh, dh = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                 head_dim(cfg))
-    layers = cfg["num_hidden_layers"]
-    attn = layers * (2 * d * h * dh + 2 * d * kh * dh)
-    moe = moe_layers(cfg)
-    ffn = (layers - len(moe)) * 3 * d * f
-    if moe:
-        m = cfg["moe"]
-        ffn += len(moe) * (m["num_experts_per_tok"] * 3 * d * f
-                           + d * m["num_experts"])
-    return attn, ffn
+    return _arch(cfg).linear_macs_per_token(cfg)
 
 
 def attention_core(cfg: dict, n: int) -> float:
     """QK^T and PV of causal attention over n tokens, all layers."""
-    h, dh = cfg["num_attention_heads"], head_dim(cfg)
-    return cfg["num_hidden_layers"] * 4 * h * dh * n * (n + 1) / 2
+    return _arch(cfg).attention_core(cfg, n)
 
 
 def head_flops(cfg: dict, rows: int) -> float:
@@ -108,26 +104,19 @@ def serve_request(cfg: dict, prompt: int, new_tokens: int) -> Dict[str, float]:
     a, f = linear_macs_per_token(cfg)
     flops = vision_flops(cfg) + 2 * prompt * (a + f) + attention_core(cfg, prompt) \
         + head_flops(cfg, 1)
-    h, dh = cfg["num_attention_heads"], head_dim(cfg)
+    arch = _arch(cfg)
     for s in range(1, new_tokens):
         ctx = prompt + s
         flops += 2 * (a + f) + head_flops(cfg, 1) \
-            + cfg["num_hidden_layers"] * 4 * h * dh * ctx
+            + arch.decode_attention(cfg, ctx)
     return {"bf16": flops}
 
 
 def attention_work(cfg: dict, n: int, kind: str) -> Tuple[float, float]:
     """(flops, bytes) of one layer's attention over one sequence of n real
-    tokens: 'fwd' (reads q, k, v; writes o), 'bwd' (reads q, k, v, o, do;
-    writes dq, dk, dv) or 'decode' (one query over n cached positions),
-    bf16 tensors."""
-    h, kh, dh = cfg["num_attention_heads"], cfg["num_key_value_heads"], head_dim(cfg)
-    if kind == "decode":
-        return 4 * h * dh * n, 2 * (2 * n * kh * dh + 2 * h * dh)
-    pairs = n * (n + 1) / 2
-    if kind == "fwd":
-        return 4 * h * dh * pairs, 2 * n * dh * (2 * h + 2 * kh)
-    return 8 * h * dh * pairs, 2 * n * dh * (4 * h + 4 * kh)
+    tokens: 'fwd', 'bwd' or 'decode' (one query over n cached
+    positions)."""
+    return _arch(cfg).attention_work(cfg, n, kind)
 
 
 def roofline_seconds(flops: float, nbytes: float) -> float:

@@ -7,37 +7,21 @@ from __future__ import annotations
 
 import torch
 
+from benchmark.harness import common
 from benchmark.harness import weights as wmod
 
 
 def llava_config(cfg: dict):
+    """The program's LlavaConfig: the tower and projector from the
+    configuration's keys, the decoder from its architecture
+    (benchmark/harness/arch/<architecture>.py `decoder_config`)."""
     from llavamod_tpu_torch.models.llava import LlavaConfig
     from llavamod_tpu_torch.models.llm.config import DecoderConfig
     from llavamod_tpu_torch.models.vision.vit import VisionConfig
 
     v = cfg["vision_config"]
-    moe = cfg.get("moe") or {}
-    layers = wmod.moe_layers(cfg)
-    llm = DecoderConfig(
-        name=cfg["name"], vocab_size=cfg["vocab_size"],
-        hidden_size=cfg["hidden_size"],
-        intermediate_size=cfg["intermediate_size"],
-        num_layers=cfg["num_hidden_layers"],
-        num_heads=cfg["num_attention_heads"],
-        num_kv_heads=cfg["num_key_value_heads"],
-        head_dim=wmod.head_dim(cfg),
-        max_position_embeddings=cfg["max_position_embeddings"],
-        rope_theta=cfg["rope_theta"], rms_norm_eps=cfg["rms_norm_eps"],
-        qkv_bias=cfg["qkv_bias"],
-        tie_word_embeddings=cfg["tie_word_embeddings"],
-        moe_num_experts=moe.get("num_experts", 0) if layers else 0,
-        moe_top_k=moe.get("num_experts_per_tok", 2),
-        moe_capacity_factor=moe.get("capacity_factor", 1.5),
-        moe_eval_capacity_factor=moe.get("eval_capacity_factor", 2.0),
-        moe_min_capacity=moe.get("min_capacity", 4),
-        moe_layers=layers,
-        moe_use_residual=moe.get("use_residual", False),
-        router_aux_loss_coef=moe.get("router_aux_loss_coef", 0.01))
+    llm = DecoderConfig(**common.architecture(cfg, "harness")
+                        .decoder_config(cfg))
     vision = VisionConfig(
         name=v["name"], image_size=v["image_size"], patch_size=v["patch_size"],
         hidden_size=v["hidden_size"], intermediate_size=v["intermediate_size"],

@@ -4,7 +4,8 @@ device activity ran (the union of the activities' intervals), the traced
 window's length, the device seconds by activity name, the longest idle
 gaps named by the benchmark's own span (`record_function("bench.*")`)
 that was open on the host when the gap began, and the device seconds of
-the kernels whose names match given patterns.
+the kernels whose names match given patterns (summed, or as the union of
+their intervals).
 
 Only device activity is recorded (CUPTI), not the host's operators,
 whose recording would slow the host-bound steps it measures.  The
@@ -65,13 +66,33 @@ class Trace:
 
 class Summary:
     def __init__(self, window_s: float, busy_s: float,
-                 by_name: Dict[str, float], gaps: List[Tuple[str, float]]):
+                 by_name: Dict[str, float], gaps: List[Tuple[str, float]],
+                 intervals: Tuple[Tuple[int, int, str], ...] = ()):
         self.window_s, self.busy_s = window_s, busy_s
         self.by_name, self.gaps = by_name, gaps
+        self.intervals = intervals
 
     def seconds_of(self, patterns) -> float:
         return sum(s for n, s in self.by_name.items()
                    if any(p in n for p in patterns))
+
+    def union_seconds(self, patterns) -> float:
+        """The seconds in which some device activity whose name holds one
+        of `patterns` ran: the union of their intervals, so activities
+        that overlap (on other streams) count once."""
+        spans = sorted((s, e) for s, e, n in self.intervals
+                       if any(p in n for p in patterns))
+        total, cur_s, cur_e = 0, None, 0
+        for s, e in spans:
+            if cur_s is None or s > cur_e:
+                if cur_s is not None:
+                    total += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        if cur_s is not None:
+            total += cur_e - cur_s
+        return total / 1e9
 
     def breakdown(self) -> Dict[str, list]:
         top = sorted(self.by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -83,11 +104,13 @@ def summarize(prof, window_s: float, spans) -> Summary:
     from torch.autograd import DeviceType
 
     dev: List[Tuple[int, int]] = []
+    intervals: List[Tuple[int, int, str]] = []
     by_name: Dict[str, float] = {}
     for e in prof.profiler.kineto_results.events():
         start, dur = e.start_ns(), e.duration_ns()
         if e.device_type() == DeviceType.CUDA:
             dev.append((start, start + dur))
+            intervals.append((start, start + dur, e.name()))
             by_name[e.name()] = by_name.get(e.name(), 0.0) + dur / 1e9
     dev.sort()
     busy, gaps = 0, []
@@ -111,4 +134,4 @@ def summarize(prof, window_s: float, spans) -> Summary:
         name = (min(open_spans, key=lambda sp: sp[1] - sp[0])[2]
                 if open_spans else "bench.none")
         named.append((name, (g1 - g0) / 1e9))
-    return Summary(window_s, busy / 1e9, by_name, named)
+    return Summary(window_s, busy / 1e9, by_name, named, tuple(intervals))

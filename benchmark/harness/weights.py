@@ -4,7 +4,9 @@ The names and shapes are the program's checkpoint layout (its state-dict
 keys, the JAX parameter paths: 'llm.layers.3.attn.wq' [D, H*dh] used as
 x @ w, stacked experts [E, D, F], a [V, D] head), written out here from the
 configuration file, so the reference reads the same tensors under the same
-names without importing the program.
+names without importing the program: the tower and the projector here,
+the decoder by the configuration's architecture
+(benchmark/harness/arch/<architecture>.py `groups`).
 
 Each group of parameters (the tower's stem, each tower layer, the
 projector, the embedding, each decoder layer, the final norm, the head) is
@@ -23,6 +25,8 @@ import zlib
 from typing import Dict, Iterator, List, Tuple
 
 import torch
+
+from benchmark.harness import common
 
 Entry = Tuple[str, Tuple[int, ...], str]   # (name, shape, kind)
 
@@ -65,7 +69,8 @@ def _dense(prefix: str, din: int, dout: int) -> List[Entry]:
 
 
 def groups(cfg: dict, vision: bool = True) -> Dict[str, List[Entry]]:
-    """{group: [(name, shape, kind)]} of the whole model, in order."""
+    """{group: [(name, shape, kind)]} of the whole model, in order: the
+    tower (`vision`), the projector, then the decoder's groups."""
     out: Dict[str, List[Entry]] = {}
     v = cfg["vision_config"]
     dv, iv = v["hidden_size"], v["intermediate_size"]
@@ -93,37 +98,7 @@ def groups(cfg: dict, vision: bool = True) -> Dict[str, List[Entry]]:
         raise ValueError("only the mlp2x_gelu projector is laid out here")
     out["projector"] = (_dense("projector.layers.0", dv, d)
                         + _dense("projector.layers.1", d, d))
-    vocab, f = cfg["vocab_size"], cfg["intermediate_size"]
-    h, kh, dh = (cfg["num_attention_heads"], cfg["num_key_value_heads"],
-                 head_dim(cfg))
-    out["llm.embed"] = [("llm.embed.embedding", (vocab, d), "normal")]
-    experts = set(moe_layers(cfg))
-    e = cfg.get("moe", {}).get("num_experts", 0)
-    for i in range(cfg["num_hidden_layers"]):
-        pre = f"llm.layers.{i}"
-        ent = [(pre + ".input_norm.weight", (d,), "ones"),
-               (pre + ".attn.wq", (d, h * dh), "dense"),
-               (pre + ".attn.wk", (d, kh * dh), "dense"),
-               (pre + ".attn.wv", (d, kh * dh), "dense"),
-               (pre + ".attn.wo", (h * dh, d), "dense")]
-        if cfg.get("qkv_bias", False):
-            ent += [(pre + ".attn.bq", (h * dh,), "bias"),
-                    (pre + ".attn.bk", (kh * dh,), "bias"),
-                    (pre + ".attn.bv", (kh * dh,), "bias")]
-        ent.append((pre + ".post_attn_input_norm.weight", (d,), "ones"))
-        if i in experts:
-            ent += [(pre + ".mlp.router", (d, e), "dense"),
-                    (pre + ".mlp.experts.gate", (e, d, f), "dense"),
-                    (pre + ".mlp.experts.up", (e, d, f), "dense"),
-                    (pre + ".mlp.experts.down", (e, f, d), "dense")]
-        else:
-            ent += [(pre + ".mlp.gate", (d, f), "dense"),
-                    (pre + ".mlp.up", (d, f), "dense"),
-                    (pre + ".mlp.down", (f, d), "dense")]
-        out[pre] = ent
-    out["llm.final_norm"] = [("llm.final_norm.weight", (d,), "ones")]
-    if not cfg.get("tie_word_embeddings", False):
-        out["llm.lm_head"] = [("llm.lm_head.weight", (vocab, d), "normal")]
+    out.update(common.architecture(cfg, "harness").groups(cfg))
     return out
 
 

@@ -30,9 +30,6 @@ from benchmark.reference import image as rimage
 from benchmark.reference import model as rm
 from benchmark.reference import text as rtext
 
-_INT8_LEAVES = ("wq", "wk", "wv", "wo", "gate", "up", "down")
-
-
 def trainable(name: str) -> bool:
     """The stage-2b train set: the projector, and the decoder's FFN
     matrices, experts and routers (--train_modules mlp.gate_proj
@@ -73,15 +70,17 @@ def leaf_summary(prog: Dict[str, float], ref: Dict[str, float]) -> str:
 
 def _teacher(cfg_t: dict, seed: int, device) -> Tuple[dict, dict]:
     """The teacher's float weights (tower-less) and its W8A8 form: the
-    attention and FFN matrices per output channel, the head per vocabulary
-    row; each group's float matrices are dropped once quantized."""
+    decoder layers' matrices that its architecture names (`INT8_LEAVES`)
+    per output channel, the head per vocabulary row; each group's float
+    matrices are dropped once quantized."""
     W: Dict[str, torch.Tensor] = {}
     quant = {}
+    int8_leaves = rm.arch(cfg_t).INT8_LEAVES
     for g, part in wmod.iter_groups(cfg_t, seed, "teacher", device,
                                     torch.bfloat16, vision=False):
         for k, t in part.items():
             leaf = k.rsplit(".", 1)[-1]
-            if g.startswith("llm.layers.") and leaf in _INT8_LEAVES:
+            if g.startswith("llm.layers.") and leaf in int8_leaves:
                 quant[k] = rm.quantize_weight(t, 0)
             elif k == "llm.lm_head.weight":
                 quant[k] = rm.quantize_weight(t, 1)
@@ -106,38 +105,59 @@ def sample_tensors(rec: dict, img: np.ndarray, tok, max_len: int, cfg: dict,
             start, px)
 
 
-def _forward_loss(Ws, Wt, cfg_s, cfg_t, lin_s, lin_t, rec, img, tok,
+def _forward_loss(Ws, Wt, cfg_s, cfg_t, lin_s, lin_t, batch, tok,
                   max_len, cap_tokens, aux_coef, P, device, fault=None):
-    """One microbatch's loss (the student's graph kept for a backward):
-    (loss, kd, ce, aux)."""
-    ids, labels, start, px = sample_tensors(rec, img, tok, max_len, cfg_s,
-                                            device)
-    tower, rows_s = rm.encode_image(Ws, cfg_s, px, P)
+    """One step's loss over the rows of `batch` [(record, image)] (one row,
+    or the world's rows in the program's order), the student's graph kept
+    for a backward: (loss, kd, ce, aux).  The rows are one batch: the
+    token means run over all of their tokens and the sparse layers gate
+    them together.  (Each tensor lives as long as it did when the
+    reference took one row, so that one row computes as it did.)"""
+    rows = []
+    for rec, img in batch:
+        ids, labels, start, px = sample_tensors(rec, img, tok, max_len, cfg_s,
+                                                device)
+        tower, rows_s = rm.encode_image(Ws, cfg_s, px, P)
+        with torch.no_grad():
+            _, rows_t = rm.encode_image(Wt, cfg_t, px, P, tower=tower)
+        rows.append((ids, labels, start, rows_s, rows_t))
+    segs = [r[0].shape[0] for r in rows]
     with torch.no_grad():
-        _, rows_t = rm.encode_image(Wt, cfg_t, px, P, tower=tower)
-        h_t, _ = rm.decoder(rm.embed(ids, Wt, rows_t, start), Wt, cfg_t,
-                            lin_t, cap_tokens, train=False)
+        h_t, _ = rm.decoder(_joined([rm.embed(i, Wt, rt, st)
+                                     for i, _, st, _, rt in rows]),
+                            Wt, cfg_t, lin_t, cap_tokens, train=False,
+                            segments=segs)
         lt = rm.head(h_t, Wt, lin_t)
         del h_t
-    h_s, aux = rm.decoder(rm.embed(ids, Ws, rows_s, start), Ws, cfg_s,
-                          lin_s, cap_tokens, train=True,
-                          remat=torch.is_grad_enabled())
+    h_s, aux = rm.decoder(_joined([rm.embed(i, Ws, rs, st)
+                                   for i, _, st, rs, _ in rows]),
+                          Ws, cfg_s, lin_s, cap_tokens, train=True,
+                          remat=torch.is_grad_enabled(), segments=segs)
+    labels = [r[1] for r in rows]
     if fault == "half_batch":
-        labels = labels.clone()
-        labels[labels.shape[0] // 2:] = -100
-    kd, ce = rm.kd_ce(rm.head(h_s, Ws, lin_s), lt, labels)
+        labels = [lab.clone() for lab in labels]
+        for lab in labels:
+            lab[lab.shape[0] // 2:] = -100
+    kd, ce = rm.kd_ce(rm.head(h_s, Ws, lin_s), lt, _joined(labels), segs)
     return kd + ce + aux_coef * aux, kd, ce, aux
+
+
+def _joined(parts):
+    """The rows one after another (one row as it is)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def train_readings(cfg_s: dict, cfg_t: dict, seed: int, samples: Sequence,
                    tok, *, max_len: int, cap_tokens: int, lr: float,
                    b1: float, b2: float, eps: float, clip: float,
-                   aux_coef: float, device, after: Optional[Tuple] = None,
+                   aux_coef: float, device, after=None,
                    low: bool = False, fault: Optional[str] = None,
-                   log=print) -> Dict[str, object]:
+                   rows: int = 1, log=print) -> Dict[str, object]:
     """samples: [(record, image uint8)] of the microbatches of the first
-    update, in order; `after`: the microbatch after it, whose loss is read
-    with the updated weights.  `low` computes in the control's precision.
+    update, in order, `rows` to a step (a world batch of one row from each
+    rank, in the program's row order); `after`: the microbatch after it
+    (with `rows` > 1, its rows), whose loss is read with the updated
+    weights.  `low` computes in the control's precision.
     `fault` plants a fault: "half_batch" leaves the second half of each
     sequence's tokens out of the loss and takes the mean over the rest;
     "half_accum" leaves the first half of the microbatches out of the
@@ -155,13 +175,14 @@ def train_readings(cfg_s: dict, cfg_t: dict, seed: int, samples: Sequence,
     lin_t = rm.Linear(Wt, P, quant_t)
     total = {n: torch.zeros_like(Ws[n]) for n in names}
     losses, first = [], {}
-    k = len(samples)
+    steps = [samples[i:i + rows] for i in range(0, len(samples), rows)]
+    k = len(steps)
     skip = k // 2 if fault == "half_accum" else 0
     fwd = dict(max_len=max_len, cap_tokens=cap_tokens, aux_coef=aux_coef,
                P=P, device=device)
-    for i, (rec, img) in enumerate(samples):
+    for i, batch in enumerate(steps):
         loss, kd, ce, aux = _forward_loss(Ws, Wt, cfg_s, cfg_t, lin_s, lin_t,
-                                          rec, img, tok, fault=fault, **fwd)
+                                          batch, tok, fault=fault, **fwd)
         grads = torch.autograd.grad(loss, [Ws[n] for n in names],
                                     allow_unused=True)
         for n, g in zip(names, grads):
@@ -196,7 +217,8 @@ def train_readings(cfg_s: dict, cfg_t: dict, seed: int, samples: Sequence,
                    mean_grad_norm=float(norm))
         if after is not None:
             loss, *_ = _forward_loss(Ws, Wt, cfg_s, cfg_t, lin_s, lin_t,
-                                     *after, tok, fault=fault, **fwd)
+                                     [after] if rows == 1 else list(after),
+                                     tok, fault=fault, **fwd)
             out["loss_after"] = float(loss)
             log(f"[reference] the microbatch after the update: loss "
                 f"{out['loss_after']:.6f}")

@@ -1,13 +1,15 @@
-"""A plain PyTorch LLaVA: CLIP ViT-L/14 tower, mlp2x_gelu projector and a
-Qwen1.5 decoder (RMSNorm, rotary embeddings in the rotate-half layout, q/k/v
-biases, SwiGLU) with LLaVA-MoD's sparse layers (top-k routing with
-DeepSpeed's capacity rules and load-balancing loss), its W8A8 int8 form
-(per-output-channel weight scales, dynamic per-row activation scales), and
-the mimic-distillation objective (KD over the vocabulary at the same
-position plus next-token CE, plus the router loss).
+"""A plain PyTorch LLaVA: CLIP ViT-L/14 tower, mlp2x_gelu projector, the
+decoder of the configuration's architecture
+(benchmark/reference/arch/<architecture>.py; `llava_qwen`: Qwen1.5 with
+LLaVA-MoD's sparse layers), its W8A8 int8 form (per-output-channel weight
+scales, dynamic per-row activation scales), and the mimic-distillation
+objective (KD over the vocabulary at the same position plus next-token CE,
+plus the router loss).
 
 It reads the weights by their checkpoint names from a dict, one sequence
-at a time, with no padding, no cache, no batching and no kernels.  Every
+at a time (or the sequences of one world batch one after another, which
+only the sparse layers' gating couples), with no padding, no cache and
+no kernels.  Every
 product goes through a `Numerics`: exact (float32, TF32 off; an int8
 product as the float32 product of its integer operands) or, for the
 control, one precision below the configuration's (float8 e4m3 for the
@@ -17,11 +19,10 @@ their gradient straight through, as the program's int8 products do.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.nn import functional as F
-from torch.utils.checkpoint import checkpoint
 
 Weights = Dict[str, torch.Tensor]
 
@@ -143,17 +144,6 @@ def rms_norm(x, w, eps):
     return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * w.float()
 
 
-def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """x [H, T, Dh], positions 0..T-1, HF rotate-half layout."""
-    t, dh = x.shape[1], x.shape[2]
-    inv = 1.0 / theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                       device=x.device) / dh)
-    f = torch.arange(t, dtype=torch.float32, device=x.device)[:, None] * inv
-    emb = torch.cat([f, f], -1)
-    rot = torch.cat([-x[..., dh // 2:], x[..., :dh // 2]], -1)
-    return x * emb.cos() + rot * emb.sin()
-
-
 class Linear:
     """A decoder product by weight name: float, or int8 (teacher) when the
     name is in `quant` ({name: (int8 [K, N], scales [N])})."""
@@ -168,122 +158,25 @@ class Linear:
         return self.P.mm(x, self.W[name])
 
 
-def moe_gating(logits: torch.Tensor, k: int, capacity: int
-               ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]:
-    """DeepSpeed top-k gating of [S, E] router logits: ([(expert [S],
-    combine weight [S])] per choice, aux loss).  argmax takes the first of
-    tied values; choice c's tokens queue behind every earlier choice's in
-    each expert; a token past the capacity is dropped; the kept gates are
-    renormalised; aux = mean_e(mean gate * top-1 share) * E^2."""
-    s, e = logits.shape
-    gates = torch.softmax(logits.float(), -1)
-    remaining = gates.detach().clone()
-    choices, masks = [], []
-    for _ in range(k):
-        idx = torch.argmax(remaining, -1)
-        m = F.one_hot(idx, e).float()
-        choices.append(idx)
-        masks.append(m)
-        remaining = remaining.masked_fill(m > 0, float("-inf"))
-    me = gates.mean(0)
-    ce = masks[0].mean(0)
-    aux = (me * ce).mean() * e * e
-    prior = torch.zeros(e, device=logits.device)
-    kept_gate = []
-    for c in range(k):
-        loc = torch.cumsum(masks[c], 0) - masks[c] + prior
-        kept = ((loc < capacity).float() * masks[c]).sum(-1)
-        kept_gate.append((gates * masks[c]).sum(-1) * kept)
-        prior = prior + masks[c].sum(0)
-    denom = sum(kept_gate).clamp_min(torch.finfo(torch.float32).eps) \
-        if k > 1 else torch.ones_like(kept_gate[0])
-    return [(choices[c], kept_gate[c] / denom) for c in range(k)], aux
+def arch(cfg: dict):
+    """The reference's module of the configuration's decoder architecture
+    (benchmark/reference/arch/<architecture>.py)."""
+    from benchmark.harness import common
 
-
-def capacity(tokens: int, factor: float, k: int, e: int, min_cap: int) -> int:
-    return max(int(-(-tokens * factor * k // e)), min_cap)
-
-
-def _swiglu(x, lin: Linear, pre: str):
-    return lin(F.silu(lin(x, pre + ".gate")) * lin(x, pre + ".up"), pre + ".down")
-
-
-def moe_block(x: torch.Tensor, W: Weights, cfg: dict, pre: str, P: Numerics,
-              cap_tokens: int, train: bool, margins: Optional[list] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`margins`, when given, gets each token's router margin [T]: its k-th
-    largest router logit less its (k+1)-th, how near its expert choice is
-    to a tie."""
-    moe = cfg["moe"]
-    e, k = moe["num_experts"], moe["num_experts_per_tok"]
-    factor = moe["capacity_factor"] if train else moe["eval_capacity_factor"]
-    cap = capacity(cap_tokens, factor, k, e, moe["min_capacity"])
-    logits = x.float() @ W[pre + ".router"].float()
-    if margins is not None and k < e:
-        top = logits.detach().topk(k + 1, -1).values
-        margins.append(top[:, k - 1] - top[:, k])
-    routes, aux = moe_gating(logits, k, cap)
-    out = torch.zeros_like(x)
-    for j in range(e):
-        for idx, wgt in routes:
-            rows = (idx == j).nonzero()[:, 0]
-            if rows.numel() == 0:
-                continue
-            xe = x[rows]
-            h = F.silu(P.mm(xe, W[pre + ".experts.gate"][j])) * \
-                P.mm(xe, W[pre + ".experts.up"][j])
-            y = P.mm(h, W[pre + ".experts.down"][j])
-            out = out.index_add(0, rows, y * wgt[rows, None])
-    return out, aux
-
-
-def decoder_layer(x: torch.Tensor, W: Weights, cfg: dict, i: int,
-                  lin: Linear, cap_tokens: int, train: bool,
-                  margins: Optional[list] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [T, D] of one sequence (positions 0..T-1, causal) -> (x, aux)."""
-    pre = f"llm.layers.{i}"
-    eps = cfg["rms_norm_eps"]
-    h_, kh = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    dh = cfg.get("head_dim") or cfg["hidden_size"] // h_
-    t = x.shape[0]
-    h = rms_norm(x, W[pre + ".input_norm.weight"], eps)
-    q = lin(h, pre + ".attn.wq") + W[pre + ".attn.bq"].float()
-    k = lin(h, pre + ".attn.wk") + W[pre + ".attn.bk"].float()
-    v = lin(h, pre + ".attn.wv") + W[pre + ".attn.bv"].float()
-    q = rope(q.reshape(t, h_, dh).transpose(0, 1), cfg["rope_theta"])
-    k = rope(k.reshape(t, kh, dh).transpose(0, 1), cfg["rope_theta"])
-    v = v.reshape(t, kh, dh).transpose(0, 1)
-    if kh != h_:
-        k = k.repeat_interleave(h_ // kh, 0)
-        v = v.repeat_interleave(h_ // kh, 0)
-    s = lin.P.mm(q, k.transpose(-1, -2)) * dh ** -0.5
-    causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
-    a = torch.softmax(s.masked_fill(~causal, float("-inf")), -1)
-    a = lin.P.mm(a, v).transpose(0, 1).reshape(t, h_ * dh)
-    x = x + lin(a, pre + ".attn.wo")
-    h = rms_norm(x, W[pre + ".post_attn_input_norm.weight"], eps)
-    if pre + ".mlp.router" in W:
-        y, aux = moe_block(h, W, cfg, pre + ".mlp", lin.P, cap_tokens, train,
-                           margins)
-    else:
-        y, aux = _swiglu(h, lin, pre + ".mlp"), torch.zeros((), device=x.device)
-    return x + y, aux
+    return common.architecture(cfg, "reference")
 
 
 def decoder(emb: torch.Tensor, W: Weights, cfg: dict, lin: Linear,
             cap_tokens: int, train: bool, remat: bool = False,
-            margins: Optional[list] = None
+            margins: Optional[list] = None,
+            segments: Optional[Sequence[int]] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[T, D] embeddings -> (final-norm hidden [T, D], summed aux);
-    `margins` gets each sparse layer's router margins (moe_block)."""
-    x, aux = emb.float(), torch.zeros((), device=emb.device)
-    for i in range(cfg["num_hidden_layers"]):
-        fn = (lambda x_, i_=i: decoder_layer(x_, W, cfg, i_, lin, cap_tokens,
-                                              train, margins))
-        x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
-        aux = aux + a
-    return rms_norm(x, W["llm.final_norm.weight"], cfg["rms_norm_eps"]), aux
+    """[T, D] embeddings -> (final-norm hidden [T, D], summed aux) through
+    the configuration's decoder: one sequence, or the sequences of
+    `segments` (their lengths) one after another, which the sparse layers
+    gate together; `margins` gets each sparse layer's router margins."""
+    return arch(cfg).decoder(emb, W, cfg, lin, cap_tokens, train,
+                             remat=remat, margins=margins, segments=segments)
 
 
 def embed(ids: torch.Tensor, W: Weights, image_rows: torch.Tensor,
@@ -316,16 +209,19 @@ def encode_image(W: Weights, cfg: dict, pixels: torch.Tensor, P: Numerics,
     return tower, projector(W, tower, P)
 
 
-def kd_ce(ls: torch.Tensor, lt: torch.Tensor, labels: torch.Tensor
+def kd_ce(ls: torch.Tensor, lt: torch.Tensor, labels: torch.Tensor,
+          segments: Optional[Sequence[int]] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(KD, CE) token means: KD = -sum_v p_t(v) log p_s(v) at the same
     position over the response tokens; CE next-token over the labels that
-    follow."""
+    follow in the same sequence (`segments`: the lengths of the sequences
+    one after another; the means run over all of their tokens)."""
     logp_s = torch.log_softmax(ls, -1)
     kd_mask = (labels != -100).float()
     kd_tok = -(torch.softmax(lt, -1) * logp_s).sum(-1)
     kd = (kd_tok * kd_mask).sum() / kd_mask.sum().clamp_min(1.0)
-    nxt = torch.cat([labels[1:], labels.new_full((1,), -100)])
+    nxt = torch.cat([torch.cat([lab[1:], lab.new_full((1,), -100)])
+                     for lab in labels.split(list(segments or [len(labels)]))])
     ce_mask = (nxt != -100).float()
     ce_tok = -logp_s.gather(-1, nxt.clamp_min(0).long()[:, None])[:, 0]
     ce = (ce_tok * ce_mask).sum() / ce_mask.sum().clamp_min(1.0)

@@ -94,7 +94,7 @@ def test_logits_are_the_programs_forward():
 
 def test_moe_gating_keeps_the_capacity_and_queues_choice_two_last():
     logits = torch.tensor([[3.0, 2.0, 0.0], [3.0, 0.0, 2.0], [3.0, 2.0, 0.0]])
-    routes, aux = rm.moe_gating(logits, k=2, capacity=2)
+    routes, aux = rm.arch(tiny.STUDENT).moe_gating(logits, k=2, capacity=2)
     (e1, w1), (e2, w2) = routes
     assert e1.tolist() == [0, 0, 0] and e2.tolist() == [1, 2, 1]
     # expert 0 holds two: the third token's first choice is dropped and

@@ -13,7 +13,8 @@ VISION = {"name": "tiny-vit", "image_size": 28, "patch_size": 14,
           "num_attention_heads": 4, "layer_norm_eps": 1e-05,
           "hidden_act": "quick_gelu"}
 
-STUDENT = {"name": "tiny-moe", "vocab_size": 151936, "hidden_size": 64,
+STUDENT = {"name": "tiny-moe", "architecture": "llava_qwen",
+           "vocab_size": 151936, "hidden_size": 64,
            "intermediate_size": 128, "num_hidden_layers": 2,
            "num_attention_heads": 4, "num_key_value_heads": 4, "head_dim": 16,
            "max_position_embeddings": 4096, "rope_theta": 1000000.0,
@@ -46,6 +47,20 @@ DISTILL = {"driver": "distill", "chips": 1, "config": "tiny-moe",
                            "--dataloader_num_workers", "2"],
            "limits": {"loss": 1e-3, "loss_after": 3e-5, "first_grad": 1e-2,
                       "mean_grad": 5e-2, "update": 1e-2}}
+
+# the distillation cell on four ranks (gloo on the CPU): two experts a rank
+# and the rest of the mesh on fsdp, an update every 2 microbatches.  Sound
+# runs read up to loss 3.7e-5, loss_after 4.4e-5, first_grad 0.032 (a
+# router), mean_grad 0.022, update 2.6e-4 over 5 seeds; the control reads
+# first_grad 0.073, mean_grad 0.068, half the accumulation mean_grad 0.059,
+# the flipped update loss_after 1.2e-4
+DISTILL_DIST = dict(DISTILL, driver="distill_dist", chips=4,
+                    extra_flags=DISTILL["extra_flags"] + [
+                        "--gradient_accumulation_steps", "2",
+                        "--expert_parallel", "2"],
+                    limits={"loss": 1e-3, "loss_after": 8e-5,
+                            "first_grad": 0.05, "mean_grad": 0.04,
+                            "update": 1e-2})
 
 SERVE = {"driver": "serve", "chips": 1, "config": "tiny-moe",
          "traffic": "tiny-questions",
